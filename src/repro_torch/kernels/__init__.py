@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel of
+``repro.kernels`` on the ported paths.
+
+Each ``csrc/<name>.cu`` is built by ``_build`` at first use and bound with
+ctypes; its wrapper module checks inputs, launches it on the current CUDA
+stream and counts launches, and takes the plain version in ``ref.py`` only
+for CPU tensors.
+"""

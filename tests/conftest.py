@@ -27,3 +27,9 @@ def api_plan_placement(graph, topology, strategy="opt", replicate=True,
         DeploymentSpec(strategy=name, topology=topology,
                        replicate=replicate, max_replicas=max_replicas),
         graph=graph, base_spec=base_spec)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU of compute capability >= 9.0 "
+        "(the port's hand-written kernels); skips elsewhere")
