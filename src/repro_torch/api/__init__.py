@@ -8,15 +8,23 @@
                              strategy="balanced"))
     dep = deploy(spec, graph=g, stage_fn_builder=fns_for)
 
-A copy of the reference package's front door.  Per-depth costs are
-``"analytic"`` only; the trace-backed cost sources, the decode tier and the
-fleet tier are not ported yet.
+A copy of the reference package's front door, with the decode tier's
+``decode_placement`` strategy registered.  Per-depth costs are
+``"analytic"`` only; the trace-backed cost sources and the fleet tier are
+not ported yet.
 """
 from .spec import DeploymentSpec, resolve_model_graph
 from .report import PlanReport
 from .strategies import (PlanContext, PlanStrategy, available_strategies,
                          get_strategy, register_strategy)
 from .deploy import Deployment, deploy, plan
+
+# the decode tier's strategy lives in repro_torch.decode.placement, which
+# imports this package's modules -- registration is deferred into a
+# callable invoked once the registry exists
+from ..decode.placement import _register as _register_decode
+_register_decode()
+del _register_decode
 
 __all__ = [
     "DeploymentSpec", "resolve_model_graph",

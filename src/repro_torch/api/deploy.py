@@ -49,7 +49,8 @@ def plan(spec: DeploymentSpec, *,
          reporter: Optional[MemoryReporter] = None,
          base_spec: Optional[EdgeTPUSpec] = None,
          cost_source: Optional[Any] = None,
-         attach_report: bool = True) -> PlacementPlan:
+         attach_report: bool = True,
+         cfg: Optional[Any] = None) -> PlacementPlan:
     """Turn a declarative spec into a placement plan.
 
     ``graph`` overrides ``spec.model`` resolution (pass a live LayerGraph
@@ -59,10 +60,17 @@ def plan(spec: DeploymentSpec, *,
     JSON spec.  ``cost_source`` overrides ``spec.cost_source`` resolution
     with a live :class:`~repro.profiling.sources.CostSource` instance —
     the self-healing loop replans against its in-memory live trace this
-    way (there is no file to point a ``trace:<path>`` ref at).  Every
+    way (there is no file to point a ``trace:<path>`` ref at).  ``cfg``
+    is the LM config ``graph`` was built from: ``decode_placement`` prices
+    its KV rows and widths (a full-width graph needs its full-width
+    config; without one the strategy prices the spec's ``lm:`` ref's
+    smoke config, as the reference does).  Every
     registered strategy is reachable; plans are bit-identical to the
     legacy ``repro_torch.core.planner`` entry points for the same inputs
     (asserted over all 21 Table-1 models in tests/test_deploy_api.py)."""
+    if cfg is not None and graph is None:
+        raise ValueError("cfg= prices the graph passed beside it; pass "
+                         "graph= too")
     if graph is None:
         if spec.model is None:
             raise ValueError("spec has no model ref; pass plan(spec, "
@@ -78,7 +86,7 @@ def plan(spec: DeploymentSpec, *,
                          f"topology; set DeploymentSpec.topology or "
                          f"device_budget")
     ctx = PlanContext(spec=spec, graph=graph, tpu_model=tpu_model,
-                      reporter=reporter, base_spec=base_spec,
+                      reporter=reporter, base_spec=base_spec, cfg=cfg,
                       _cost_source=cost_source,
                       _cost_source_resolved=cost_source is not None)
     pl = strategy.plan(ctx)
@@ -124,7 +132,8 @@ class Deployment:
                  stage_fns: Optional[Sequence[Callable]] = None,
                  tpu_model: Optional[EdgeTPUModel] = None,
                  reporter=None,
-                 base_spec: Optional[EdgeTPUSpec] = None):
+                 base_spec: Optional[EdgeTPUSpec] = None,
+                 cfg: Optional[Any] = None):
         self.spec = spec
         self.plan = plan
         self.graph = graph
@@ -138,6 +147,7 @@ class Deployment:
         self._tpu_model = tpu_model
         self._reporter = reporter
         self._base_spec = base_spec
+        self._cfg = cfg                 # the LM config behind ``graph``
         # resize baseline: ``reconfigure(stages=n)`` always derives from
         # this spec, not from the previous resize's output — a scale-down
         # that truncated the topology must not cap a later scale-up
@@ -251,15 +261,26 @@ class Deployment:
             ex.start()
         return ex
 
-    def serve(self, start: bool = False):
+    def serve(self, start: bool = False, *, params: Any = None):
         """The streaming server over this deployment's plan.  At most one
         live server per deployment (reconfigure targets it); a server the
-        caller already stopped no longer counts."""
+        caller already stopped no longer counts.
+
+        ``workload="decode"`` specs get a continuous-batching
+        :class:`~repro_torch.decode.engine.DecodeServer` (token streams,
+        not request/response futures) for the config the plan priced;
+        ``params`` supplies its weights on the device to serve on (fresh
+        smoke weights on the card otherwise, for the spec's smoke config
+        only)."""
         self._check_open("serve()")
         if self.spec.workload == "decode":
-            raise NotImplementedError(
-                "workload='decode': the decode tier (decode/engine.py) is "
-                "not ported to repro_torch yet; it is the decode slice")
+            from ..decode.engine import build_decode_server
+            srv = build_decode_server(
+                self.spec, plan=self.plan, params=params, cfg=self._cfg,
+                queue_size=self.spec.queue_size)
+            if start:
+                srv.start()
+            return srv
         if self._live_server() is not None:
             raise RuntimeError("deployment already has a live server; "
                                "stop it before serving again")
@@ -305,7 +326,7 @@ class Deployment:
             new_spec = self._spec_template.with_stages(stages)
         new_plan = plan(new_spec, graph=self.graph,
                         tpu_model=self._tpu_model, reporter=self._reporter,
-                        base_spec=self._base_spec)
+                        base_spec=self._base_spec, cfg=self._cfg)
         fns = self.stage_functions(new_plan)
         if self._live_server() is not None:
             self._server.reconfigure(new_plan, fns,
@@ -339,13 +360,18 @@ def deploy(spec: DeploymentSpec, *,
            stage_fns: Optional[Sequence[Callable]] = None,
            tpu_model: Optional[EdgeTPUModel] = None,
            reporter: Optional[MemoryReporter] = None,
-           base_spec: Optional[EdgeTPUSpec] = None) -> Deployment:
-    """Plan a spec and wrap it in a :class:`Deployment` handle."""
+           base_spec: Optional[EdgeTPUSpec] = None,
+           cfg: Optional[Any] = None) -> Deployment:
+    """Plan a spec and wrap it in a :class:`Deployment` handle (``cfg``:
+    the LM config behind ``graph``, see :func:`plan`)."""
+    if cfg is not None and graph is None:
+        raise ValueError("cfg= prices the graph passed beside it; pass "
+                         "graph= too")
     if graph is None and spec.model is not None:
         graph = resolve_model_graph(spec.model)
     pl = plan(spec, graph=graph, tpu_model=tpu_model, reporter=reporter,
-              base_spec=base_spec)
+              base_spec=base_spec, cfg=cfg)
     return Deployment(spec, pl, graph=graph,
                       stage_fn_builder=stage_fn_builder,
                       stage_fns=stage_fns, tpu_model=tpu_model,
-                      reporter=reporter, base_spec=base_spec)
+                      reporter=reporter, base_spec=base_spec, cfg=cfg)

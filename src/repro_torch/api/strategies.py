@@ -43,7 +43,7 @@ Registering a new policy::
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple, Type
+from typing import Any, Callable, Dict, List, Optional, Tuple, Type
 
 from ..core.edge_tpu_model import EdgeTPUModel, EdgeTPUSpec
 from ..core.graph import LayerGraph
@@ -62,13 +62,15 @@ class PlanContext:
     """Everything a strategy may need at plan time: the declarative spec
     plus the runtime objects that cannot live in a JSON document (a
     prebuilt graph, a calibrated device model, a compiler-backed memory
-    reporter)."""
+    reporter, the LM config behind a caller's graph -- ``decode_placement``
+    prices its KV rows, else the spec's ``lm:`` ref's smoke config)."""
 
     spec: DeploymentSpec
     graph: LayerGraph
     tpu_model: Optional[EdgeTPUModel] = None
     reporter: Optional[MemoryReporter] = None
     base_spec: Optional[EdgeTPUSpec] = None
+    cfg: Optional[Any] = None
     _model: Optional[EdgeTPUModel] = dataclasses.field(
         default=None, repr=False)
     _cost_source: Optional[object] = dataclasses.field(
@@ -150,7 +152,7 @@ class PlanContext:
         return PlanContext(spec=spec, graph=self.graph,
                            tpu_model=tpu_model or self.tpu_model,
                            reporter=self.reporter,
-                           base_spec=self.base_spec,
+                           base_spec=self.base_spec, cfg=self.cfg,
                            # share the resolved source: the child must not
                            # re-read the trace artifact from disk
                            _cost_source=self._cost_source,

@@ -1,0 +1,141 @@
+"""Flash-decode: the wrapper around ``csrc/flash_decode.cu``.
+
+``flash_decode(q, k_cache, v_cache, cache_len)`` computes the function of
+the TPU kernel ``repro/kernels/flash_decode.py``: one query token per
+(batch row, q head), q ``(B, Hq, D)``, k/v caches ``(B, Hkv, T, D)``, GQA,
+cache positions ``[0, len)`` valid, fp32 online softmax, output in q's
+dtype.  ``cache_len`` is an int or a ``(B,)`` per-slot length; a length of
+0 gives zeros and a length above T means all T positions.  CUDA tensors
+launch the hand-written kernel; CPU tensors take the plain version
+:func:`~repro_torch.kernels.ref.flash_decode_ref`.  Any other case raises.
+
+The kernel takes element strides for the batch, head and sequence axes, so
+the caches may be ``(B, Hkv, T, D)`` views of the decode engine's
+``(slots, T, Hkv, D)`` layer caches, read in place; the head dim must be
+contiguous and every cache row 16-byte aligned (it is loaded 16 bytes a
+lane).  A ``(B,)`` length tensor is read by the kernel from device memory,
+so nothing on the host waits for it.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import torch
+
+from . import _build
+from .ref import decode_lengths, flash_decode_ref
+
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_GROUP = 8                 # q heads per kv head the kernel serves
+CHUNK = 256                   # cache positions per block (one split)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0            # wrapper calls that launched the kernel since reset
+_count_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    global launches
+    with _count_lock:
+        launches = 0
+
+
+def _count_launch() -> None:
+    global launches
+    with _count_lock:
+        launches += 1
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_decode wants q (B,Hq,D) and k/v caches "
+                         f"(B,Hkv,T,D) of one shape; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, d = q.shape
+    bk, hkv, _, dk = k.shape
+    if bk != b or dk != d or hkv == 0 or hq % hkv:
+        raise ValueError(f"flash_decode: batch and head dim must match and "
+                         f"Hq must be a multiple of Hkv; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"flash_decode takes one dtype of {list(_DTYPES)}; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"flash_decode inputs on different devices: "
+                         f"{q.device}, {k.device}, {v.device}")
+
+
+def _check_kernel_layout(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> None:
+    d, group = q.shape[2], q.shape[1] // k.shape[1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_decode kernel takes head dims {HEAD_DIMS}, "
+                         f"got {d}")
+    if group > MAX_GROUP:
+        raise ValueError(f"flash_decode kernel serves at most {MAX_GROUP} q "
+                         f"heads per kv head, got {group}")
+    if any(x.stride(-1) != 1 for x in (q, k, v)):
+        raise ValueError("flash_decode needs a contiguous head dim "
+                         "(stride 1 on the last axis)")
+    size = k.element_size()
+    for x in (k, v):
+        if x.data_ptr() % 16 or any(st * size % 16 for st in x.stride()[:3]):
+            raise ValueError("flash_decode needs 16-byte aligned cache rows "
+                             "(base pointer and batch/head/seq strides)")
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+    """q: (B, Hq, D); k/v caches: (B, Hkv, T, D); cache_len: an int or a
+    (B,) integer tensor -> (B, Hq, D)."""
+    _check(q, k_cache, v_cache)
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k_cache, v_cache, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on CUDA or CPU tensors, not "
+                         f"{q.device}")
+    _check_kernel_layout(q, k_cache, v_cache)
+    b, hq, d = q.shape
+    hkv, t = k_cache.shape[1], k_cache.shape[2]
+    if isinstance(cache_len, int):
+        len_ptr, scalar = None, cache_len
+    else:
+        lens = decode_lengths(cache_len, b, q.device).contiguous()
+        len_ptr, scalar = lens.data_ptr(), 0
+    nsplit = max(1, -(-t // CHUNK))
+    out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    part_acc = part_ml = None
+    if nsplit > 1:
+        part_acc = torch.empty((b, hq, nsplit, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, hq, nsplit, 2), dtype=torch.float32,
+                              device=q.device)
+    strides = (ctypes.c_longlong * 10)(
+        *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
+        *out.stride()[:2])
+    fn = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 out.data_ptr(),
+                 None if part_acc is None else part_acc.data_ptr(),
+                 None if part_ml is None else part_ml.data_ptr(),
+                 len_ptr, scalar, _DTYPES[q.dtype], b, hq, hkv, t, d,
+                 CHUNK, nsplit, strides, d ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    _count_launch()
+    return out
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("flash_decode").flash_decode_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn

@@ -25,3 +25,38 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", probs, v.float())
     return out.reshape(b, hq, s, d).to(q.dtype)
+
+
+def decode_lengths(cache_len, b: int, device) -> torch.Tensor:
+    """``cache_len`` (an int, a 0-d tensor or a ``(B,)`` tensor) as a
+    ``(B,)`` int32 tensor on ``device``."""
+    lens = torch.as_tensor(cache_len, dtype=torch.int32, device=device)
+    if lens.dim() == 0:
+        return lens.expand(b)
+    if lens.shape != (b,):
+        raise ValueError(f"cache_len must be an int or a ({b},) tensor; "
+                         f"got shape {tuple(lens.shape)}")
+    return lens
+
+
+def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+    """Single-token cached attention, fp32 softmax.  q: (B,Hq,D); caches
+    (B,Hkv,T,D); ``cache_len``: an int or a (B,) per-slot length (cache
+    positions [0, len) are valid; a length above T means all T).
+
+    A slot of length 0 gives zeros, as the TPU kernel does (its skipped
+    blocks leave the softmax denominator at 0)."""
+    b, hq, d = q.shape
+    hkv, t = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    lens = decode_lengths(cache_len, b, q.device)
+    qg = q.reshape(b, hkv, g, d).float()
+    scores = torch.einsum("bkgd,bktd->bkgt", qg,
+                          k_cache.float()) / (d ** 0.5)
+    valid = torch.arange(t, device=q.device)[None, :] < lens[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", probs, v_cache.float())
+    out = out * (lens > 0).float()[:, None, None, None]
+    return out.reshape(b, hq, d).to(q.dtype)

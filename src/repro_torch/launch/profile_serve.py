@@ -1,10 +1,12 @@
 """Where the serving path's time goes on the card.
 
-Runs ``torch.profiler`` (CPU + CUDA activities) over two windows of the
-``launch/serve.py`` path and prints, for each: the window's wall time, the
+Runs ``torch.profiler`` (CPU + CUDA activities) over windows of the
+``launch/serve.py`` paths and prints, for each: the window's wall time, the
 device's busy time (the union of kernel intervals over all streams) and
-idle share, kernel time by kind (the flash-attention kernel, GEMMs, the
-rest), and the top kernels by device time.
+idle share, kernel time by kind (the flash-attention and flash-decode
+kernels, GEMMs, the rest), and the top kernels by device time.
+
+Batch workload (the default):
 
 * ``direct``: ``--forwards`` whole-model forwards of one request, back to
   back on one thread and the default stream;
@@ -12,8 +14,17 @@ rest), and the top kernels by device time.
   through the planned pipeline (one host thread and CUDA stream per
   stage), after an unprofiled round that warms every stage.
 
+Decode workload (``--workload decode``): one window over the served decode
+stream (a warm-up stream, then ``--requests`` prompts submitted at once
+through the continuous batch), after an unprofiled stream that warms every
+stage.
+
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --seq 1024 --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --workload decode --decode-concurrency 8 --max-context 2048 \\
+        --prompt-len 1024 --max-new-tokens 64 --requests 16 \\
+        --plan-device-bytes 21000000000
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from repro_torch.launch import serve
 from repro_torch.models import lm
 
 KINDS = (("flash_attention", ("flash_attention",)),
+         ("flash_decode", ("flash_decode",)),
          ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")))
 
 
@@ -92,6 +104,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.device != "cuda":
         raise SystemExit("profile_serve measures the card: --device cuda")
     print(torch.cuda.get_device_name(0))
+    if args.workload == "decode":
+        cfg, params, dep, prompts = serve.setup_decode(args)
+
+        def stream():
+            return serve.serve_decode(dep, params, prompts,
+                                      args.max_new_tokens)
+
+        stream()                                # warms every stage
+        prof, wall = profiled(stream)
+        summarize(prof, wall, f"decode 1+{len(prompts)} streams x "
+                              f"{args.max_new_tokens}")
+        return
     cfg, params, dep, reqs = serve.setup(args)
     batch = {"tokens": reqs[0]}
 

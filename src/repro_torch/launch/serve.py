@@ -1,7 +1,9 @@
 """Serving entry point: streamed prefill requests through the balanced-segmented
-pipeline, on one CUDA device.
+pipeline, or token streams through the KV-aware decode pipeline, on one CUDA
+device.
 
-The batch workload of ``repro/launch/serve.py`` on the host backend:
+The batch workload (``--workload batch``, the default) of
+``repro/launch/serve.py`` on the host backend:
 
 1. build the arch's LayerGraph and plan it with ``--strategy`` for
    ``--stages`` devices through the front door (``deploy``);
@@ -13,11 +15,22 @@ The batch workload of ``repro/launch/serve.py`` on the host backend:
    server's ``snapshot()`` deltas, and check the first request against
    the direct forward.
 
+The decode workload (``--workload decode``): plan with the
+``decode_placement`` strategy at the ``(--decode-concurrency,
+--max-context)`` operating point, for a planning device with
+``--plan-device-bytes`` of memory per stage (unset: the reference's 8 MiB
+Edge TPU), then stream ``--requests`` prompts of ``--prompt-len`` tokens,
+``--max-new-tokens`` each, through the continuous-batching
+:class:`~repro_torch.decode.engine.DecodeServer`.
+
 Full width is the default; ``--smoke`` serves the reduced config.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --stages 4 --requests 15
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload decode \\
+        --decode-concurrency 8 --max-context 2048 --prompt-len 1024 \\
+        --max-new-tokens 64 --requests 16 --plan-device-bytes 21000000000
 """
 from __future__ import annotations
 
@@ -32,6 +45,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.api import DeploymentSpec, deploy
 from repro_torch.configs.common import concrete_batch
+from repro_torch.core.edge_tpu_model import EdgeTPUSpec
 from repro_torch.core.pipeline import stage_balance_metrics
 from repro_torch.core.placement import PlacementPlan
 from repro_torch.models import lm, lm_graph
@@ -89,11 +103,19 @@ def make_stage_fns(cfg: lm.LMConfig, params: lm.Params,
 
 def spec_from_args(args: argparse.Namespace) -> DeploymentSpec:
     """CLI flags -> declarative DeploymentSpec (the front door)."""
-    return DeploymentSpec(model=f"lm:{args.arch}:seq={args.seq}",
-                          strategy=args.strategy, stages=args.stages,
-                          microbatch=args.microbatch,
-                          microbatch_wait_s=args.microbatch_wait_ms / 1e3,
-                          max_batch=args.requests, max_wait_s=0.005)
+    common = dict(model=f"lm:{args.arch}:seq={args.seq}",
+                  stages=args.stages, microbatch=args.microbatch,
+                  microbatch_wait_s=args.microbatch_wait_ms / 1e3,
+                  max_batch=args.requests, max_wait_s=0.005)
+    if args.workload == "decode":
+        # decode plans at the (concurrency, max_context) operating point
+        # with the per-token cost regime; see repro_torch.decode
+        return DeploymentSpec(strategy="decode_placement",
+                              workload="decode",
+                              max_context=args.max_context,
+                              decode_concurrency=args.decode_concurrency,
+                              **common)
+    return DeploymentSpec(strategy=args.strategy, **common)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -118,6 +140,26 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "into one call; 1 = off)")
     ap.add_argument("--microbatch-wait-ms", type=float, default=2.0,
                     help="max hold time for a micro-batch bucket to fill")
+    ap.add_argument("--workload", default="batch",
+                    choices=["batch", "decode"],
+                    help="'batch': prefill request/response serving "
+                         "(default).  'decode': KV-cache-aware placement "
+                         "(decode_placement strategy) + continuous-"
+                         "batching token streaming")
+    ap.add_argument("--max-context", type=int, default=128,
+                    help="decode operating point: per-sequence KV budget "
+                         "(prompt + generated tokens)")
+    ap.add_argument("--decode-concurrency", type=int, default=4,
+                    help="decode operating point: concurrent sequences in "
+                         "the running batch")
+    ap.add_argument("--max-new-tokens", type=int, default=16,
+                    help="tokens generated per decode request")
+    ap.add_argument("--prompt-len", type=int, default=8,
+                    help="tokens per decode prompt")
+    ap.add_argument("--plan-device-bytes", type=int, default=0,
+                    help="decode planning: memory per stage of the device "
+                         "the plan is priced for (0: the reference's 8 MiB "
+                         "Edge TPU)")
     return ap.parse_args(argv)
 
 
@@ -177,8 +219,87 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
             "max_err": err}
 
 
+def setup_decode(args: argparse.Namespace):
+    """Random weights from ``args.seed``, the decode plan through the front
+    door (the config and a ``--plan-device-bytes`` planning device beside
+    the graph), and the prompts: (cfg, params, deployment, prompts)."""
+    device = resolve_device(args.device)
+    mod = configs.get(args.arch)
+    cfg = mod.smoke_config() if args.smoke else mod.config()
+    params = lm.init_params(cfg, device,
+                            torch.Generator(device).manual_seed(args.seed))
+    g = lm_graph.lm_layer_graph(cfg, seq_len=args.seq)
+    base = (EdgeTPUSpec(onchip_bytes=args.plan_device_bytes)
+            if args.plan_device_bytes else None)
+    dep = deploy(spec_from_args(args), graph=g, cfg=cfg, base_spec=base)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab, size=args.prompt_len)
+               .astype(np.int32) for _ in range(args.requests)]
+    return cfg, params, dep, prompts
+
+
+def serve_decode(dep, params, prompts: Sequence[np.ndarray],
+                 max_new_tokens: int) -> Dict[str, Any]:
+    """One warm-up stream of 2 tokens, then every prompt submitted at once.
+    Returns the token lists (in prompt order), the scheduler's snapshots
+    of the warm-up and of the stream, the stream's wall seconds, and the
+    engine's per-stage busy seconds over the stream."""
+    with dep.serve(start=True, params=params) as srv:
+        srv.submit(prompts[0], max_new_tokens=2).result(600)     # warm-up
+        warm = srv.snapshot()                   # resets the delta window
+        busy0 = srv.engine.pipe.busy_snapshot()
+        t0 = time.perf_counter()
+        reqs = [srv.submit(p, max_new_tokens=max_new_tokens)
+                for p in prompts]
+        outs = [r.result(600) for r in reqs]
+        seconds = time.perf_counter() - t0
+        snap = srv.snapshot()
+        busy = [b - a for a, b in zip(busy0, srv.engine.pipe.busy_snapshot())]
+    return {"outs": outs, "warmup": warm, "snapshot": snap,
+            "seconds": seconds, "stage_busy_s": busy}
+
+
+def run_decode(args: argparse.Namespace) -> Dict[str, Any]:
+    """``--workload decode``: KV-aware placement + continuous batching.
+    Returns :func:`serve_decode`'s results plus the config, weights, plan
+    and prompts."""
+    cfg, params, dep, prompts = setup_decode(args)
+    res = serve_decode(dep, params, prompts, args.max_new_tokens)
+    res.update(cfg=cfg, params=params, plan=dep.plan, prompts=prompts)
+    return res
+
+
+def main_decode(args: argparse.Namespace) -> Dict[str, Any]:
+    res = run_decode(args)
+    pl, snap, outs = res["plan"], res["snapshot"], res["outs"]
+    rep = pl.report
+    print("plan:", pl.describe())
+    print("report:", rep.describe())
+    print("blocks per stage:", stage_block_counts(pl, res["cfg"].n_layers))
+    print(f"stage KV bytes {list(rep.stage_kv_bytes)} of "
+          f"{rep.stage_kv_cap_bytes[0]} per stage, KV headroom "
+          f"{rep.kv_headroom_pct:.1f}%")
+    if not all(len(o) == args.max_new_tokens for o in outs):
+        raise SystemExit(f"streams returned {[len(o) for o in outs]} "
+                         f"tokens, expected {args.max_new_tokens} each")
+    n_gaps = snap["tokens"] - len(outs)
+    print(f"{len(outs)} streams x {args.max_new_tokens} tokens in "
+          f"{res['seconds'] * 1e3:.1f} ms "
+          f"({snap['tokens'] / res['seconds']:.1f} tok/s, "
+          f"{snap['steps']} batched steps)")
+    print(f"inter-token p50/p95 (ms): {snap['inter_token_p50_s'] * 1e3:.2f}"
+          f" / {snap['inter_token_p95_s'] * 1e3:.2f} ({n_gaps} gaps)")
+    busy = res["stage_busy_s"]
+    print(f"stage busy (s): {[round(b, 4) for b in busy]}, balance "
+          f"(mean/max) {stage_balance_metrics(busy)['balance']:.3f}")
+    print(f"modeled decode: {rep.decode_tokens_per_s:.1f} tok/s")
+    return res
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
+    if args.workload == "decode":
+        return main_decode(args)
     res = run(args)
     pl, snap = res["plan"], res["snapshot"]
     print("plan:", pl.describe())

@@ -2,9 +2,11 @@
 
 Ported from ``repro/models/attention.py`` with its numerics: bf16
 activations with fp32 norm, RoPE and softmax arithmetic.  The model's
-attention goes through the CUDA flash kernel
-(:mod:`repro_torch.kernels.flash_attention`); :func:`full_attention` is the
-plain reference with the JAX module's exact rounding points.
+attention goes through the CUDA kernels
+(:mod:`repro_torch.kernels.flash_attention` for a sequence,
+:mod:`repro_torch.kernels.flash_decode` for one decode token);
+:func:`full_attention` and :func:`decode_attention` are the plain references
+with the JAX module's exact rounding points.
 """
 from __future__ import annotations
 
@@ -59,3 +61,25 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
     return out.reshape(b, s, hq, d).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+    """One-token decode: q (B,1,Hq,D) against a (B,T,Hkv,D) cache.
+
+    ``cache_len`` (an int, or a tensor broadcastable to (B, T) such as a
+    per-slot ``ctx[:, None]``) is the number of valid cache entries; the
+    new token's k/v must already be written at position cache_len-1.  The
+    JAX module's rounding points, as in :func:`full_attention`."""
+    b, _, hq, d = q.shape
+    t, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, 1, hkv, hq // hkv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k_cache.float())
+    scores = scores / torch.sqrt(torch.tensor(float(d)))
+    valid = torch.arange(t, device=q.device)[None, :] < torch.as_tensor(
+        cache_len, device=q.device)
+    valid = valid.expand(b, t)
+    scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, hq, d).to(q.dtype)

@@ -8,12 +8,15 @@ mirroring the JAX tree, except that ``blocks`` is a list with one dict per
 layer (the JAX tree stacks them along a leading axis); weights are laid out
 ``(in, out)`` as there.
 
-Every layer's attention is the CUDA flash kernel
+Every layer's attention is a CUDA kernel: over a sequence the flash kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`) in
-``(B, H, S, D)``: the model's ``(B, S, H, D)`` projections are passed as
-transposed views, which the kernel reads through their strides.  Only the
-dense family with swiglu MLP and no QKV bias is ported; other families and
-options raise.
+``(B, H, S, D)``, the model's ``(B, S, H, D)`` projections passed as
+transposed views, which the kernel reads through their strides; for one
+decode token against a KV cache the flash-decode kernel
+(:func:`repro_torch.kernels.flash_decode.flash_decode`), the ``(B, T, Hkv,
+D)`` caches passed the same way.  Caches are written in place (the JAX
+module returns updated copies).  Only the dense family with swiglu MLP and
+no QKV bias is ported; other families and options raise.
 """
 from __future__ import annotations
 
@@ -24,9 +27,11 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_decode import flash_decode
 from . import attention as A
 
 Params = Dict[str, Any]
+KVRows = Tuple[torch.Tensor, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,17 +175,47 @@ def _qkv(cfg: LMConfig, p: Params, x: torch.Tensor):
 
 
 def attn_block(cfg: LMConfig, p: Params, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor,
+               cache_rows: Optional[KVRows] = None) -> torch.Tensor:
     """Full-sequence causal attention (prefill).  One kernel call covers
     both of the reference's branches (``s <= q_chunk``: full attention,
-    else query-chunked): they compute the same function."""
+    else query-chunked): they compute the same function.
+
+    ``cache_rows`` (one sequence, B = 1): a decode slot's ``(T, Hkv, D)``
+    K and V caches, whose first S rows take the post-RoPE k/v in place."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     q = A.apply_rope(q, positions, cfg.rope_theta)
     k = A.apply_rope(k, positions, cfg.rope_theta)
+    if cache_rows is not None:
+        cache_rows[0][:s].copy_(k[0])
+        cache_rows[1][:s].copy_(v[0])
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=True)
     return out.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"]
+
+
+def attn_block_decode(cfg: LMConfig, p: Params, x: torch.Tensor,
+                      k_cache: torch.Tensor, v_cache: torch.Tensor,
+                      cache_len, positions: torch.Tensor,
+                      write: Tuple) -> torch.Tensor:
+    """Single-token decode (the reference's dense branch, no window).
+
+    x: (B, 1, d_model); caches (B, T, Hkv, D), written in place: the new
+    post-RoPE k/v go to ``cache[write]`` from batch rows ``write[0]``
+    (``(slice(None), n - 1)`` for a whole batch at one position, or
+    ``(rows, positions)`` index tensors for the decode engine's active
+    slots).  ``cache_len``: an int or a (B,) int32 tensor on the caches'
+    device; ``positions``: (B, 1) or (1, 1) RoPE positions."""
+    b = x.shape[0]
+    q, k, v = _qkv(cfg, p, x)                       # S == 1
+    q = A.apply_rope(q, positions, cfg.rope_theta)
+    k = A.apply_rope(k, positions, cfg.rope_theta)
+    k_cache[write] = k[write[0], 0]
+    v_cache[write] = v[write[0], 0]
+    out = flash_decode(q[:, 0], k_cache.transpose(1, 2),
+                       v_cache.transpose(1, 2), cache_len)
+    return out.reshape(b, 1, cfg.q_dim) @ p["wo"]
 
 
 def mlp_block(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -188,9 +223,20 @@ def mlp_block(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def block(cfg: LMConfig, bp: Params, x: torch.Tensor,
-          positions: torch.Tensor) -> torch.Tensor:
+          positions: torch.Tensor,
+          cache_rows: Optional[KVRows] = None) -> torch.Tensor:
     x = x + attn_block(cfg, bp["attn"], A.rms_norm(x, bp["ln1"]["scale"]),
-                       positions)
+                       positions, cache_rows)
+    return x + mlp_block(cfg, bp["mlp"], A.rms_norm(x, bp["ln2"]["scale"]))
+
+
+def block_decode(cfg: LMConfig, bp: Params, x: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len,
+                 positions: torch.Tensor, write: Tuple) -> torch.Tensor:
+    """One decoder block of one decode step; see :func:`attn_block_decode`."""
+    x = x + attn_block_decode(cfg, bp["attn"],
+                              A.rms_norm(x, bp["ln1"]["scale"]), k_cache,
+                              v_cache, cache_len, positions, write)
     return x + mlp_block(cfg, bp["mlp"], A.rms_norm(x, bp["ln2"]["scale"]))
 
 
@@ -225,3 +271,31 @@ def forward(cfg: LMConfig, params: Params, batch: Dict[str, torch.Tensor],
     if last_token_only:
         x = x[:, -1:]
     return unembed(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               device: torch.device) -> Params:
+    """Zero K/V caches (n_layers, B, T, Hkv, D) in the model dtype, and the
+    valid length 0."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "len": 0}
+
+
+def forward_decode(cfg: LMConfig, params: Params, tokens: torch.Tensor,
+                   cache: Params) -> Tuple[torch.Tensor, Params]:
+    """One decode step: tokens (B, 1) -> fp32 logits (B, 1, V) and the cache
+    with its length advanced; the K/V tensors are updated in place."""
+    require_ported(cfg)
+    x = embed_tokens(cfg, params, tokens)
+    n = cache["len"] + 1
+    pos = torch.full((1, 1), n - 1, device=x.device)
+    write = (slice(None), n - 1)
+    for i, bp in enumerate(params["blocks"]):
+        x = block_decode(cfg, bp, x, cache["k"][i], cache["v"][i], n, pos,
+                         write)
+    return unembed(cfg, params, x), {**cache, "len": n}

@@ -6,6 +6,8 @@ package's ``deploy(...).serve()`` -- as ``launch/serve.py``'s batch
 workload does.  fp32 throughout; outputs within 1e-4 of the reference's
 ``api.forward`` (summation order over four layers).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -136,9 +138,13 @@ def test_serve_entry_point_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("call", [
     lambda dep: dep.executor(backend="spmd"),
     lambda dep: dep.self_heal([]),
+    # decode serves the dense family; the MoE/VLM decode path is not
+    # ported yet
     lambda dep: tapi.Deployment(
-        tapi.DeploymentSpec(**{**SPEC, "workload": "decode"}),
-        dep.plan, stage_fns=[]).serve(),
+        tapi.DeploymentSpec(**{**SPEC, "workload": "decode"}), dep.plan,
+        cfg=dataclasses.replace(tconfigs.get(ARCH).smoke_config(),
+                                family="moe", n_experts=4, top_k=2)
+    ).serve(params={}),
     lambda dep: tapi.plan(tapi.DeploymentSpec(model="cnn:ResNet50",
                                               stages=2)),
     lambda dep: tapi.plan(tapi.DeploymentSpec(
