@@ -4,14 +4,18 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every CUDA kernel of the serving paths from the sources in this
-   checkout (one nvcc per source, started together);
+2. builds every CUDA kernel of the model paths from the sources in this
+   checkout (flash_attention, flash_decode, rwkv6_scan, rglru_scan; one
+   nvcc per source, started together);
 3. holds each kernel against its plain PyTorch version at the shapes the
-   serving paths give it, and times kernel, plain version and one library
-   call (the yardstick; the port never calls it);
+   model paths give it (the flash kernels also at recurrentgemma's head dim
+   256 with 16 q heads per kv head), and times kernel, plain version and,
+   where one exists, one library call (the yardstick; the port never calls
+   it; no single PyTorch call computes either recurrence);
 4. holds the full model on the card against the same model on the CPU at
-   the smoke config (the CPU runs the plain attention), for a prefill
-   forward and for a greedy decode loop through the KV cache;
+   the smoke configs of qwen3-1.7b, rwkv6-1.6b and recurrentgemma-9b (the
+   CPU runs the plain versions), for a prefill forward and for a greedy
+   decode loop through the KV cache or the recurrent state;
 5. drives the prefill serving path -- the balanced 4-stage plan of
    full-width qwen3-1.7b with random weights from a seed, 8 streamed
    requests of 1024 tokens -- with every kernel's launch count set to 0
@@ -28,7 +32,20 @@
    (teacher forcing through the prefill kernel), within the bf16 noise
    measured against an fp32 evaluation; then the same decode path at full
    width in fp32 against its fp32 teacher, within 2e-2;
-7. prints one JSON line of kernel results, then, as the last line,
+7. drives rwkv6-1.6b at full width through the model API (random bf16
+   weights from seed 0, after printing its 4-stage balanced plan): 4
+   prompts of 1024 tokens prefilled into the recurrent state, then 64
+   greedy tokens each, with every kernel's count set to 0 just before and
+   read just after (rwkv6_scan: 24 layers x decode calls, the others 0);
+   the served tokens are teacher-forced as in 6, and the same loop runs in
+   fp32 against its fp32 teacher within 2e-2;
+8. drives recurrentgemma-9b at full width the same way (bf16 weights from
+   seed 0, plan printed, the weights of 7 freed first): one forward of a
+   (2, 1024) batch (26 rglru_scan and 12 flash_attention launches) and a
+   decode loop of 16 rows, a 32-token prompt fed token by token plus 32
+   greedy tokens at max_len 64 (26 rglru_scan and 12 flash_decode launches
+   a step), teacher-forced and repeated in fp32 as in 7;
+9. prints one JSON line of kernel results, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero.  Without a CUDA device, or
@@ -49,16 +66,22 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs  # noqa: E402  (needs src/ on the path)
+from repro_torch.api import DeploymentSpec, plan  # noqa: E402
 from repro_torch.configs.common import concrete_batch  # noqa: E402
 from repro_torch.core.pipeline import stage_balance_metrics  # noqa: E402
 from repro_torch.decode.engine import PipelineDecodeEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rw  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
-                                     flash_decode_ref)
+                                     flash_decode_ref, rglru_scan_ref,
+                                     rwkv6_scan_ref)
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import api, lm, lm_graph  # noqa: E402
+
+KERNELS = ("flash_attention", "flash_decode", "rwkv6_scan", "rglru_scan")
 
 ARCH = "qwen3-1.7b"
 SEQ = 1024
@@ -72,6 +95,9 @@ DECODE_NEW = 64
 TEACHER_STREAMS = 4
 TEACHER_TOL = 2e-2
 TEACHER_AGREE = 0.9     # share of served bf16 tokens = the teacher's argmax
+# fewest positions where bf16 resolves the teacher's argmax (the recurrent
+# families' agreement rule counts only those; fewer fails the check)
+TEACHER_MIN_DECISIVE = 24
 # per-slot lengths of the kernel check: empty, one, block edges, ragged,
 # the path's range, full
 DECODE_LENS = [0, 1, 127, 128, 1000, 1088, 2047, 2048]
@@ -80,6 +106,18 @@ DECODE_LENS = [0, 1, 127, 128, 1000, 1088, 2047, 2048]
 DECODE_TIMED_LEN = 1056
 COLD_SETS = 8           # distinct cache sets the kernel timing rotates over
 BACKLOG_CYCLES = 100_000_000    # ~50 ms of device sleep while the host queues
+# the recurrent families' runs
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_STREAMS = 4
+RWKV_PROMPT = 1024
+RWKV_NEW = 64
+GEMMA_ARCH = "recurrentgemma-9b"
+GEMMA_FORWARD = (2, 1024)       # batch, tokens of the timed forward
+GEMMA_ROWS = 16         # decode rows: enough served tokens that bf16
+                        # resolves the argmax at TEACHER_MIN_DECISIVE of them
+GEMMA_PROMPT = 32
+GEMMA_NEW = 32
+GEMMA_MAX_LEN = 64
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -142,9 +180,24 @@ def attention_inputs(b, hq, hkv, s, t, d, dtype, model_layout=False):
     return out
 
 
+def time_attention(q, k, v):
+    """Kernel, plain version and SDPA (ms), and the bound, on one input."""
+    ms = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=True)])
+    plain_ms = cuda_ms([lambda: flash_attention_ref(q, k, v, True)])
+    library_ms = cuda_ms([
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)])
+    bound_ms, bound_by = attention_bound(q, k, causal=True)
+    return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def check_flash_attention():
-    """Kernel vs plain version at the serving path's widths (Hq 16, Hkv 8,
-    D 128).  Returns the main-shape case's record."""
+    """Kernel vs plain version at the prefill path's widths (Hq 16, Hkv 8,
+    D 128) and at recurrentgemma's (Hq 16, Hkv 1, D 256).  Returns the
+    record of the qwen3 shape, with the D 256 shape's times under
+    ``d256``."""
     cases = [  # name, b, hq, hkv, s, t, d, dtype, model layout, tol
         ("bf16 causal S=T=1024, model layout", 1, 16, 8, 1024, 1024, 128,
          torch.bfloat16, True, 2e-2),
@@ -154,6 +207,10 @@ def check_flash_attention():
          torch.bfloat16, False, 2e-2),
         ("fp32 causal S=T=1024", 1, 16, 8, 1024, 1024, 128,
          torch.float32, False, 1e-4),
+        ("bf16 D=256 MQA 16:1 causal B=2 S=T=1024, model layout", 2, 16, 1,
+         1024, 1024, 256, torch.bfloat16, True, 2e-2),
+        ("fp32 D=256 MQA 16:1 causal ragged S=T=520", 1, 16, 1, 520, 520,
+         256, torch.float32, False, 1e-4),
     ]
     record = None
     for name, b, hq, hkv, s, t, d, dtype, layout, tol in cases:
@@ -168,26 +225,24 @@ def check_flash_attention():
         if not (finite and err <= tol):
             raise SystemExit(f"flash_attention disagrees with its plain "
                              f"version on {name}: {err:.3e} > {tol:g}")
-        if record is None:
-            ms = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=True)])
-            plain_ms = cuda_ms([lambda: flash_attention_ref(q, k, v, True)])
-            library_ms = cuda_ms([
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)])
-            bound_ms, bound_by = attention_bound(q, k, causal=True)
-            record = {"name": "flash_attention", "route": "cuda",
-                      "source": "src/repro_torch/kernels/csrc/"
-                                "flash_attention.cu",
-                      "replaces": "src/repro/kernels/flash_attention.py:74",
-                      "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms,
-                      "shape": {"b": b, "hq": hq, "hkv": hkv, "s": s,
-                                "t": t, "d": d, "dtype": str(dtype),
-                                "causal": True}}
-            print(f"flash_attention timing at {name}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by})")
+        shape = {"b": b, "hq": hq, "hkv": hkv, "s": s, "t": t, "d": d,
+                 "dtype": str(dtype), "causal": True}
+        if record is None or (d == 256 and layout):
+            times = time_attention(q, k, v)
+            print(f"flash_attention timing at {name}: kernel "
+                  f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
+                  f"sdpa {times['library_ms']:.4f} ms, bound "
+                  f"{times['bound_ms']:.4f} ms ({times['bound_by']})")
+            if record is None:
+                record = {"name": "flash_attention", "route": "cuda",
+                          "source": "src/repro_torch/kernels/csrc/"
+                                    "flash_attention.cu",
+                          "replaces": "src/repro/kernels/"
+                                      "flash_attention.py:74",
+                          "max_abs_err": err, **times, "shape": shape}
+            else:
+                record["d256"] = {"max_abs_err": err, **times,
+                                  "shape": shape}
     return record
 
 
@@ -225,12 +280,34 @@ def decode_inputs(b, hq, hkv, t, d, dtype, model_layout=False, seed=0):
     return q, kv[0], kv[1]
 
 
+def time_decode(sets, lens, reps=40):
+    """Kernel (device time, and as the host issues the calls), plain
+    version and SDPA (ms), and the bound, rotating over cache sets."""
+    t = sets[0][1].shape[2]
+    valid = (torch.arange(t, device="cuda")[None, :]
+             < lens[:, None])[:, None, None, :]
+    kernel = [lambda s=s: fd.flash_decode(*s, lens) for s in sets]
+    ms = cuda_ms(kernel, reps=reps)
+    bound_ms, bound_by = decode_bound(sets[0][0], sets[0][1], lens)
+    return {"ms": ms, "kernel_ms": ms,
+            "issued_ms": cuda_ms(kernel, reps=reps, backlog=False),
+            "plain_ms": cuda_ms([lambda s=s: flash_decode_ref(*s, lens)
+                                 for s in sets], reps=reps),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cuda_ms([
+                lambda s=s: torch.nn.functional.scaled_dot_product_attention(
+                    s[0][:, :, None], s[1], s[2], attn_mask=valid,
+                    enable_gqa=True)
+                for s in sets], reps=reps)}
+
+
 def check_flash_decode():
     """Kernel vs plain version at the decode path's widths (B 8, Hq 16,
     Hkv 8, D 128, T 2048) with per-slot lengths, plus fp32, MQA and D 16
-    cases; rows of length 0 must be zeros.  Then times kernel, plain
-    version and SDPA at the path's point, rotating over cache sets.
-    Returns the kernel's record."""
+    cases, and recurrentgemma's D 256 with 16 q heads per kv head; rows of
+    length 0 must be zeros.  Then times kernel, plain version and SDPA at
+    the qwen3 decode path's point and at recurrentgemma's (under
+    ``d256``), rotating over cache sets.  Returns the kernel's record."""
     cases = [  # name, b, hq, hkv, t, d, dtype, model layout, lengths, tol
         ("bf16 B=8 T=2048, model layout, per-slot lengths", 8, 16, 8, 2048,
          128, torch.bfloat16, True, DECODE_LENS, 2e-2),
@@ -240,6 +317,11 @@ def check_flash_decode():
          64, torch.float32, False, [1, 255, 999, 1000], 1e-5),
         ("bf16 D=16 T=300, model layout, scalar length 200", 2, 4, 2, 300,
          16, torch.bfloat16, True, 200, 2e-2),
+        ("bf16 D=256 MQA group 16, B=8 T=2048, model layout, per-slot "
+         "lengths", 8, 16, 1, 2048, 256, torch.bfloat16, True, DECODE_LENS,
+         2e-2),
+        ("fp32 D=256 MQA group 16, B=8 T=2048, per-slot lengths", 8, 16, 1,
+         2048, 256, torch.float32, False, DECODE_LENS, 1e-5),
     ]
     record = None
     for name, b, hq, hkv, t, d, dtype, layout, lens, tol in cases:
@@ -262,40 +344,172 @@ def check_flash_decode():
         if record is None:
             record = {"max_abs_err": err}
 
-    b, hq, hkv, t, d, dtype = 8, 16, 8, DECODE_CONTEXT, 128, torch.bfloat16
-    lens = torch.full((b,), DECODE_TIMED_LEN, dtype=torch.int32,
-                      device="cuda")
-    sets = [decode_inputs(b, hq, hkv, t, d, dtype, True, seed=i)
-            for i in range(COLD_SETS)]
-    valid = (torch.arange(t, device="cuda")[None, :]
-             < lens[:, None])[:, None, None, :]
-    kernel = [lambda s=s: fd.flash_decode(*s, lens) for s in sets]
-    ms = cuda_ms(kernel, reps=40)
-    issued_ms = cuda_ms(kernel, reps=40, backlog=False)
-    plain_ms = cuda_ms([lambda s=s: flash_decode_ref(*s, lens)
-                        for s in sets], reps=40)
-    library_ms = cuda_ms([
-        lambda s=s: torch.nn.functional.scaled_dot_product_attention(
-            s[0][:, :, None], s[1], s[2], attn_mask=valid, enable_gqa=True)
-        for s in sets], reps=40)
-    bound_ms, bound_by = decode_bound(sets[0][0], sets[0][1], lens)
-    record.update({
-        "name": "flash_decode", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-        "replaces": "src/repro/kernels/flash_decode.py:62",
-        "ms": ms, "kernel_ms": ms, "issued_ms": issued_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
-        "shape": {"b": b, "hq": hq, "hkv": hkv, "t": t, "d": d,
-                  "dtype": str(dtype), "lens": DECODE_TIMED_LEN,
-                  "cache_sets": COLD_SETS}})
-    print(f"flash_decode timing at B={b} T={t} len={DECODE_TIMED_LEN} "
-          f"(bf16, model layout, {COLD_SETS} cache sets): kernel "
-          f"{ms:.4f} ms ({issued_ms:.4f} ms a call as the host issues "
-          f"them), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
-    del sets
-    torch.cuda.empty_cache()
+    points = [  # b, hq, hkv, t, d, timed length: qwen3, recurrentgemma
+        (8, 16, 8, DECODE_CONTEXT, 128, DECODE_TIMED_LEN),
+        (GEMMA_ROWS, 16, 1, GEMMA_MAX_LEN, 256, GEMMA_MAX_LEN)]
+    for b, hq, hkv, t, d, n in points:
+        lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        sets = [decode_inputs(b, hq, hkv, t, d, torch.bfloat16, True, seed=i)
+                for i in range(COLD_SETS)]
+        times = time_decode(sets, lens)
+        shape = {"b": b, "hq": hq, "hkv": hkv, "t": t, "d": d,
+                 "dtype": str(torch.bfloat16), "lens": n,
+                 "cache_sets": COLD_SETS}
+        print(f"flash_decode timing at B={b} Hq={hq} Hkv={hkv} D={d} T={t} "
+              f"len={n} (bf16, model layout, {COLD_SETS} cache sets): "
+              f"kernel {times['ms']:.4f} ms ({times['issued_ms']:.4f} ms a "
+              f"call as the host issues them), plain "
+              f"{times['plain_ms']:.4f} ms, sdpa {times['library_ms']:.4f} "
+              f"ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']})")
+        if d == 128:
+            record.update({
+                "name": "flash_decode", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+                "replaces": "src/repro/kernels/flash_decode.py:62",
+                **times, "shape": shape})
+        else:
+            record["d256"] = {**times, "shape": shape}
+        del sets
+        torch.cuda.empty_cache()
+    return record
+
+
+def allclose_err(got, expect, tol):
+    """Largest |got - expect| and whether every element lies within
+    tol * (1 + |expect|) (the CPU tests' rtol = atol = tol) and is
+    finite."""
+    g, e = got.float(), expect.float()
+    diff = (g - e).abs()
+    ok = bool(torch.isfinite(g).all()) and bool(
+        (diff <= tol * (1 + e.abs())).all())
+    return diff.max().item(), ok
+
+
+def scan_bound(nbytes, flops):
+    t_ops = flops / PEAK_FLOPS[torch.float32]      # CUDA-core arithmetic
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rwkv6_inputs(b, h, s, d, dtype, model_layout, seed=0):
+    """r, k, v, w (B, H, S, D) on the card with the reference tests'
+    spread (k 0.2 N, w in (0.7, 1)), u (H, D) and a nonzero s0;
+    ``model_layout`` makes r/k/v/w views of (B, S, H, D) tensors."""
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def bshd(scale=1.0, uniform=False):
+        shape = (b, s, h, d) if model_layout else (b, h, s, d)
+        x = (0.7 + 0.3 * torch.rand(shape, generator=g, device="cuda")
+             if uniform else
+             scale * torch.randn(shape, generator=g, device="cuda"))
+        x = x.to(dtype)
+        return x.transpose(1, 2) if model_layout else x
+
+    r, k, v, w = bshd(), bshd(0.2), bshd(), bshd(uniform=True)
+    u = 0.2 * torch.randn(h, d, generator=g, device="cuda")
+    s0 = 0.1 * torch.randn(b, h, d, d, generator=g, device="cuda")
+    return r, k, v, w, u, s0
+
+
+def check_rwkv6_scan():
+    """Kernel vs plain version at rwkv6-1.6b's shape (B 4, H 32, S 1024, D
+    64, fp32, the model's (B, S, H, D) layout, nonzero s0), in bf16, at the
+    decode step S = 1, ragged S and the smaller head dims; y and s_last
+    within tol (1 + |plain|).  Times kernel and plain version at the main
+    shape.  Returns the kernel's record."""
+    cases = [  # name, b, h, s, d, dtype, model layout, tol
+        ("fp32 B=4 H=32 S=1024 D=64, model layout", 4, 32, 1024, 64,
+         torch.float32, True, 2e-4),
+        ("bf16 B=4 H=32 S=1024 D=64, model layout", 4, 32, 1024, 64,
+         torch.bfloat16, True, 2e-2),
+        ("fp32 S=1 (decode step), model layout", 4, 32, 1, 64,
+         torch.float32, True, 2e-4),
+        ("fp32 ragged S=1000", 2, 32, 1000, 64, torch.float32, False, 2e-4),
+        ("fp32 D=32 S=257", 2, 4, 257, 32, torch.float32, False, 2e-4),
+        ("bf16 D=16 S=300, model layout", 2, 4, 300, 16, torch.bfloat16,
+         True, 2e-2),
+    ]
+    record = None
+    for name, b, h, s, d, dtype, layout, tol in cases:
+        x = rwkv6_inputs(b, h, s, d, dtype, layout)
+        y, s_last = rw.rwkv6_scan(*x)
+        y_ref, s_ref = rwkv6_scan_ref(*x)
+        torch.cuda.synchronize()
+        err_y, ok_y = allclose_err(y, y_ref, tol)
+        err_s, ok_s = allclose_err(s_last, s_ref, tol)
+        print(f"rwkv6_scan {name}: max_abs_err y {err_y:.3e}, s_last "
+              f"{err_s:.3e} (within {tol:g} (1 + |plain|): {ok_y and ok_s})")
+        if not (ok_y and ok_s):
+            raise SystemExit(f"rwkv6_scan disagrees with its plain version "
+                             f"on {name}: {err_y:.3e}, {err_s:.3e}")
+        if record is None:
+            ms = cuda_ms([lambda: rw.rwkv6_scan(*x)])
+            plain_ms = cuda_ms([lambda: rwkv6_scan_ref(*x)], reps=3)
+            esz = x[0].element_size()
+            nbytes = 5 * b * h * s * d * esz + 2 * b * h * d * d * 4
+            bound_ms, bound_by = scan_bound(nbytes, 4 * b * h * s * d * d)
+            record = {"name": "rwkv6_scan", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                      "replaces": "src/repro/kernels/rwkv6_scan.py:53",
+                      "max_abs_err": max(err_y, err_s), "ms": ms,
+                      "kernel_ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None,
+                      "shape": {"b": b, "h": h, "s": s, "d": d,
+                                "dtype": str(dtype)}}
+            print(f"rwkv6_scan timing at {name}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}); no single PyTorch call computes it")
+        del x
+    return record
+
+
+def check_rglru_scan():
+    """Kernel vs plain version at recurrentgemma-9b's shape (B 2, S 1024, R
+    4096, fp32, nonzero h0), in bf16, at the decode step S = 1 and ragged
+    S; y and h_last within tol (1 + |plain|).  Times kernel and plain
+    version at the main shape.  Returns the kernel's record."""
+    cases = [  # name, b, s, r, dtype, tol
+        ("fp32 B=2 S=1024 R=4096", 2, 1024, 4096, torch.float32, 1e-5),
+        ("bf16 B=2 S=1024 R=4096", 2, 1024, 4096, torch.bfloat16, 2e-2),
+        ("fp32 S=1 (decode step)", 2, 1, 4096, torch.float32, 1e-5),
+        ("fp32 ragged S=1000 R=1000", 3, 1000, 1000, torch.float32, 1e-5),
+    ]
+    record = None
+    for name, b, s, r, dtype, tol in cases:
+        g = torch.Generator("cuda").manual_seed(0)
+        a = (0.3 + 0.7 * torch.rand(b, s, r, generator=g, device="cuda")
+             ).to(dtype)
+        gx = (0.2 * torch.randn(b, s, r, generator=g, device="cuda")
+              ).to(dtype)
+        h0 = torch.randn(b, r, generator=g, device="cuda")
+        y, h_last = rg.rglru_scan(a, gx, h0)
+        y_ref, h_ref = rglru_scan_ref(a, gx, h0)
+        torch.cuda.synchronize()
+        err_y, ok_y = allclose_err(y, y_ref, tol)
+        err_h, ok_h = allclose_err(h_last, h_ref, tol)
+        print(f"rglru_scan {name}: max_abs_err y {err_y:.3e}, h_last "
+              f"{err_h:.3e} (within {tol:g} (1 + |plain|): {ok_y and ok_h})")
+        if not (ok_y and ok_h):
+            raise SystemExit(f"rglru_scan disagrees with its plain version "
+                             f"on {name}: {err_y:.3e}, {err_h:.3e}")
+        if record is None:
+            ms = cuda_ms([lambda: rg.rglru_scan(a, gx, h0)])
+            plain_ms = cuda_ms([lambda: rglru_scan_ref(a, gx, h0)], reps=3)
+            nbytes = 3 * b * s * r * a.element_size() + 2 * b * r * 4
+            bound_ms, bound_by = scan_bound(nbytes, 2 * b * s * r)
+            record = {"name": "rglru_scan", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                      "replaces": "src/repro/kernels/rglru_scan.py:47",
+                      "max_abs_err": max(err_y, err_h), "ms": ms,
+                      "kernel_ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None,
+                      "shape": {"b": b, "s": s, "r": r, "dtype": str(dtype)}}
+            print(f"rglru_scan timing at {name}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}); no single PyTorch call computes it")
     return record
 
 
@@ -307,51 +521,225 @@ def to_card(tree):
     return tree.to("cuda")
 
 
-def check_model_on_card():
-    """The smoke-config model (fp32) on the card against the same weights
-    on the CPU, where attention is the plain version; tolerance 1e-4
-    (summation order over four layers)."""
-    cfg = configs.get(ARCH).smoke_config()
-    cpu = torch.device("cpu")
-    params = lm.init_params(cfg, cpu, torch.Generator(cpu).manual_seed(0))
-    batch = concrete_batch(cfg, 200, 2, kind="prefill")
-    got = lm.forward(cfg, to_card(params), batch).cpu()
-    expect = lm.forward(cfg, params, batch)
-    err = (got - expect).abs().max().item()
-    print(f"smoke model, card vs CPU (plain attention): max_abs_err "
-          f"{err:.3e} (tol 1e-4)")
-    if not (torch.isfinite(got).all() and err <= 1e-4):
-        raise SystemExit(f"model on the card disagrees with the CPU: {err}")
+def greedy_decode(cfg, params, prompts, n_new, max_len, token_by_token):
+    """Greedy decode through ``api.decode`` on the card: ``prompts`` (B, P)
+    prefilled into the cache in one call (or fed token by token), then
+    ``n_new`` tokens.  Returns (tokens (B, n_new) on the CPU, decode calls,
+    prefill seconds, seconds per generated token after the first), on the
+    host clock with the card synchronized."""
+    dev = torch.device("cuda")
+    cache = api.init_cache(cfg, prompts.shape[0], max_len, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = [prompts[:, i:i + 1] for i in range(prompts.shape[1])] \
+        if token_by_token else [prompts]
+    for tok in steps:
+        logits, cache = api.decode(cfg, params, tok.to(dev), cache)
+    toks = [logits[:, -1].argmax(-1, keepdim=True)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    while len(toks) < n_new:
+        logits, cache = api.decode(cfg, params, toks[-1], cache)
+        toks.append(logits[:, -1].argmax(-1, keepdim=True))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (torch.cat(toks, 1).cpu(), len(steps) + n_new - 1, t1 - t0,
+            (t2 - t1) / max(1, n_new - 1))
 
 
-def check_decode_on_card(prompt_len=40, n_new=8, max_len=300):
-    """The smoke config's greedy decode loop (fp32, batch 2, the prompt
-    teacher-forced token by token through ``forward_decode``) on the card
-    against the CPU, where attention is the plain version: logits within
-    1e-4 at every step (summation order over four layers) and equal greedy
-    tokens.  ``max_len`` 300 puts the cache over two kernel splits."""
-    cfg = configs.get(ARCH).smoke_config()
+def check_family_on_card(arch, seq, prompt_len, n_new, max_len,
+                         token_by_token):
+    """The arch's smoke config (fp32) on the card against the same weights
+    on the CPU, where the kernels' plain versions run: the forward of a
+    (2, seq) batch, and a greedy decode loop of 2 rows through the KV cache
+    or the recurrent state; logits at every step within 1e-4 (summation
+    order over a few layers) and equal greedy tokens."""
+    cfg = configs.get(arch).smoke_config()
     cpu = torch.device("cpu")
-    params = lm.init_params(cfg, cpu, torch.Generator(cpu).manual_seed(0))
+    params = api.init(cfg, cpu, torch.Generator(cpu).manual_seed(0))
+    card = to_card(params)
+    batch = concrete_batch(cfg, seq, 2, kind="prefill")
+    err = (api.forward(cfg, card, batch).cpu()
+           - api.forward(cfg, params, batch)).abs().max().item()
     prompt = concrete_batch(cfg, prompt_len, 2, kind="prefill")["tokens"]
     runs = []
-    for dev, p in ((cpu, params), (torch.device("cuda"), to_card(params))):
-        cache = lm.init_cache(cfg, 2, max_len, dev)
-        logits_seen, toks = [], []
-        for i in range(prompt_len + n_new):
-            tok = prompt[:, i:i + 1] if i < prompt_len else toks[-1]
-            logits, cache = lm.forward_decode(cfg, p, tok.to(dev), cache)
-            logits_seen.append(logits.cpu())
+    for dev, p in ((cpu, params), (torch.device("cuda"), card)):
+        cache = api.init_cache(cfg, 2, max_len, dev)
+        steps = ([prompt[:, i:i + 1] for i in range(prompt_len)]
+                 if token_by_token else [prompt])
+        seen, toks = [], []
+        for i in range(len(steps) + n_new):
+            tok = steps[i] if i < len(steps) else toks[-1]
+            logits, cache = api.decode(cfg, p, tok.to(dev), cache)
+            seen.append(logits[:, -1:].cpu())
             toks.append(logits[:, -1].argmax(-1, keepdim=True).cpu())
-        runs.append((torch.cat(logits_seen, 1), torch.cat(toks, 1)))
-    err = (runs[0][0] - runs[1][0]).abs().max().item()
+        runs.append((torch.cat(seen, 1), torch.cat(toks, 1)))
+    dec_err = (runs[0][0] - runs[1][0]).abs().max().item()
     same = torch.equal(runs[0][1], runs[1][1])
-    print(f"smoke decode loop, card vs CPU (plain attention): max_abs_err "
-          f"{err:.3e} over {prompt_len + n_new} steps (tol 1e-4), greedy "
-          f"tokens equal={same}")
-    if not (torch.isfinite(runs[1][0]).all() and err <= 1e-4 and same):
-        raise SystemExit(f"decode on the card disagrees with the CPU: "
-                         f"{err}, tokens equal={same}")
+    print(f"{arch} smoke, card vs CPU (plain versions): forward max_abs_err "
+          f"{err:.3e}, decode loop ({'token by token' if token_by_token else 'prefilled'} "
+          f"{prompt_len}-token prompt + {n_new} steps, max_len {max_len}) "
+          f"max_abs_err {dec_err:.3e} (tol 1e-4), greedy tokens equal={same}")
+    if not (err <= 1e-4 and dec_err <= 1e-4 and same
+            and torch.isfinite(runs[1][0]).all()):
+        raise SystemExit(f"{arch} on the card disagrees with the CPU: "
+                         f"{err}, {dec_err}, tokens equal={same}")
+
+
+def read_counts():
+    return {name: _build.launches(name) for name in KERNELS}
+
+
+def check_counts(label, counts, expect):
+    """Every kernel's launches in a run equal ``expect`` (absent: 0)."""
+    want = {name: expect.get(name, 0) for name in counts}
+    print(f"{label} launches: {counts} (expected {want})")
+    if counts != want:
+        raise SystemExit(f"{label}: kernel launches {counts} != {want}")
+
+
+def print_plan(cfg):
+    """The arch's 4-stage balanced plan over its full-width graph."""
+    pl = plan(DeploymentSpec(stages=STAGES, strategy="balanced"),
+              graph=lm_graph.lm_layer_graph(cfg, seq_len=SEQ))
+    print(f"{cfg.name} plan:", pl.describe())
+    print(f"{cfg.name} report:", pl.report.describe())
+
+
+def teacher_rows(cfg, params, prompts, outs):
+    """Logits of the full forward of prompt + served tokens at the
+    positions that predicted each served token: (B, n, V)."""
+    seq = torch.cat([prompts, outs], 1)
+    logits = api.forward(cfg, params, {"tokens": seq})
+    p = prompts.shape[1]
+    return logits[:, p - 1:p - 1 + outs.shape[1]]
+
+
+def teacher_forced(cfg, params, prompts, outs, n_new, max_len,
+                   token_by_token):
+    """The served bf16 tokens against the full forward of prompt + tokens
+    (the method of :func:`check_served_tokens`): each served token's gap to its position's largest
+    logit within twice the bf16 forward's largest deviation from the fp32
+    evaluation of the same weights.  At least TEACHER_AGREE of the served
+    tokens must be the teacher's argmax at the positions where bf16 can
+    resolve the argmax: the teacher's top-2 margin exceeds twice that
+    position's largest bf16-vs-fp32 deviation (elsewhere two bf16
+    evaluations may rank a near-tie either way; the gap bound still holds
+    there), and there must be at least TEACHER_MIN_DECISIVE such
+    positions.  Then the same decode loop in fp32 at full width: every token
+    within TEACHER_TOL of its fp32 teacher's largest logit."""
+    cfg32, p32 = dataclasses.replace(cfg, dtype=torch.float32), \
+        to_fp32(params)
+    rows = teacher_rows(cfg, params, prompts, outs)
+    rows32 = teacher_rows(cfg32, p32, prompts, outs)
+    dev = (rows - rows32).abs().amax(-1)                # per position
+    noise = dev.max().item()
+    tk = outs.to(rows.device)[..., None]
+    worst = (rows.max(-1).values - rows.gather(-1, tk)[..., 0]).max().item()
+    top2 = rows.topk(2, dim=-1).values
+    decisive = ((top2[..., 0] - top2[..., 1]) > 2 * dev).cpu()
+    hit = rows.argmax(-1).cpu() == outs
+    agree, total = int(hit.sum()), outs.numel()
+    agree_dec, n_dec = int(hit[decisive].sum()), int(decisive.sum())
+    print(f"{cfg.name} teacher-forced (bf16): largest gap {worst:.4e} "
+          f"(bound 2 x {noise:.4e}, the bf16 forward's largest deviation "
+          f"from fp32 on these positions; {TEACHER_TOL:g} "
+          f"{'met' if worst <= TEACHER_TOL else 'not met'}); served token "
+          f"= teacher argmax {agree}/{total} overall, {agree_dec}/{n_dec} "
+          f"where the top-2 margin exceeds twice the position's deviation "
+          f"(at least {TEACHER_MIN_DECISIVE} such positions required)")
+    if not (worst <= 2 * noise and n_dec >= TEACHER_MIN_DECISIVE
+            and agree_dec >= TEACHER_AGREE * n_dec):
+        raise SystemExit(f"{cfg.name}: served tokens fail the teacher-forced "
+                         f"check: gap {worst:.3e} > {2 * noise:.3e} or "
+                         f"argmax agreement {agree_dec}/{n_dec} (fewer than "
+                         f"{TEACHER_MIN_DECISIVE} decisive positions, or "
+                         f"below {TEACHER_AGREE:.0%})")
+    del rows, rows32
+    outs32, _, _, _ = greedy_decode(cfg32, p32, prompts, n_new, max_len,
+                                    token_by_token)
+    rows32 = teacher_rows(cfg32, p32, prompts, outs32)
+    tk = outs32.to(rows32.device)[..., None]
+    worst32 = (rows32.max(-1).values
+               - rows32.gather(-1, tk)[..., 0]).max().item()
+    print(f"{cfg.name} decode loop in fp32 at full width: largest "
+          f"teacher-forced gap {worst32:.4e} over {outs32.numel()} tokens "
+          f"(tol {TEACHER_TOL:g}); fp32 tokens = bf16 tokens "
+          f"{int((outs32 == outs).sum())}/{total}")
+    if not worst32 <= TEACHER_TOL:
+        raise SystemExit(f"{cfg.name}: fp32 decode loop fails the "
+                         f"teacher-forced check: {worst32:.3e}")
+
+
+def run_rwkv6_path():
+    """rwkv6-1.6b at full width: plan, then 4 x 1024-token prompts
+    prefilled into the state and 64 greedy tokens each through the model
+    API, launch counts, teacher forcing.  Returns the rwkv6_scan count."""
+    cfg = configs.get(RWKV_ARCH).config()
+    print_plan(cfg)
+    params = api.init(cfg, "cuda", torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (RWKV_STREAMS, RWKV_PROMPT), dtype=np.int64))
+    _build.reset_launches()
+    outs, calls, prefill_s, step_s = greedy_decode(
+        cfg, params, prompts, RWKV_NEW, RWKV_PROMPT + RWKV_NEW, False)
+    counts = read_counts()
+    print(f"{cfg.name}: prefill of {RWKV_STREAMS} x {RWKV_PROMPT} tokens "
+          f"into the state {prefill_s * 1e3:.3f} ms, then {RWKV_NEW} tokens "
+          f"each at {step_s * 1e3:.3f} ms a step ({RWKV_STREAMS} rows); "
+          f"{calls} decode calls")
+    check_counts(cfg.name, counts, {"rwkv6_scan": cfg.n_layers * calls})
+    teacher_forced(cfg, params, prompts, outs, RWKV_NEW,
+                   RWKV_PROMPT + RWKV_NEW, False)
+    return counts["rwkv6_scan"]
+
+
+def run_gemma_path():
+    """recurrentgemma-9b at full width: plan, one forward of a (2, 1024)
+    batch, a decode loop of 16 rows (32-token prompt token by token + 32
+    greedy tokens, max_len 64), launch counts, teacher forcing.  Returns
+    the launch counts of the forward and of the decode loop."""
+    cfg = configs.get(GEMMA_ARCH).config()
+    print_plan(cfg)
+    n_rec = cfg.n_layers - cfg.n_layers // cfg.attn_every
+    n_attn = cfg.n_layers // cfg.attn_every
+    params = api.init(cfg, "cuda", torch.Generator("cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, GEMMA_FORWARD, dtype=np.int64))}
+    _build.reset_launches()
+    logits = api.forward(cfg, params, batch, last_token_only=True)
+    torch.cuda.synchronize()
+    fwd_counts = read_counts()
+    check_counts(f"{cfg.name} forward", fwd_counts,
+                 {"rglru_scan": n_rec, "flash_attention": n_attn})
+    if not (logits.shape == (GEMMA_FORWARD[0], 1, cfg.vocab)
+            and bool(torch.isfinite(logits).all())):
+        raise SystemExit(f"{cfg.name}: forward logits not finite "
+                         f"{tuple(logits.shape)}")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        api.forward(cfg, params, batch, last_token_only=True)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: forward of a {GEMMA_FORWARD} batch "
+          f"{(time.perf_counter() - t0) / 3 * 1e3:.3f} ms (last token "
+          f"logits finite)")
+
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (GEMMA_ROWS, GEMMA_PROMPT), dtype=np.int64))
+    _build.reset_launches()
+    outs, calls, prefill_s, step_s = greedy_decode(
+        cfg, params, prompts, GEMMA_NEW, GEMMA_MAX_LEN, True)
+    dec_counts = read_counts()
+    print(f"{cfg.name}: {GEMMA_PROMPT}-token prompt fed token by token in "
+          f"{prefill_s * 1e3:.3f} ms, then {GEMMA_NEW} tokens at "
+          f"{step_s * 1e3:.3f} ms a step ({GEMMA_ROWS} rows, max_len "
+          f"{GEMMA_MAX_LEN}); {calls} decode calls")
+    check_counts(f"{cfg.name} decode", dec_counts,
+                 {"rglru_scan": n_rec * calls, "flash_decode": n_attn * calls})
+    teacher_forced(cfg, params, prompts, outs, GEMMA_NEW, GEMMA_MAX_LEN, True)
+    return fwd_counts, dec_counts
 
 
 def run_decode_path():
@@ -367,10 +755,10 @@ def run_decode_path():
         "--max-new-tokens", str(DECODE_NEW),
         "--requests", str(DECODE_STREAMS),
         "--plan-device-bytes", str(per_stage), "--device", "cuda"])
-    fa.reset_launches()
-    fd.reset_launches()
+    _build.reset_launches()
     res = serve.run_decode(args)
-    fa_launches, fd_launches = fa.launches, fd.launches
+    counts = read_counts()
+    fa_launches, fd_launches = counts["flash_attention"], counts["flash_decode"]
 
     cfg, pl, snap, warm = (res["cfg"], res["plan"], res["snapshot"],
                            res["warmup"])
@@ -405,13 +793,11 @@ def run_decode_path():
     if not all(len(o) == DECODE_NEW for o in outs):
         raise SystemExit(f"decode streams returned {[len(o) for o in outs]} "
                          f"tokens, expected {DECODE_NEW} each")
-    if fd_launches != cfg.n_layers * steps or steps == 0:
-        raise SystemExit(f"flash_decode launched {fd_launches} times, "
-                         f"expected {cfg.n_layers} x {steps}")
-    if fa_launches != cfg.n_layers * prefills:
-        raise SystemExit(f"flash_attention launched {fa_launches} times in "
-                         f"the decode run, expected {cfg.n_layers} x "
-                         f"{prefills}")
+    if steps == 0:
+        raise SystemExit("the decode run took no step")
+    check_counts(f"{ARCH} decode serving", counts,
+                 {"flash_decode": cfg.n_layers * steps,
+                  "flash_attention": cfg.n_layers * prefills})
 
     check_served_tokens(res)
     check_fp32_decode_path(res)
@@ -423,7 +809,7 @@ def teacher_logits(cfg, params, prompt, toks):
     flash_attention) at the positions that predicted each token."""
     seq = torch.from_numpy(np.concatenate([prompt, toks]).astype(
         np.int64))[None]
-    logits = lm.forward(cfg, params, {"tokens": seq})[0]
+    logits = api.forward(cfg, params, {"tokens": seq})[0]
     return logits[len(prompt) - 1:len(prompt) - 1 + len(toks)]
 
 
@@ -521,7 +907,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = _build.build(["flash_attention", "flash_decode"])
+    libs = _build.build(KERNELS)
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -531,15 +917,24 @@ def main() -> int:
 
     record = check_flash_attention()
     decode_record = check_flash_decode()
-    check_model_on_card()
-    check_decode_on_card()
+    rwkv_record = check_rwkv6_scan()
+    rglru_record = check_rglru_scan()
+    # max_len 300 puts qwen3's cache over two flash_decode splits
+    check_family_on_card(ARCH, seq=200, prompt_len=40, n_new=8, max_len=300,
+                         token_by_token=True)
+    check_family_on_card(RWKV_ARCH, seq=200, prompt_len=40, n_new=8,
+                         max_len=48, token_by_token=False)
+    # max_len 24 over the smoke window 16: the ring cache wraps
+    check_family_on_card(GEMMA_ARCH, seq=16, prompt_len=8, n_new=16,
+                         max_len=24, token_by_token=True)
 
     args = serve.parse_args(["--arch", ARCH, "--stages", str(STAGES),
                              "--requests", str(REQUESTS), "--seq", str(SEQ),
                              "--strategy", "balanced", "--device", "cuda"])
-    fa.reset_launches()
+    _build.reset_launches()
     res = serve.run(args)
-    launches = fa.launches
+    counts = read_counts()
+    launches = counts["flash_attention"]
     record["launches"] = launches
 
     cfg, pl, snap = res["cfg"], res["plan"], res["snapshot"]
@@ -566,18 +961,29 @@ def main() -> int:
         raise SystemExit("served logits are not finite (1, 1, vocab)")
     if not res["max_err"] < 2e-2:
         raise SystemExit(f"pipeline vs direct {res['max_err']:.2e} >= 2e-2")
-    if launches != cfg.n_layers * forwards:
-        raise SystemExit(f"flash_attention launched {launches} times, "
-                         f"expected {cfg.n_layers * forwards}")
+    check_counts(f"{ARCH} prefill serving", counts,
+                 {"flash_attention": cfg.n_layers * forwards})
 
     direct_ms = direct_forward_ms(cfg, res["params"], res["requests"][0])
     print(f"direct forward of one {SEQ}-token request: {direct_ms:.3f} ms; "
           f"{cfg.n_layers} flash_attention calls at {record['ms']:.4f} ms = "
           f"{cfg.n_layers * record['ms'] / direct_ms:.1%} of it")
+    del res
 
     decode_record["launches"] = run_decode_path()
+    torch.cuda.empty_cache()
+    rwkv_record["launches"] = run_rwkv6_path()
+    torch.cuda.empty_cache()
+    fwd_counts, dec_counts = run_gemma_path()
+    rglru_record["launches"] = (fwd_counts["rglru_scan"]
+                                + dec_counts["rglru_scan"])
+    # the flash kernels' launches on recurrentgemma's paths, beside the
+    # qwen3 paths' counts above
+    record["launches_recurrentgemma"] = fwd_counts["flash_attention"]
+    decode_record["launches_recurrentgemma"] = dec_counts["flash_decode"]
 
-    print(json.dumps({"kernels": [record, decode_record]}))
+    print(json.dumps({"kernels": [record, decode_record, rwkv_record,
+                                  rglru_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,10 +9,10 @@ from __future__ import annotations
 from types import ModuleType
 from typing import Dict, List
 
-from . import qwen3_1_7b
+from . import qwen3_1_7b, recurrentgemma_9b, rwkv6_1_6b
 from .common import concrete_batch, shrink
 
-_MODULES = (qwen3_1_7b,)
+_MODULES = (qwen3_1_7b, recurrentgemma_9b, rwkv6_1_6b)
 
 ARCHS: Dict[str, ModuleType] = {m.ARCH_ID: m for m in _MODULES}
 

@@ -27,8 +27,8 @@ def concrete_batch(cfg: LMConfig, seq_len: int, batch: int,
 
 
 def shrink(cfg: LMConfig, **over) -> LMConfig:
-    """Reduced same-family config for CPU smoke tests (the dense family's
-    reductions of the reference's ``shrink``)."""
+    """Reduced same-family config for CPU smoke tests (the reductions of
+    the reference's ``shrink`` for the ported families)."""
     d = dict(
         name=cfg.name + "-smoke",
         n_layers=min(cfg.n_layers, 4),
@@ -40,5 +40,9 @@ def shrink(cfg: LMConfig, **over) -> LMConfig:
         remat=False,
         dtype=torch.float32,
     )
+    if cfg.family == "hybrid":
+        d.update(n_layers=5, local_window=16, head_dim=16, n_kv_heads=1)
+    if cfg.family == "ssm":
+        d.update(rwkv_head_dim=16)
     d.update(over)
     return dataclasses.replace(cfg, **d).validate()

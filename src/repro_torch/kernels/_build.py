@@ -2,10 +2,14 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  It is compiled by
 ``nvcc`` for ``sm_90a`` at first use into ``build/repro_torch_kernels/`` at
-the root of the checkout, under a file name that hashes the source and the
-flags (an edited source is rebuilt, never reused stale), and loaded with
-:mod:`ctypes`.  Only the sources in the checkout are read.  A failed build
-raises; nothing falls back.
+the root of the checkout, under a file name that hashes the source, the
+shared headers ``csrc/*.cuh`` and the flags (an edited source is rebuilt,
+never reused stale), and loaded with :mod:`ctypes`.  Only the sources in
+the checkout are read.  A failed build raises; nothing falls back.
+
+Each wrapper calls :func:`count_launch` with its source's name where it
+launches the kernel, and nowhere else; :func:`launches` reads the counts
+and :func:`reset_launches` sets them to 0.
 """
 from __future__ import annotations
 
@@ -25,6 +29,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+_launches: Dict[str, int] = {}
+
+
+def count_launch(name: str) -> None:
+    """One launch of the kernel of ``csrc/<name>.cu``."""
+    with _count_lock:
+        _launches[name] = _launches.get(name, 0) + 1
+
+
+def launches(name: str) -> int:
+    """Launches of the kernel of ``csrc/<name>.cu`` since the last
+    :func:`reset_launches`."""
+    with _count_lock:
+        return _launches.get(name, 0)
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        _launches.clear()
 
 
 def _nvcc() -> str:
@@ -42,6 +66,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to for its current contents."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -29,8 +29,13 @@
 // cores (peak 67 TFLOP/s, about 15x below the bf16 tensor-core bound):
 // correct and simple first.  wgmma + TMA, which the bound asks for, is
 // later work.
+// Head dim 256 (recurrentgemma's MQA layers: 16 q heads over 1 kv head)
+// takes (64 * 257 * 2 + 64 * 68) * 4 = 149 KB of dynamic shared memory
+// (of the 227 KB a block may opt into) and 4 x 16 accumulators a thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "convert.cuh"
 
 namespace {
 
@@ -58,21 +63,6 @@ struct Args {
   float scale;
   Strides qs, ks, vs, os;
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // rows [r0, r0 + 64) of a (rows, D) matrix with row stride `ld` -> shared
 // (64, D + 1) fp32; rows at or past `n` are zero.
@@ -228,6 +218,7 @@ cudaError_t dispatch_d(const Args& a, int b, int hq, int d,
     case 32: return launch<T, 32>(a, b, hq, stream);
     case 64: return launch<T, 64>(a, b, hq, stream);
     case 128: return launch<T, 128>(a, b, hq, stream);
+    case 256: return launch<T, 256>(a, b, hq, stream);
     default: return cudaErrorInvalidValue;
   }
 }

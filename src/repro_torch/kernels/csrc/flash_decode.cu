@@ -38,9 +38,18 @@
 // the output (one split) or its partial state; a second kernel merges the
 // splits of each (batch row, q head).  The arithmetic is fp32 on CUDA cores
 // (about 0.25 flop per byte read: far below any compute limit).
+// A block serves at most 8 q heads: a larger group (recurrentgemma's MQA
+// layers, 16 q heads over 1 kv head) is cut into chunks of 8 along the
+// grid's kv-head axis, each chunk reading the K/V rows once (the static
+// shared merge buffer stays at 4 * 8 * D floats, 32 KB at D = 256).  A row
+// wider than 32 16-byte slices (fp32 at D = 256) gives a lane two slices
+// per row, and at D = 256 a lane loads 2 rows ahead instead of 4, which
+// keeps the q, accumulator and load registers of 8 heads under the limit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "convert.cuh"
 
 namespace {
 
@@ -59,24 +68,10 @@ struct Args {
   const int* lens;                    // (B,) int32 on the device, or null
   int len;                            // the length of every row if !lens
   int t, hq, group, chunk, nsplit;
+  int gchunks;                        // blocks (chunks of <= 8 q heads) per kv head
   float scale;
   long long qsb, qsh, ksb, ksh, kst, vsb, vsh, vst, osb, osh;
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // 16 loaded bytes -> 16 / sizeof(T) floats
 template <typename T>
@@ -108,11 +103,14 @@ __device__ __forceinline__ int row_length(const Args& a, int b) {
 template <typename T, int D, int KG>
 __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Args a) {
   constexpr int kVec = 16 / sizeof(T);    // elements per 16-byte load
-  constexpr int kLpr = D / kVec;          // lanes per cache row
+  constexpr int kLpr = D / kVec < 32 ? D / kVec : 32;   // lanes per row
+  constexpr int kSl = D / (kVec * kLpr);  // 16-byte slices a lane loads a row
+  constexpr int kEl = kSl * kVec;         // elements of a row a lane owns
+  constexpr int kUn = D >= 256 ? 2 : kUnroll;   // rows a lane loads ahead
   constexpr int kRpw = 32 / kLpr;         // rows per warp load
-  constexpr int kKpw = kRpw * kUnroll;    // rows per warp per iteration
-  static_assert(D % kVec == 0 && kLpr >= 2 && kLpr <= 32 && 32 % kLpr == 0,
-                "a cache row must split into 2..32 16-byte lane slices");
+  constexpr int kKpw = kRpw * kUn;        // rows per warp per iteration
+  static_assert(D % (kVec * kLpr) == 0 && kLpr >= 2 && 32 % kLpr == 0,
+                "a cache row must split into 2..32 lanes of 16-byte slices");
   __shared__ float s_m[kWarps][KG];
   __shared__ float s_l[kWarps][KG];
   __shared__ float s_acc[kWarps][KG][D];
@@ -122,27 +120,33 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Args a) {
   const int row = lane / kLpr;
   const int part = lane % kLpr;
   const int split = blockIdx.x;
-  const int hk = blockIdx.y;
+  const int hk = blockIdx.y / a.gchunks;
+  const int g0 = (blockIdx.y % a.gchunks) * KG;   // first q head of the group
   const int b = blockIdx.z;
-  const int g_n = a.group;
+  const int g_n = min(KG, a.group - g0);          // q heads of this block
   const int len = row_length(a, b);
   const int k_begin = split * a.chunk;
   const int k_end = min(len, k_begin + a.chunk);
   const bool final_out = a.nsplit == 1;
   if (!final_out && k_begin >= k_end) return;   // the combine skips it
 
-  float q[KG][kVec], m[KG], l[KG], acc[KG][kVec];
+  // lane `part` owns elements (part + sl * kLpr) * kVec + [0, kVec) of a
+  // row, sl < kSl, as q[g][sl * kVec + e] and acc[g][sl * kVec + e]
+  float q[KG][kEl], m[KG], l[KG], acc[KG][kEl];
 #pragma unroll
   for (int g = 0; g < KG; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
     const T* qp = static_cast<const T*>(a.q) + b * a.qsb +
-                  (hk * g_n + g) * a.qsh + part * kVec;
+                  (hk * a.group + g0 + g) * a.qsh + part * kVec;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) {
-      q[g][e] = g < g_n ? to_float(qp[e]) : 0.f;
-      acc[g][e] = 0.f;
-    }
+    for (int sl = 0; sl < kSl; ++sl)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        q[g][sl * kVec + e] = g < g_n ? to_float(qp[sl * kLpr * kVec + e])
+                                      : 0.f;
+        acc[g][sl * kVec + e] = 0.f;
+      }
   }
   const T* kb = static_cast<const T*>(a.k) + b * a.ksb + hk * a.ksh +
                 part * kVec;
@@ -150,28 +154,34 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Args a) {
                 part * kVec;
 
   for (int k0 = k_begin + warp * kKpw; k0 < k_end; k0 += kWarps * kKpw) {
-    uint4 kr[kUnroll], vr[kUnroll];
+    uint4 kr[kUn][kSl], vr[kUn][kSl];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < kUn; ++u) {
       const int key = k0 + u * kRpw + row;
-      if (key < k_end) {
-        kr[u] = *reinterpret_cast<const uint4*>(kb + key * a.kst);
-        vr[u] = *reinterpret_cast<const uint4*>(vb + key * a.vst);
-      } else {
-        kr[u] = make_uint4(0u, 0u, 0u, 0u);
-        vr[u] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int sl = 0; sl < kSl; ++sl) {
+        if (key < k_end) {
+          kr[u][sl] = *reinterpret_cast<const uint4*>(
+              kb + key * a.kst + sl * kLpr * kVec);
+          vr[u][sl] = *reinterpret_cast<const uint4*>(
+              vb + key * a.vst + sl * kLpr * kVec);
+        } else {
+          kr[u][sl] = make_uint4(0u, 0u, 0u, 0u);
+          vr[u][sl] = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
     }
-    float p[KG][kUnroll];
+    float p[KG][kUn];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float kf[kVec];
-      unpack<T>(kr[u], kf);
+    for (int u = 0; u < kUn; ++u) {
+      float kf[kEl];
+#pragma unroll
+      for (int sl = 0; sl < kSl; ++sl) unpack<T>(kr[u][sl], kf + sl * kVec);
 #pragma unroll
       for (int g = 0; g < KG; ++g) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) dot = fmaf(q[g][e], kf[e], dot);
+        for (int e = 0; e < kEl; ++e) dot = fmaf(q[g][e], kf[e], dot);
         // the kLpr lanes of a row are consecutive lanes of one warp
 #pragma unroll
         for (int off = kLpr / 2; off > 0; off >>= 1)
@@ -184,28 +194,29 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Args a) {
       if (g >= g_n) break;
       float mx = m[g];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
+      for (int u = 0; u < kUn; ++u)
         if (k0 + u * kRpw + row < k_end) mx = fmaxf(mx, p[g][u]);
       const float alpha = expf(m[g] - mx);
       float ps = 0.f;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < kUn; ++u) {
         p[g][u] = k0 + u * kRpw + row < k_end ? expf(p[g][u] - mx) : 0.f;
         ps += p[g][u];
       }
       l[g] = l[g] * alpha + ps;
       m[g] = mx;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[g][e] *= alpha;
+      for (int e = 0; e < kEl; ++e) acc[g][e] *= alpha;
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float vf[kVec];
-      unpack<T>(vr[u], vf);
+    for (int u = 0; u < kUn; ++u) {
+      float vf[kEl];
+#pragma unroll
+      for (int sl = 0; sl < kSl; ++sl) unpack<T>(vr[u][sl], vf + sl * kVec);
 #pragma unroll
       for (int g = 0; g < KG; ++g)
 #pragma unroll
-        for (int e = 0; e < kVec; ++e)
+        for (int e = 0; e < kEl; ++e)
           acc[g][e] = fmaf(p[g][u], vf[e], acc[g][e]);
     }
   }
@@ -222,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Args a) {
       l[g] = l[g] * c1 + l2 * c2;
       m[g] = mx;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) {
+      for (int e = 0; e < kEl; ++e) {
         const float o2 = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
         acc[g][e] = acc[g][e] * c1 + o2 * c2;
       }
@@ -232,7 +243,10 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Args a) {
 #pragma unroll
     for (int g = 0; g < KG; ++g) {
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) s_acc[warp][g][part * kVec + e] = acc[g][e];
+      for (int sl = 0; sl < kSl; ++sl)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          s_acc[warp][g][(part + sl * kLpr) * kVec + e] = acc[g][sl * kVec + e];
       if (part == 0) {
         s_m[warp][g] = m[g];
         s_l[warp][g] = l[g];
@@ -254,7 +268,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Args a) {
       den += s_l[w][g] * c;
       num += s_acc[w][g][d] * c;
     }
-    const int h = hk * g_n + g;
+    const int h = hk * a.group + g0 + g;
     if (final_out) {
       static_cast<T*>(a.o)[b * a.osb + h * a.osh + d] =
           from_float<T>(num / fmaxf(den, 1e-30f));
@@ -294,17 +308,15 @@ __global__ void flash_decode_combine_kernel(Args a, int d) {
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, int b, int hkv, cudaStream_t stream) {
-  const dim3 grid(a.nsplit, hkv, b);
+  const dim3 grid(a.nsplit, hkv * a.gchunks, b);
   if (a.group <= 1)
     flash_decode_split_kernel<T, D, 1><<<grid, kThreads, 0, stream>>>(a);
   else if (a.group <= 2)
     flash_decode_split_kernel<T, D, 2><<<grid, kThreads, 0, stream>>>(a);
   else if (a.group <= 4)
     flash_decode_split_kernel<T, D, 4><<<grid, kThreads, 0, stream>>>(a);
-  else if (a.group <= 8)
-    flash_decode_split_kernel<T, D, 8><<<grid, kThreads, 0, stream>>>(a);
   else
-    return cudaErrorInvalidValue;
+    flash_decode_split_kernel<T, D, 8><<<grid, kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.nsplit == 1) return err;
   flash_decode_combine_kernel<T><<<dim3(a.hq, b), D, 0, stream>>>(a, D);
@@ -319,6 +331,7 @@ cudaError_t dispatch_d(const Args& a, int b, int hkv, int d,
     case 32: return launch<T, 32>(a, b, hkv, stream);
     case 64: return launch<T, 64>(a, b, hkv, stream);
     case 128: return launch<T, 128>(a, b, hkv, stream);
+    case 256: return launch<T, 256>(a, b, hkv, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -350,6 +363,7 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   a.t = t;
   a.hq = hq;
   a.group = hq / hkv;
+  a.gchunks = (a.group + 7) / 8;
   a.chunk = chunk;
   a.nsplit = nsplit;
   a.scale = scale;

@@ -17,30 +17,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
 from . import _build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-launches = 0            # kernel launches since the last reset_launches()
-_count_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_lock:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_lock:
-        launches += 1
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -99,7 +83,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    _count_launch()
+    _build.count_launch("flash_attention")
     return out
 
 

@@ -13,39 +13,23 @@ The kernel takes element strides for the batch, head and sequence axes, so
 the caches may be ``(B, Hkv, T, D)`` views of the decode engine's
 ``(slots, T, Hkv, D)`` layer caches, read in place; the head dim must be
 contiguous and every cache row 16-byte aligned (it is loaded 16 bytes a
-lane).  A ``(B,)`` length tensor is read by the kernel from device memory,
+lane).  A block serves up to 8 q heads of one kv head; a larger GQA group
+is cut into chunks of 8 along the grid.  A ``(B,)`` length tensor is read by the kernel from device memory,
 so nothing on the host waits for it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
 from . import _build
 from .ref import decode_lengths, flash_decode_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_GROUP = 8                 # q heads per kv head the kernel serves
+HEAD_DIMS = (16, 32, 64, 128, 256)
 CHUNK = 256                   # cache positions per block (one split)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-launches = 0            # wrapper calls that launched the kernel since reset
-_count_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    global launches
-    with _count_lock:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _count_lock:
-        launches += 1
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -69,13 +53,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _check_kernel_layout(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> None:
-    d, group = q.shape[2], q.shape[1] // k.shape[1]
+    d = q.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_decode kernel takes head dims {HEAD_DIMS}, "
                          f"got {d}")
-    if group > MAX_GROUP:
-        raise ValueError(f"flash_decode kernel serves at most {MAX_GROUP} q "
-                         f"heads per kv head, got {group}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("flash_decode needs a contiguous head dim "
                          "(stride 1 on the last axis)")
@@ -127,7 +108,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
-    _count_launch()
+    _build.count_launch("flash_decode")
     return out
 
 

@@ -60,3 +60,32 @@ def flash_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgt,bktd->bkgd", probs, v_cache.float())
     out = out * (lens > 0).float()[:, None, None, None]
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):
+    """h_t = a_t h_{t-1} + g_t with an fp32 carry.  a/g: (B,S,R); h0:
+    (B,R).  Returns (y (B,S,R) in a's dtype, h_last (B,R) fp32)."""
+    h = h0.float()
+    ys = []
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + g[:, t].float()
+        ys.append(h)
+    return torch.stack(ys, 1).to(a.dtype), h
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
+    """Per-head WKV recurrence with an fp32 state.  r/k/v/w: (B,H,S,D);
+    u: (H,D); s0: (B,H,D,D).  Per step
+        y_t = r_t (S + diag(u) k_t^T v_t),  S <- diag(w_t) S + k_t^T v_t.
+    Returns (y (B,H,S,D) in r's dtype, s_last (B,H,D,D) fp32)."""
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    state = s0.float()
+    ys = []
+    for t in range(r.shape[2]):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]       # (B,H,K,V)
+        ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t],
+                               state + uf * kv))
+        state = wf[:, :, t, :, None] * state + kv
+    return torch.stack(ys, 2).to(r.dtype), state

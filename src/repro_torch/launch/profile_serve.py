@@ -19,8 +19,17 @@ stream (a warm-up stream, then ``--requests`` prompts submitted at once
 through the continuous batch), after an unprofiled stream that warms every
 stage.
 
+The recurrent families (``--arch rwkv6-1.6b`` or ``recurrentgemma-9b``),
+which the serving runtimes do not bind, run through the model API: one
+window of ``--forwards`` forwards of a ``(--requests, --seq)`` batch (last
+token's logits), and one of ``--max-new-tokens`` greedy decode steps of
+``--requests`` rows after a ``--prompt-len`` prompt went into the cache
+(rwkv6: in one call; recurrentgemma: token by token).
+
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --seq 1024 --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch rwkv6-1.6b --seq 1024 --requests 4 --prompt-len 1024
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --workload decode --decode-concurrency 8 --max-context 2048 \\
         --prompt-len 1024 --max-new-tokens 64 --requests 16 \\
@@ -32,15 +41,19 @@ import argparse
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import configs
 from repro_torch.launch import serve
-from repro_torch.models import lm
+from repro_torch.models import api, lm
 
 KINDS = (("flash_attention", ("flash_attention",)),
          ("flash_decode", ("flash_decode",)),
+         ("rwkv6_scan", ("rwkv6_scan",)),
+         ("rglru_scan", ("rglru_scan",)),
          ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")))
 
 
@@ -96,6 +109,50 @@ def profiled(fn: Callable[[], object]):
     return prof, wall
 
 
+def profile_model(args: argparse.Namespace, forwards: int) -> None:
+    """The model-API windows of a recurrent family (module docstring)."""
+    batch, decode_steps = args.requests, args.max_new_tokens
+    mod = configs.get(args.arch)
+    cfg = mod.smoke_config() if args.smoke else mod.config()
+    dev = torch.device("cuda")
+    params = api.init(cfg, dev, torch.Generator(dev).manual_seed(args.seed))
+    rng = np.random.default_rng(args.seed)
+    tokens, prompt = (torch.from_numpy(rng.integers(
+        0, cfg.vocab, (batch, n), dtype=np.int64))
+        for n in (args.seq, args.prompt_len))
+
+    def run_forwards():
+        for _ in range(forwards):
+            api.forward(cfg, params, {"tokens": tokens},
+                        last_token_only=True)
+
+    run_forwards()
+    torch.cuda.synchronize()
+    prof, wall = profiled(run_forwards)
+    summarize(prof, wall, f"{cfg.name} forward ({batch}, {args.seq}) "
+                          f"x{forwards}")
+
+    cache = api.init_cache(cfg, batch, args.prompt_len + 2 * decode_steps,
+                           dev)
+    feed = ([prompt[:, i:i + 1] for i in range(args.prompt_len)]
+            if cfg.family == "hybrid" else [prompt])
+    for tok in feed:
+        logits, cache = api.decode(cfg, params, tok.to(dev), cache)
+    state = {"cache": cache, "tok": logits[:, -1].argmax(-1, keepdim=True)}
+
+    def steps():
+        for _ in range(decode_steps):
+            logits, state["cache"] = api.decode(cfg, params, state["tok"],
+                                                state["cache"])
+            state["tok"] = logits[:, -1].argmax(-1, keepdim=True)
+
+    steps()                                     # warms the step
+    torch.cuda.synchronize()
+    prof, wall = profiled(steps)
+    summarize(prof, wall, f"{cfg.name} decode {batch} rows x "
+                          f"{decode_steps} steps")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--forwards", type=int, default=3)
@@ -104,6 +161,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.device != "cuda":
         raise SystemExit("profile_serve measures the card: --device cuda")
     print(torch.cuda.get_device_name(0))
+    if configs.get(args.arch).config().family not in serve.SERVED_FAMILIES:
+        profile_model(args, extra.forwards)
+        return
     if args.workload == "decode":
         cfg, params, dep, prompts = serve.setup_decode(args)
 

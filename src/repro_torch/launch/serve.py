@@ -23,11 +23,18 @@ Edge TPU), then stream ``--requests`` prompts of ``--prompt-len`` tokens,
 ``--max-new-tokens`` each, through the continuous-batching
 :class:`~repro_torch.decode.engine.DecodeServer`.
 
+The recurrent families (rwkv6-1.6b, recurrentgemma-9b) plan but are not
+served, as in the reference: both workloads print the plan, the report and
+the reference's note, and return (:func:`plan_only`).  Their runnable
+surface is :mod:`repro_torch.models.api`.
+
 Full width is the default; ``--smoke`` serves the reduced config.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --stages 4 --requests 15
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --workload decode \\
         --decode-concurrency 8 --max-context 2048 --prompt-len 1024 \\
         --max-new-tokens 64 --requests 16 --plan-device-bytes 21000000000
@@ -43,12 +50,16 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.api import DeploymentSpec, deploy
+from repro_torch.api import DeploymentSpec, deploy, plan
 from repro_torch.configs.common import concrete_batch
 from repro_torch.core.edge_tpu_model import EdgeTPUSpec
 from repro_torch.core.pipeline import stage_balance_metrics
 from repro_torch.core.placement import PlacementPlan
+from repro_torch.decode import DECODE_FAMILIES
 from repro_torch.models import lm, lm_graph
+
+# the families the prefill serving runtime binds (the reference's list)
+SERVED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def stage_block_counts(plan: PlacementPlan, n_blocks: int) -> List[int]:
@@ -269,6 +280,36 @@ def run_decode(args: argparse.Namespace) -> Dict[str, Any]:
     return res
 
 
+def plan_only(args: argparse.Namespace) -> Dict[str, Any]:
+    """The reference's plan-and-note path for a family its serving runtimes
+    do not bind: plan the arch through ``lm_graph`` (``decode_placement``
+    for ``--workload decode``), print the plan, the report and the note.
+    Returns the config, the plan and the note."""
+    resolve_device(args.device)
+    mod = configs.get(args.arch)
+    cfg = mod.smoke_config() if args.smoke else mod.config()
+    g = lm_graph.lm_layer_graph(cfg, seq_len=args.seq)
+    if args.workload == "decode":
+        base = (EdgeTPUSpec(onchip_bytes=args.plan_device_bytes)
+                if args.plan_device_bytes else None)
+        pl = plan(spec_from_args(args), graph=g, cfg=cfg, base_spec=base)
+        note = (f"note: family {cfg.family!r} ({args.arch}) plans decode "
+                f"placement (above) but the continuous-batching runtime "
+                f"binds the scan-block families {DECODE_FAMILIES}; pick one "
+                f"of those archs to stream tokens")
+    else:
+        pl = plan(spec_from_args(args), graph=g)
+        note = (f"note: family {cfg.family!r} ({args.arch}) plans via "
+                f"lm_graph (above) but the pipeline serving runtime binds "
+                f"the scan-block families {SERVED_FAMILIES}; pick one of "
+                f"those archs to serve, or use --workload decode for "
+                f"KV-aware decode planning")
+    print("plan:", pl.describe())
+    print("report:", pl.report.describe())
+    print(note)
+    return {"cfg": cfg, "plan": pl, "note": note}
+
+
 def main_decode(args: argparse.Namespace) -> Dict[str, Any]:
     res = run_decode(args)
     pl, snap, outs = res["plan"], res["snapshot"], res["outs"]
@@ -298,6 +339,8 @@ def main_decode(args: argparse.Namespace) -> Dict[str, Any]:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
+    if configs.get(args.arch).config().family not in SERVED_FAMILIES:
+        return plan_only(args)
     if args.workload == "decode":
         return main_decode(args)
     res = run(args)

@@ -1,10 +1,12 @@
 """Parameters of the JAX reference, as numpy arrays, -> this package's.
 
-The JAX tree stacks the per-layer ``blocks`` along a leading layer axis and
-lays weights out ``(in, out)``; :func:`params_from_numpy` splits ``blocks``
-into one dict per layer and keeps every layout.  A JAX bf16 array becomes
-an ``ml_dtypes.bfloat16`` numpy array, which :func:`torch.from_numpy`
-rejects, so such arrays pass through their uint16 bits.
+The JAX tree stacks repeated layers along a leading axis (``blocks`` of
+the dense and ssm families; ``super`` super-blocks and ``tail`` rec blocks
+of the hybrid family) and lays weights out ``(in, out)``;
+:func:`params_from_numpy` splits each stack into a list of one dict per
+layer and keeps every layout.  A JAX bf16 array becomes an
+``ml_dtypes.bfloat16`` numpy array, which :func:`torch.from_numpy` rejects,
+so such arrays pass through their uint16 bits.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from .. import resolve_device
 from .lm import LMConfig, Params, require_ported
+from .rglru import n_super_and_tail
 
 
 def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -30,15 +33,26 @@ def _tree(tree: Any, fn) -> Any:
     return fn(tree)
 
 
+def _stacks(cfg: LMConfig) -> Dict[str, int]:
+    """Stacked subtrees of the family's JAX tree -> their layer counts."""
+    if cfg.family == "hybrid":
+        n_super, tail = n_super_and_tail(cfg.n_layers, cfg.attn_every)
+        return {"super": n_super, "tail": tail}
+    return {"blocks": cfg.n_layers}
+
+
 def params_from_numpy(cfg: LMConfig, tree: Dict[str, Any],
                       device="cuda") -> Params:
     """``tree``: the reference's parameters with numpy leaves (e.g.
     ``jax.tree.map(np.asarray, params)``)."""
     require_ported(cfg)
     dev = resolve_device(device)
-    out = {k: _tree(v, lambda a: tensor_from_numpy(a, dev))
-           for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_tree(tree["blocks"],
-                           lambda a, i=i: tensor_from_numpy(a[i], dev))
-                     for i in range(cfg.n_layers)]
+    stacks = _stacks(cfg)
+    out = {}
+    for key, sub in tree.items():
+        if key in stacks:
+            out[key] = [_tree(sub, lambda a, i=i: tensor_from_numpy(a[i], dev))
+                        for i in range(stacks[key])]
+        else:
+            out[key] = _tree(sub, lambda a: tensor_from_numpy(a, dev))
     return out

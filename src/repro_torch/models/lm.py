@@ -2,8 +2,11 @@
 
 Ported from ``repro/models/lm.py``: the same :class:`LMConfig` (``dtype`` is
 a :class:`torch.dtype`) and the dense forward (embed, RMS norm, q/k/v
-projections with qk-norm, half-split RoPE, GQA attention, swiglu MLP,
-final norm, tied or untied unembedding).  Parameters are a plain dict
+projections with qk-norm, half-split RoPE, GQA attention, swiglu or geglu
+MLP, final norm, tied or untied unembedding).  The attention and MLP
+blocks also serve the hybrid family's local-attention layers
+(:mod:`repro_torch.models.rglru`); the ssm family is
+:mod:`repro_torch.models.rwkv6`.  Parameters are a plain dict
 mirroring the JAX tree, except that ``blocks`` is a list with one dict per
 layer (the JAX tree stacks them along a leading axis); weights are laid out
 ``(in, out)`` as there.
@@ -15,8 +18,8 @@ transposed views, which the kernel reads through their strides; for one
 decode token against a KV cache the flash-decode kernel
 (:func:`repro_torch.kernels.flash_decode.flash_decode`), the ``(B, T, Hkv,
 D)`` caches passed the same way.  Caches are written in place (the JAX
-module returns updated copies).  Only the dense family with swiglu MLP and
-no QKV bias is ported; other families and options raise.
+module returns updated copies).  The moe, vlm and encdec families, QKV
+bias, layer norm and the ungated MLPs are not ported and raise.
 """
 from __future__ import annotations
 
@@ -97,18 +100,27 @@ class LMConfig:
         return self
 
 
-def require_ported(cfg: LMConfig) -> None:
-    """Raise for the parts of the LM family this package does not run."""
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def require_ported(cfg: LMConfig, family: Optional[str] = None) -> None:
+    """Raise for the parts of the LM families this package does not run;
+    ``family``: also raise unless ``cfg`` is of that family."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (the dense family is); moe/vlm are the LM-families slice, "
-            f"hybrid/ssm/encdec the recurrent and encoder-decoder slice")
-    if cfg.qkv_bias or cfg.mlp_kind != "swiglu" or cfg.norm != "rms":
+            f"yet (the {'/'.join(PORTED_FAMILIES)} families are); moe/vlm "
+            f"are the LM-families slice, encdec the encoder-decoder slice")
+    if family is not None and cfg.family != family:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} runs through "
+                         f"repro_torch.models.api, not the {family!r} "
+                         f"module")
+    if cfg.family != "ssm" and (cfg.qkv_bias or cfg.norm != "rms" or
+                                cfg.mlp_kind not in ("swiglu", "geglu")):
         raise NotImplementedError(
             f"{cfg.name}: qkv_bias={cfg.qkv_bias}, mlp_kind={cfg.mlp_kind!r}, "
-            f"norm={cfg.norm!r}: only the dense swiglu / rms / no-bias "
-            f"blocks are ported to repro_torch")
+            f"norm={cfg.norm!r}: only the swiglu/geglu, rms, no-bias "
+            f"attention blocks are ported to repro_torch")
 
 
 # ---------------------------------------------------------------------------
@@ -122,8 +134,8 @@ def _dense_init(shape, dtype, device, generator, scale: Optional[float] = None):
     return (w * s).to(dtype)
 
 
-def _block_params(cfg: LMConfig, dtype, device, generator) -> Params:
-    d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+def attn_params(cfg: LMConfig, dtype, device, generator) -> Params:
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     attn = {"wq": _dense_init((d, qd), dtype, device, generator),
             "wk": _dense_init((d, kvd), dtype, device, generator),
             "wv": _dense_init((d, kvd), dtype, device, generator),
@@ -131,12 +143,23 @@ def _block_params(cfg: LMConfig, dtype, device, generator) -> Params:
     if cfg.qk_norm:
         attn["q_norm"] = torch.zeros(cfg.hd, dtype=dtype, device=device)
         attn["k_norm"] = torch.zeros(cfg.hd, dtype=dtype, device=device)
+    return attn
+
+
+def mlp_params(cfg: LMConfig, dtype, device, generator) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    return {"wg": _dense_init((d, f), dtype, device, generator),
+            "wu": _dense_init((d, f), dtype, device, generator),
+            "wd": _dense_init((f, d), dtype, device, generator)}
+
+
+def block_params(cfg: LMConfig, dtype, device, generator) -> Params:
+    """One attention + MLP block (RMS-normed)."""
+    d = cfg.d_model
     return {"ln1": {"scale": torch.zeros(d, dtype=dtype, device=device)},
-            "attn": attn,
+            "attn": attn_params(cfg, dtype, device, generator),
             "ln2": {"scale": torch.zeros(d, dtype=dtype, device=device)},
-            "mlp": {"wg": _dense_init((d, f), dtype, device, generator),
-                    "wu": _dense_init((d, f), dtype, device, generator),
-                    "wd": _dense_init((f, d), dtype, device, generator)}}
+            "mlp": mlp_params(cfg, dtype, device, generator)}
 
 
 def init_params(cfg: LMConfig, device: torch.device,
@@ -144,12 +167,12 @@ def init_params(cfg: LMConfig, device: torch.device,
     """Random parameters with the reference's shapes, dtypes and init
     scales (not its numbers: the generators differ).  ``generator`` must
     live on ``device``; ``device="meta"`` gives shapes without storage."""
-    require_ported(cfg)
+    require_ported(cfg, "dense")
     dtype = cfg.dtype
     params: Params = {
         "embed": _dense_init((cfg.vocab, cfg.d_model), dtype, device,
                              generator, scale=0.02),
-        "blocks": [_block_params(cfg, dtype, device, generator)
+        "blocks": [block_params(cfg, dtype, device, generator)
                    for _ in range(cfg.n_layers)],
         "final_norm": {"scale": torch.zeros(cfg.d_model, dtype=dtype,
                                             device=device)},
@@ -176,14 +199,23 @@ def _qkv(cfg: LMConfig, p: Params, x: torch.Tensor):
 
 def attn_block(cfg: LMConfig, p: Params, x: torch.Tensor,
                positions: torch.Tensor,
-               cache_rows: Optional[KVRows] = None) -> torch.Tensor:
+               cache_rows: Optional[KVRows] = None,
+               window: Optional[int] = None) -> torch.Tensor:
     """Full-sequence causal attention (prefill).  One kernel call covers
     both of the reference's branches (``s <= q_chunk``: full attention,
     else query-chunked): they compute the same function.
 
     ``cache_rows`` (one sequence, B = 1): a decode slot's ``(T, Hkv, D)``
-    K and V caches, whose first S rows take the post-RoPE k/v in place."""
+    K and V caches, whose first S rows take the post-RoPE k/v in place.
+    ``window`` (a local-attention layer): up to S = window the window masks
+    nothing and the causal kernel computes the reference's function; a
+    longer sequence raises."""
     b, s, _ = x.shape
+    if window is not None and s > window:
+        raise NotImplementedError(
+            f"{cfg.name}: windowed prefill of {s} tokens above the local "
+            f"window {window} is not ported to repro_torch yet (the flash "
+            f"kernel takes no window); prompts up to {window} tokens run")
     q, k, v = _qkv(cfg, p, x)
     q = A.apply_rope(q, positions, cfg.rope_theta)
     k = A.apply_rope(k, positions, cfg.rope_theta)
@@ -198,16 +230,33 @@ def attn_block(cfg: LMConfig, p: Params, x: torch.Tensor,
 def attn_block_decode(cfg: LMConfig, p: Params, x: torch.Tensor,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
                       cache_len, positions: torch.Tensor,
-                      write: Tuple) -> torch.Tensor:
-    """Single-token decode (the reference's dense branch, no window).
+                      write: Optional[Tuple] = None,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Single-token decode.
 
     x: (B, 1, d_model); caches (B, T, Hkv, D), written in place: the new
     post-RoPE k/v go to ``cache[write]`` from batch rows ``write[0]``
     (``(slice(None), n - 1)`` for a whole batch at one position, or
     ``(rows, positions)`` index tensors for the decode engine's active
     slots).  ``cache_len``: an int or a (B,) int32 tensor on the caches'
-    device; ``positions``: (B, 1) or (1, 1) RoPE positions."""
+    device; ``positions``: (B, 1) or (1, 1) RoPE positions.
+
+    ``window`` (a local-attention layer; ``cache_len`` an int, ``write``
+    unused): the reference's ring cache of T = min(max_len, window) rows.
+    The new token goes to slot (len - 1) mod T and attention covers
+    min(len, T) rows; softmax over a set of keys does not depend on their
+    order and RoPE is applied before the write, so flash-decode over those
+    rows computes the ring exactly."""
     b = x.shape[0]
+    if window is not None:
+        t = k_cache.shape[1]
+        if t > window:
+            raise NotImplementedError(
+                f"{cfg.name}: a windowed cache of {t} rows above the window "
+                f"{window} is not ported (init_cache makes min(max_len, "
+                f"window) rows)")
+        write = (slice(None), (cache_len - 1) % t)
+        cache_len = min(cache_len, t)
     q, k, v = _qkv(cfg, p, x)                       # S == 1
     q = A.apply_rope(q, positions, cfg.rope_theta)
     k = A.apply_rope(k, positions, cfg.rope_theta)
@@ -219,7 +268,13 @@ def attn_block_decode(cfg: LMConfig, p: Params, x: torch.Tensor,
 
 
 def mlp_block(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+    """Gated MLP: swiglu, or geglu with JAX's default tanh-approximate
+    GELU."""
+    if cfg.mlp_kind == "geglu":
+        h = F.gelu(x @ p["wg"], approximate="tanh")
+    else:
+        h = F.silu(x @ p["wg"])
+    return (h * (x @ p["wu"])) @ p["wd"]
 
 
 def block(cfg: LMConfig, bp: Params, x: torch.Tensor,
@@ -257,17 +312,25 @@ def positions_for(x: torch.Tensor) -> torch.Tensor:
     return torch.arange(x.shape[1], device=x.device)[None, :]
 
 
+def forward_hidden(cfg: LMConfig, params: Params,
+                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Post-block hidden states (B, S, d_model): pair with
+    :func:`unembed`."""
+    require_ported(cfg, "dense")
+    x = embed_tokens(cfg, params, batch["tokens"])
+    positions = positions_for(x)
+    for bp in params["blocks"]:
+        x = block(cfg, bp, x, positions)
+    return x
+
+
 def forward(cfg: LMConfig, params: Params, batch: Dict[str, torch.Tensor],
             last_token_only: bool = False) -> torch.Tensor:
     """Full-sequence forward -> fp32 logits (B, S, V), or (B, 1, V) with
     ``last_token_only`` (the prefill serving path).
 
     batch["tokens"]: (B, S) integer tokens."""
-    require_ported(cfg)
-    x = embed_tokens(cfg, params, batch["tokens"])
-    positions = positions_for(x)
-    for bp in params["blocks"]:
-        x = block(cfg, bp, x, positions)
+    x = forward_hidden(cfg, params, batch)
     if last_token_only:
         x = x[:, -1:]
     return unembed(cfg, params, x)
@@ -280,6 +343,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
                device: torch.device) -> Params:
     """Zero K/V caches (n_layers, B, T, Hkv, D) in the model dtype, and the
     valid length 0."""
+    require_ported(cfg, "dense")
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -290,7 +354,7 @@ def forward_decode(cfg: LMConfig, params: Params, tokens: torch.Tensor,
                    cache: Params) -> Tuple[torch.Tensor, Params]:
     """One decode step: tokens (B, 1) -> fp32 logits (B, 1, V) and the cache
     with its length advanced; the K/V tensors are updated in place."""
-    require_ported(cfg)
+    require_ported(cfg, "dense")
     x = embed_tokens(cfg, params, tokens)
     n = cache["len"] + 1
     pos = torch.full((1, 1), n - 1, device=x.device)

@@ -1,31 +1,25 @@
 """Lower an LM architecture to a :class:`LayerGraph` for the segmentation
-planner, as ``repro/models/lm_graph.py`` does for the dense family.
+planner, as ``repro/models/lm_graph.py`` does for the ported families.
 
 Per-node parameter counts are exact: they come from the real initializer
-run on the ``meta`` device (shapes, no allocation), so the planner
-balances the same bytes the runtime holds.  MACs use the analytical
-per-block estimator.  The graph equals the reference's node by node, so
-every plan over it is the reference's plan.
+(:func:`repro_torch.models.api.init`) run on the ``meta`` device (shapes,
+no allocation), so the planner balances the same bytes the runtime holds.
+MACs use the per-family analytical estimators.  The graph equals the
+reference's node by node, so every plan over it is the reference's plan.
 
-Depth structure: ``embed -> block_0 .. block_{L-1} -> final_norm -> head``.
+Depth structure: ``embed -> block nodes -> final_norm -> head``; the block
+nodes are ``block_i`` (dense, ssm) or ``block_i_rec`` / ``block_i_attn``
+(hybrid).
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
 from ..core.costs import TransformerBlockCost
 from ..core.graph import LayerGraph
-from .lm import LMConfig, init_params
-
-
-def _tree_size(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_tree_size(v) for v in tree.values())
-    if isinstance(tree, list):
-        return sum(_tree_size(v) for v in tree)
-    return math.prod(tree.shape)
+from . import api
+from .lm import LMConfig
+from .rglru import n_super_and_tail
 
 
 def _block_cost(cfg: LMConfig) -> TransformerBlockCost:
@@ -36,30 +30,70 @@ def _block_cost(cfg: LMConfig) -> TransformerBlockCost:
         ffn_gated=cfg.mlp_kind in ("swiglu", "geglu"))
 
 
+def _rwkv_macs(cfg: LMConfig, seq: int) -> int:
+    d, f = cfg.d_model, cfg.d_ff
+    tm = 5 * d * d + d * (cfg.rwkv_head_dim * 2)       # proj + wkv per token
+    cm = 2 * d * f + d * d
+    return seq * (tm + cm)
+
+
+def _rec_macs(cfg: LMConfig, seq: int) -> int:
+    d = cfg.d_model
+    temporal = 3 * d * d + cfg.conv_width * d          # wx, wgate, wo + conv
+    mlp = 3 * d * cfg.d_ff
+    return seq * (temporal + mlp)
+
+
 def lm_layer_graph(cfg: LMConfig, seq_len: int = 4096,
                    act_bytes_per_elt: int = 2) -> LayerGraph:
     """Build the segmentation view of an LM arch (per single sequence)."""
     g = LayerGraph(cfg.name)
-    shapes = init_params(cfg, torch.device("meta"))
+    shapes = api.init(cfg, torch.device("meta"))
     act = seq_len * cfg.d_model * act_bytes_per_elt
     w_bytes = 2  # bf16 weights
 
-    embed_p = _tree_size(shapes["embed"])
+    embed_p = api.tree_size(shapes["embed"])
     g.add_layer("embed", params=embed_p, macs=seq_len * cfg.d_model,
                 out_bytes=act, weight_bytes=embed_p * w_bytes, kind="embed")
     prev = "embed"
-    per_block = _tree_size(shapes["blocks"]) // cfg.n_layers
-    macs = _block_cost(cfg).block_macs(seq_len, seq_len)
-    for i in range(cfg.n_layers):
-        g.add_layer(f"block_{i}", params=per_block, macs=macs,
-                    out_bytes=act, inputs=[prev],
-                    weight_bytes=per_block * w_bytes, kind="block")
-        prev = f"block_{i}"
 
-    norm_p = _tree_size(shapes["final_norm"])
+    def add_block(name, params, macs, kind):
+        nonlocal prev
+        g.add_layer(name, params=params, macs=macs, out_bytes=act,
+                    inputs=[prev], weight_bytes=params * w_bytes, kind=kind)
+        prev = name
+
+    if cfg.family == "hybrid":
+        n_super, tail = n_super_and_tail(cfg.n_layers, cfg.attn_every)
+        per_super = api.tree_size(shapes["super"]) // n_super
+        rec_p = api.tree_size(shapes["super"][0]["rec1"])
+        attn_p = per_super - 2 * rec_p
+        attn_macs = _block_cost(cfg).block_macs(
+            seq_len, min(seq_len, cfg.local_window))
+        rec_macs = _rec_macs(cfg, seq_len)
+        li = 0
+        for _ in range(n_super):
+            for kind, p, m in (("rec", rec_p, rec_macs),
+                               ("rec", rec_p, rec_macs),
+                               ("attn", attn_p, attn_macs)):
+                add_block(f"block_{li}_{kind}", p, m, f"{kind}_block")
+                li += 1
+        if tail:
+            tail_p = api.tree_size(shapes["tail"]) // tail
+            for _ in range(tail):
+                add_block(f"block_{li}_rec", tail_p, rec_macs, "rec_block")
+                li += 1
+    else:
+        per_block = api.tree_size(shapes["blocks"]) // cfg.n_layers
+        macs = (_rwkv_macs(cfg, seq_len) if cfg.family == "ssm"
+                else _block_cost(cfg).block_macs(seq_len, seq_len))
+        for i in range(cfg.n_layers):
+            add_block(f"block_{i}", per_block, macs, "block")
+
+    norm_p = api.tree_size(shapes["final_norm"])
     g.add_layer("final_norm", params=norm_p, macs=0, out_bytes=act,
                 inputs=[prev], weight_bytes=norm_p * w_bytes, kind="norm")
-    head_p = _tree_size(shapes["head"]) if "head" in shapes else 0
+    head_p = api.tree_size(shapes["head"]) if "head" in shapes else 0
     g.add_layer("head", params=head_p, macs=seq_len * cfg.d_model * cfg.vocab,
                 out_bytes=0, inputs=["final_norm"],
                 weight_bytes=head_p * w_bytes, kind="head")

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -72,9 +73,10 @@ def test_cpu_wrapper_matches_pallas_interpret(b, hq, hkv, s, t, d, causal,
     q, k, v = _inputs(1, b, hq, hkv, s, t, d, dtype)
     expect = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                           causal=causal, interpret=True)
-    before = fa.launches
+    before = _build.launches("flash_attention")
     got = fa.flash_attention(_torch(q), _torch(k), _torch(v), causal=causal)
-    assert fa.launches == before          # the CPU path launches nothing
+    # the CPU path launches nothing
+    assert _build.launches("flash_attention") == before
     np.testing.assert_allclose(_np32(got), _np32(expect),
                                rtol=_tol(dtype), atol=_tol(dtype))
 
