@@ -5,11 +5,13 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the model paths from the sources in this
-   checkout (flash_attention, flash_decode, rwkv6_scan, rglru_scan; one
-   nvcc per source, started together);
+   checkout (flash_attention, flash_decode, rwkv6_scan, rglru_scan,
+   matmul_qi8; one nvcc per source, started together);
 3. holds each kernel against its plain PyTorch version at the shapes the
    model paths give it (the flash kernels also at recurrentgemma's head dim
-   256 with 16 q heads per kv head), and times kernel, plain version and,
+   256 with 16 q heads per kv head; flash_attention with recurrentgemma's
+   window of 2048 at S = T = 4096; matmul_qi8 exactly at 512^3, ResNet50's
+   head, a 1x1 conv and a ragged K), and times kernel, plain version and,
    where one exists, one library call (the yardstick; the port never calls
    it; no single PyTorch call computes either recurrence);
 4. holds the full model on the card against the same model on the CPU at
@@ -45,8 +47,19 @@
    decode loop of 16 rows, a 32-token prompt fed token by token plus 32
    greedy tokens at max_len 64 (26 rglru_scan and 12 flash_decode launches
    a step), teacher-forced and repeated in fp32 as in 7;
-9. prints one JSON line of kernel results, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+9. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
+   synthetic_cnn(64) at their published input sizes, one forward each on
+   the card against the CPU; ResNet50 planned by the analytic Edge TPU
+   model (balanced, 4 stages) and served through ``cnn_stage_fns`` (64
+   single-image requests), then profiled depth by depth on the card and
+   re-planned from that trace (balanced_cost, ``trace:``) for the
+   reference's Edge TPU and for a quarter of the card's memory a stage,
+   the three plans served in turn twice, each served output equal to the
+   direct forward;
+   then the int8 API on ResNet50's head (``quantized_dense``, 1
+   matmul_qi8 launch between a reset and a read of the counts);
+10. prints one JSON line of CNN results and one of kernel results, then,
+   as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -68,20 +81,25 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import configs  # noqa: E402  (needs src/ on the path)
 from repro_torch.api import DeploymentSpec, plan  # noqa: E402
 from repro_torch.configs.common import concrete_batch  # noqa: E402
+from repro_torch.core.edge_tpu_model import EdgeTPUSpec  # noqa: E402
 from repro_torch.core.pipeline import stage_balance_metrics  # noqa: E402
 from repro_torch.decode.engine import PipelineDecodeEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import matmul_qi8 as mq  # noqa: E402
+from repro_torch.kernels import quant  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rw  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
-                                     flash_decode_ref, rglru_scan_ref,
-                                     rwkv6_scan_ref)
-from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import api, lm, lm_graph  # noqa: E402
+                                     flash_decode_ref, matmul_qi8_ref,
+                                     rglru_scan_ref, rwkv6_scan_ref)
+from repro_torch.launch import profile_serve, serve  # noqa: E402
+from repro_torch.models import api, cnn, lm, lm_graph  # noqa: E402
+from repro_torch.profiling import profile_model  # noqa: E402
 
-KERNELS = ("flash_attention", "flash_decode", "rwkv6_scan", "rglru_scan")
+KERNELS = ("flash_attention", "flash_decode", "rwkv6_scan", "rglru_scan",
+           "matmul_qi8")
 
 ARCH = "qwen3-1.7b"
 SEQ = 1024
@@ -118,8 +136,25 @@ GEMMA_ROWS = 16         # decode rows: enough served tokens that bf16
 GEMMA_PROMPT = 32
 GEMMA_NEW = 32
 GEMMA_MAX_LEN = 64
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# recurrentgemma's windowed prefill above local_window: B, Hq, Hkv, S = T,
+# D, window
+WINDOWED = (1, 16, 1, 4096, 256, 2048)
+# matmul_qi8: 512^3 (benchmarks/kernel_bench.py); ResNet50's head as a GEMM
+# (the int8 path's shape: 8 images x 2048 features x 1000 classes); a 1x1
+# conv as a GEMM (8 x 56 x 56 pixels, 64 -> 256 channels); a ragged K
+QI8_SHAPES = ((512, 512, 512), (8, 2048, 1000), (8 * 56 * 56, 64, 256),
+              (1000, 30, 300))
+QI8_HEAD = (8, 2048, 1000)
+# the CNN path: the analytic plan of paper Table 5 / examples/quickstart.py,
+# then the same model planned from its own trace on the card
+CNN = "ResNet50"
+CNN_REQUESTS = 64
+CNN_ROUNDS = 2          # every plan served in turn, twice: host noise shows
+CNN_TOL = 1e-4          # card vs CPU forward, relative to max |y|
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, int8
+# tensor cores, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -146,14 +181,14 @@ def cuda_ms(fns, reps=20, backlog=True):
     return start.elapsed_time(end) / reps
 
 
-def attention_bound(q, k, causal):
+def attention_bound(q, k, causal, window=None):
     """Least time (ms) for one flash-attention call on these inputs: q/k/v
     read and o written once over HBM bandwidth, against 4*D flops per
     unmasked (query, key) pair over the peak rate of the input type."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     if causal:      # query i (right-aligned) sees keys 0 .. t - s + i
-        pairs = sum(min(t, t - s + i + 1) for i in range(s))
+        pairs = sum(min(t, t - s + i + 1, window or t) for i in range(s))
     else:
         pairs = s * t
     flops = 4 * d * pairs * b * hq
@@ -511,6 +546,308 @@ def check_rglru_scan():
                   f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                   f"({bound_by}); no single PyTorch call computes it")
     return record
+
+
+def check_windowed_flash_attention():
+    """recurrentgemma's windowed prefill above its window: the kernel with
+    ``window=`` against its plain version at B 1, 16/1 heads, D 256, S = T
+    = 4096, window 2048, in bf16 and fp32; then times the windowed kernel,
+    the same kernel without the window, the plain version and SDPA with
+    the window's boolean mask (bf16).  Returns the record."""
+    b, hq, hkv, n, d, window = WINDOWED
+    out = {"shape": {"b": b, "hq": hq, "hkv": hkv, "s": n, "t": n, "d": d,
+                     "window": window}}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q, k, v = attention_inputs(b, hq, hkv, n, n, d, dtype, True)
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        expect = flash_attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - expect.float()).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        print(f"flash_attention windowed {dtype} B={b} {hq}/{hkv} D={d} "
+              f"S=T={n} window={window}: max_abs_err {err:.3e} (tol "
+              f"{tol:g}), finite={finite}")
+        if not (finite and err <= tol):
+            raise SystemExit(f"windowed flash_attention disagrees with its "
+                             f"plain version ({dtype}): {err:.3e} > {tol:g}")
+        out[f"max_abs_err_{str(dtype).split('.')[-1]}"] = err
+        del expect
+    # q, k, v are fp32 here; time the bf16 model's call
+    q, k, v = attention_inputs(b, hq, hkv, n, n, d, torch.bfloat16, True)
+    pos = torch.arange(n, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    out["ms"] = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=True,
+                                                    window=window)])
+    out["causal_ms"] = cuda_ms([lambda: fa.flash_attention(q, k, v,
+                                                           causal=True)])
+    out["plain_ms"] = cuda_ms([lambda: flash_attention_ref(
+        q, k, v, causal=True, window=window)], reps=3)
+    out["library_ms"] = cuda_ms([
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)])
+    out["bound_ms"], out["bound_by"] = attention_bound(q, k, True, window)
+    print(f"flash_attention windowed timing (bf16): kernel {out['ms']:.4f} "
+          f"ms (without the window {out['causal_ms']:.4f} ms), plain "
+          f"{out['plain_ms']:.4f} ms, sdpa with the mask "
+          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']})")
+    return out
+
+
+def qi8_bound(m, k, n):
+    """Least time (ms) of an int8 (M,K) x (K,N) -> int32 product: x and w
+    read and the int32 output written once over HBM bandwidth, against
+    2*M*N*K operations at the int8 tensor-core peak."""
+    t_ops = 2 * m * n * k / PEAK_FLOPS[torch.int8]
+    t_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def int_mm_ms(x, w):
+    """``torch._int_mm``'s time (the library call: the port never calls
+    it), or None with the reason where its shape rules refuse the
+    shape."""
+    try:
+        torch._int_mm(x, w)
+    except RuntimeError as e:
+        return None, str(e).strip().splitlines()[0]
+    return cuda_ms([lambda: torch._int_mm(x, w)]), None
+
+
+def check_matmul_qi8():
+    """Kernel vs plain version (float64 on the card, exact here) at every
+    QI8_SHAPES entry, the extremes -128 x -128 included: exactly equal.
+    Times kernel, plain version and ``torch._int_mm`` at each.  Returns
+    the record of the head shape (QI8_HEAD), the others under
+    ``shapes``."""
+    record, shapes = None, []
+    for m, k, n in QI8_SHAPES:
+        g = torch.Generator("cuda").manual_seed(m + k + n)
+        x = torch.randint(-128, 128, (m, k), generator=g, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=g, device="cuda",
+                          dtype=torch.int8)
+        x[0], w[:, 0] = -128, -128
+        got = mq.matmul_qi8(x, w)
+        expect = matmul_qi8_ref(x, w)
+        torch.cuda.synchronize()
+        err = (got.long() - expect.long()).abs().max().item()
+        print(f"matmul_qi8 M={m} K={k} N={n}: max_abs_err {err} (must be "
+              f"0), dtype {got.dtype}")
+        if not (got.dtype == torch.int32 and torch.equal(got, expect)):
+            raise SystemExit(f"matmul_qi8 differs from its plain version at "
+                             f"{(m, k, n)}: {err}")
+        lib_ms, lib_why = int_mm_ms(x, w)
+        bound_ms, bound_by = qi8_bound(m, k, n)
+        row = {"m": m, "k": k, "n": n, "max_abs_err": err,
+               "ms": cuda_ms([lambda: mq.matmul_qi8(x, w)]),
+               "plain_ms": cuda_ms([lambda: matmul_qi8_ref(x, w)]),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib_ms}
+        if lib_why:
+            row["library_null_reason"] = f"torch._int_mm: {lib_why}"
+        print(f"matmul_qi8 timing at M={m} K={k} N={n}: kernel "
+              f"{row['ms']:.4f} ms, plain (float64) {row['plain_ms']:.4f} "
+              f"ms, torch._int_mm "
+              f"{'%.4f ms' % lib_ms if lib_ms is not None else 'null'}"
+              f"{' (' + row['library_null_reason'] + ')' if lib_why else ''}"
+              f", bound {bound_ms:.5f} ms ({bound_by})")
+        shapes.append(row)
+        if (m, k, n) == QI8_HEAD:
+            record = {"name": "matmul_qi8", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/matmul_qi8.cu",
+                      "replaces": "src/repro/kernels/matmul_qi8.py:44",
+                      **{key: row[key] for key in (
+                          "max_abs_err", "ms", "plain_ms", "bound_ms",
+                          "bound_by", "library_ms")}}
+            if lib_why:
+                record["library_null_reason"] = row["library_null_reason"]
+    record["max_abs_err"] = max(r["max_abs_err"] for r in shapes)
+    record["shapes"] = shapes
+    return record
+
+
+def check_cnn_zoo():
+    """Every Table-1 model and synthetic_cnn(64) at its published input
+    size, batch 1: graph totals against the model's own and the paper's
+    Table 1 (the reference's bounds), the initialized tensors against the
+    params count, and one fp32 forward on the card against the same port
+    weights on the CPU within CNN_TOL of max |y| (TF32 off; cuDNN's and the
+    CPU's convolutions sum in other orders).  Kernel launches must stay 0:
+    the CNN forward runs cuDNN, as the reference runs XLA."""
+    exempt = {"NASNetMobile", "ResNet50V2", "ResNet101V2", "ResNet152V2"}
+    cpu = torch.device("cpu")
+    worst = 0.0
+    _build.reset_launches()
+    for name in list(cnn.REAL_CNNS) + ["synthetic_cnn(64)"]:
+        m = (cnn.synthetic_cnn(64) if name.startswith("synthetic")
+             else cnn.REAL_CNNS[name]())
+        g = m.to_layer_graph()
+        params = m.init(cpu, torch.Generator(cpu).manual_seed(0))
+        n_init = sum(t.numel() for p in params.values() for t in p.values())
+        ok = (g.total_params == m.total_params == n_init
+              and g.total_macs == m.total_macs)
+        if name in cnn.TABLE1:
+            p_m, macs_m = cnn.TABLE1[name]
+            ok &= abs(m.total_params / 1e6 - p_m) / p_m < 0.08
+            ok &= (name in exempt
+                   or abs(m.total_macs / 1e6 - macs_m) / macs_m < 0.12)
+        x = torch.randn((1,) + m.input_shape,
+                        generator=torch.Generator(cpu).manual_seed(1))
+        y_cpu = m.apply(params, x)
+        t0 = time.perf_counter()
+        y = m.apply(to_card(params), x.cuda())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        scale = y_cpu.abs().max().item()
+        rel = (y.cpu() - y_cpu).abs().max().item() / scale
+        worst = max(worst, rel)
+        print(f"cnn {name} {m.input_shape}: {m.total_params} params, "
+              f"{m.total_macs} MACs, depth {g.depth}; card vs CPU max_abs_err "
+              f"/ max|y| {rel:.3e} (tol {CNN_TOL:g}; max|y| {scale:.3e}), "
+              f"out {tuple(y.shape)}, first card forward {dt * 1e3:.1f} ms")
+        if not (ok and rel <= CNN_TOL and bool(torch.isfinite(y).all())):
+            raise SystemExit(f"cnn {name}: totals {ok}, card vs CPU {rel:.3e}"
+                             f" (tol {CNN_TOL:g}) or not finite")
+        del params, y, y_cpu
+    check_counts("cnn zoo forwards", read_counts(), {})
+    return worst
+
+
+def stage_trace_times(trace, graph, pl):
+    """Per stage of ``pl``: the trace's measured seconds of its depths."""
+    depth = graph.depths()
+    tmap = trace.depth_time_map()
+    return [sum(tmap[d] for d in {depth[n] for n in layers})
+            for layers in pl.stage_layers]
+
+
+def serve_cnn(label, m, params, dep, reqs):
+    """One unprofiled stream (req/s, latency, stage busy), then one under
+    torch.profiler (device busy and idle share); the first served output
+    must equal the direct forward on the card.  Returns the numbers."""
+    outs, snap, seconds = serve.serve_stream(dep, reqs)
+    lat, busy = snap["latency"], snap["stage_busy_s"]
+    direct = m.apply(params, reqs[0][m.INPUT])
+    err = (outs[0][m.output] - direct).abs().max().item()
+    prof, wall = profile_serve.profiled(lambda: serve.serve_stream(dep, reqs))
+    summ = profile_serve.summarize(prof, wall, f"{label} serve "
+                                               f"1+{len(reqs)}", top=5)
+    idle = 1 - summ["busy_s"] / summ["wall_s"]
+    print(f"{label}: {len(reqs)} requests in {seconds * 1e3:.2f} ms, "
+          f"{snap['throughput_rps']:.2f} req/s; latency p50/p95 "
+          f"{lat['p50_s'] * 1e3:.3f} / {lat['p95_s'] * 1e3:.3f} ms "
+          f"(n={lat['n']}); stage busy (s) {[round(b, 5) for b in busy]}, "
+          f"balance (mean/max) {stage_balance_metrics(busy)['balance']:.3f};"
+          f" device idle share {idle:.3f} (profiled stream); served vs "
+          f"direct max_abs_err {err:.3e} (must be 0)")
+    if not (err == 0 and snap["failed"] == 0 and lat["n"] == len(reqs)
+            and all(o[m.output].shape == (1, 1000) for o in outs)):
+        raise SystemExit(f"{label}: served output differs from the direct "
+                         f"forward by {err:.3e} or requests failed")
+    return {"rps": snap["throughput_rps"], "p50_ms": lat["p50_s"] * 1e3,
+            "p95_ms": lat["p95_s"] * 1e3, "n": lat["n"],
+            "stage_busy_s": busy, "idle_share": idle,
+            "served_vs_direct": err}
+
+
+def run_cnn_path():
+    """The paper's path on the card: ResNet50 planned by the analytic Edge
+    TPU model (balanced, 4 stages, paper Table 5), served through
+    cnn_stage_fns; its per-depth profile captured on the card and the
+    trace-source balanced_cost plan served the same way, once planned for
+    the reference's Edge TPU (8 MiB a stage: its memory refinement
+    decides the cuts) and once for a quarter of the card's memory a stage
+    (the decode path's planning device), the plans served in turn
+    CNN_ROUNDS times.  Returns every plan's numbers."""
+    m = cnn.REAL_CNNS[CNN]()
+    graph = m.to_layer_graph()
+    dev = torch.device("cuda")
+    params = m.init(dev, torch.Generator(dev).manual_seed(0))
+    reqs = serve.cnn_requests(m, CNN_REQUESTS, dev, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        m.apply(params, reqs[0][m.INPUT])
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t0) / 5 * 1e3
+    print(f"{CNN} direct forward (batch 1, fp32): {direct_ms:.3f} ms")
+
+    t0 = time.perf_counter()
+    trace = profile_model(m, warmup=2, repeats=5, device=dev)
+    profile_s = time.perf_counter() - t0
+    path = ROOT / "build" / "profile" / f"{CNN}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    trace.save(str(path))
+    print(f"{CNN} profile on the card: {len(trace.samples)} depth levels in "
+          f"{profile_s:.1f} s, sum of level times "
+          f"{sum(s.time_s for s in trace.samples) * 1e3:.3f} ms; saved "
+          f"{path.relative_to(ROOT)} ({trace.device})")
+    card_stage = EdgeTPUSpec(onchip_bytes=torch.cuda.get_device_properties(
+        0).total_memory // STAGES)
+    traced = dict(model=f"cnn:{CNN}", stages=STAGES,
+                  strategy="balanced_cost", cost_source=f"trace:{path}")
+    deps = {
+        "analytic": serve.deploy_cnn(m, params, DeploymentSpec(
+            model=f"cnn:{CNN}", stages=STAGES, strategy="balanced"), dev),
+        "trace": serve.deploy_cnn(m, params, DeploymentSpec(**traced), dev),
+        "trace, card memory": serve.deploy_cnn(
+            m, params, DeploymentSpec(**traced), dev, base_spec=card_stage),
+    }
+    out = {"direct_ms": direct_ms, "plans": {}}
+    for label, dep in deps.items():
+        pl = dep.plan
+        measured = stage_trace_times(trace, graph, pl)
+        print(f"{CNN} {label} plan: cuts {list(pl.cuts)}, layers per stage "
+              f"{[len(ls) for ls in pl.stage_layers]}; trace-measured stage "
+              f"ms {[round(t * 1e3, 4) for t in measured]}")
+        print(f"{CNN} {label} report: {pl.report.describe()}")
+        out["plans"][label] = {
+            "cuts": list(pl.cuts), "trace_stage_ms": [t * 1e3 for t in
+                                                      measured],
+            "vs_trace_err_pct": (pl.report.stage_time_error_pct
+                                 if pl.report.has_trace else None),
+            "served": []}
+    _build.reset_launches()
+    for _ in range(CNN_ROUNDS):
+        for label, dep in deps.items():
+            out["plans"][label]["served"].append(serve_cnn(
+                f"{CNN} {label} plan", m, params, dep, reqs))
+    check_counts(f"{CNN} serving", read_counts(), {})
+    return out
+
+
+def run_int8_head():
+    """The int8 API's path: ResNet50's classifier head (8 images' 2048
+    pooled features x the 2048 x 1000 dense weights) through
+    ``quant.quantized_dense``, with matmul_qi8's count set to 0 just before
+    and read just after (1 launch); bit-equal to the same call on the CPU,
+    and within the int8 quantization error of the fp32 head."""
+    m = cnn.REAL_CNNS[CNN]()
+    dev = torch.device("cuda")
+    params = m.init(dev, torch.Generator(dev).manual_seed(0))
+    feats = m.apply_subset(params, {m.INPUT: torch.randn(
+        (QI8_HEAD[0],) + m.input_shape, device=dev,
+        generator=torch.Generator(dev).manual_seed(2))},
+        [n for n in m.nodes if n != m.output])
+    x = next(iter(feats.values()))
+    w = params[m.output]["w"]
+    _build.reset_launches()
+    y = quant.quantized_dense(x, w)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    y_cpu = quant.quantized_dense(x.cpu(), w.cpu())
+    fp32 = x @ w
+    rel = ((y - fp32).abs().max() / fp32.abs().max()).item()
+    print(f"int8 head {tuple(x.shape)} x {tuple(w.shape)}: quantized_dense "
+          f"card = CPU bit for bit: {torch.equal(y.cpu(), y_cpu)}; vs the "
+          f"fp32 head max_abs_err / max|y| {rel:.3e} (int8 quantization)")
+    check_counts("int8 head", counts, {"matmul_qi8": 1})
+    if not (torch.equal(y.cpu(), y_cpu) and rel < 0.05):
+        raise SystemExit(f"int8 head: card != CPU or {rel:.3e} off fp32")
+    return counts["matmul_qi8"]
 
 
 def to_card(tree):
@@ -916,9 +1253,12 @@ def main() -> int:
                 print(f"  {name} ptxas: {line.strip()}")
 
     record = check_flash_attention()
+    record["windowed"] = check_windowed_flash_attention()
     decode_record = check_flash_decode()
     rwkv_record = check_rwkv6_scan()
     rglru_record = check_rglru_scan()
+    qi8_record = check_matmul_qi8()
+    torch.cuda.empty_cache()
     # max_len 300 puts qwen3's cache over two flash_decode splits
     check_family_on_card(ARCH, seq=200, prompt_len=40, n_new=8, max_len=300,
                          token_by_token=True)
@@ -981,9 +1321,15 @@ def main() -> int:
     # qwen3 paths' counts above
     record["launches_recurrentgemma"] = fwd_counts["flash_attention"]
     decode_record["launches_recurrentgemma"] = dec_counts["flash_decode"]
+    torch.cuda.empty_cache()
+
+    zoo_worst = check_cnn_zoo()
+    cnn_res = run_cnn_path()
+    qi8_record["launches"] = run_int8_head()
+    print(json.dumps({"cnn": {"zoo_worst_rel_err": zoo_worst, **cnn_res}}))
 
     print(json.dumps({"kernels": [record, decode_record, rwkv_record,
-                                  rglru_record]}))
+                                  rglru_record, qi8_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

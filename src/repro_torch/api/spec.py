@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 from ..core.graph import LayerGraph
 from ..core.topology import DeviceSpec, Topology
@@ -228,6 +228,7 @@ class DeploymentSpec:
         if self.decode_concurrency is not None and self.decode_concurrency < 1:
             raise ValueError(f"decode_concurrency must be >= 1, "
                              f"got {self.decode_concurrency}")
+        from ..profiling.sources import parse_cost_source
         parse_cost_source(self.cost_source)   # raises on malformed refs
 
     # -- derived views -------------------------------------------------------
@@ -287,45 +288,29 @@ class DeploymentSpec:
         return cls.from_dict(json.loads(text))
 
 
-def parse_cost_source(ref: str) -> Tuple[str, Optional[str]]:
-    """``"analytic"`` / ``"trace:<path>"`` / ``"calibrated:<path>"`` ->
-    (kind, path).  Raises ValueError on malformed refs, so bad specs fail
-    at construction.  Only ``"analytic"`` plans in this package: the
-    trace-backed kinds parse (specs stay interchangeable with the
-    reference's) and raise at plan time until the profiler is ported."""
-    kind, _, path = ref.partition(":")
-    if kind == "analytic":
-        if path:
-            raise ValueError(f"'analytic' cost source takes no argument, "
-                             f"got {ref!r}")
-        return kind, None
-    if kind in ("trace", "calibrated"):
-        if not path:
-            raise ValueError(f"cost source {ref!r} needs a trace path: "
-                             f"'{kind}:<path>'")
-        return kind, path
-    raise ValueError(f"unknown cost source {ref!r}; expected 'analytic', "
-                     f"'trace:<path>' or 'calibrated:<path>'")
-
-
 # ---------------------------------------------------------------------------
 # model-reference resolution
 # ---------------------------------------------------------------------------
 def resolve_model_graph(model: str) -> LayerGraph:
     """Materialize the graph a spec's ``model`` string names.
 
-    ``lm:`` resolves through this package's own configs and
-    ``lm_graph`` (the smoke config, as in the reference).  ``cnn:`` and
-    ``synthetic-cnn:`` parse but raise until the CNN zoo is ported."""
+    ``cnn:`` and ``synthetic-cnn:`` resolve through this package's CNN
+    zoo (``models/cnn.py``); ``lm:`` through its own configs and
+    ``lm_graph`` (the smoke config, as in the reference)."""
     kind, _, rest = model.partition(":")
     if not rest:
         raise ValueError(f"malformed model ref {model!r}; expected "
                          f"'cnn:<Name>', 'synthetic-cnn:<f>' or "
                          f"'lm:<arch>[:seq=<n>]'")
-    if kind in ("cnn", "synthetic-cnn"):
-        raise NotImplementedError(
-            f"{model!r}: the CNN zoo (models/layers.py, models/cnn.py) is "
-            f"not ported to repro_torch yet; it is the CNN slice")
+    if kind == "cnn":
+        from ..models.cnn import REAL_CNNS
+        if rest not in REAL_CNNS:
+            raise ValueError(f"unknown CNN {rest!r}; pick from "
+                             f"{sorted(REAL_CNNS)}")
+        return REAL_CNNS[rest]().to_layer_graph()
+    if kind == "synthetic-cnn":
+        from ..models.cnn import synthetic_cnn
+        return synthetic_cnn(int(rest)).to_layer_graph()
     if kind == "lm":
         arch, _, opt = rest.partition(":")
         seq = 64

@@ -79,16 +79,17 @@ class PlanContext:
         default=False, repr=False)
 
     def cost_source(self):
-        """A live cost source passed to ``plan(..., cost_source=)``, or
-        None for the built-in analytic path.  The trace-backed spec kinds
-        need the profiler, which is not ported yet."""
+        """The spec's resolved :class:`~repro_torch.profiling.sources.CostSource`
+        (trace artifacts loaded once per context), or None for the
+        built-in analytic path — passing None instead of an
+        AnalyticCostSource keeps the engine's default construction
+        byte-for-byte what it always was."""
         if not self._cost_source_resolved:
+            from ..profiling.sources import resolve_cost_source
             if self.spec.cost_source != "analytic":
-                raise NotImplementedError(
-                    f"cost_source={self.spec.cost_source!r}: trace-backed "
-                    f"planning needs the profiler (profiling/), which is "
-                    f"not ported to repro_torch yet; it is the profiler "
-                    f"slice.  Use cost_source='analytic'")
+                self._cost_source = resolve_cost_source(
+                    self.spec.cost_source,
+                    reference_spec=self.base_spec)
             self._cost_source_resolved = True
         return self._cost_source
 

@@ -4,5 +4,6 @@
 Each ``csrc/<name>.cu`` is built by ``_build`` at first use and bound with
 ctypes; its wrapper module checks inputs, launches it on the current CUDA
 stream and counts launches, and takes the plain version in ``ref.py`` only
-for CPU tensors.
+for CPU tensors.  ``quant.py`` is the int8 API around ``matmul_qi8``.  The
+package re-exports nothing: a kernel module and its function share a name.
 """

@@ -6,7 +6,16 @@
 //   scores, running max, running denominator and accumulator in fp32;
 //   q-head h reads kv-head h / (Hq / Hkv); queries are right-aligned
 //   (query i sits at key position T - S + i); causal KV tiles past a query
-//   tile's last row are never visited.
+//   tile's last row are never visited.  With a window W (recurrentgemma's
+//   local attention, the reference's mask of repro/models/attention.py:
+//   128-129), key kpos is visible to query qpos when
+//   qpos - W < kpos <= qpos: KV tiles wholly before the tile's first row's
+//   first visible key are never visited either, and the edge tile is
+//   masked.  A row may then see a whole tile masked before its first
+//   visible key: its running max stays at the mask value, so those
+//   entries add exp(0) = 1 to l and v to the accumulator, and the first
+//   tile holding one of its keys (every row sees its own position)
+//   rescales both by exp(-1e30 - m) = 0 exactly.
 // Unlike the Pallas kernel it masks ragged S and T itself (no S % 128 or
 // T % 128 requirement), and it takes element strides for the batch, head
 // and sequence axes (the head dim must be contiguous), so the model's
@@ -59,7 +68,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  int s, t, group, q_offset, causal;
+  int s, t, group, q_offset, causal, window;  // window <= 0: none
   float scale;
   Strides qs, ks, vs, os;
 };
@@ -113,7 +122,11 @@ __global__ void __launch_bounds__(kThreads)
   // keys past the tile's last query row are masked for every row: stop
   const int last_row = min(q0 + kBQ, a.s) - 1 + a.q_offset;
   const int kv_end = a.causal ? min(a.t, last_row + 1) : a.t;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  // keys before the tile's first query row's window are masked for every
+  // row: start at the KV tile holding that row's first visible key
+  const int kv_begin =
+      a.window > 0 ? max(0, (q0 + a.q_offset - a.window + 1) / kBK * kBK) : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     __syncthreads();                  // previous V / P reads are done
     load_tile<T, D>(kv, kg, a.ks.s, k0, a.t);
     __syncthreads();
@@ -144,7 +157,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kCK; ++j) {
         const int kpos = k0 + tx + j * kTX;
-        const bool ok = kpos < a.t && (!a.causal || kpos <= qpos);
+        const bool ok = kpos < a.t && (!a.causal || kpos <= qpos) &&
+                        (a.window <= 0 || kpos > qpos - a.window);
         sc[i][j] = ok ? sc[i][j] * a.scale : kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -226,13 +240,15 @@ cudaError_t dispatch_d(const Args& a, int b, int hq, int d,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  strides: 12 element strides, the
-// (batch, head, seq) strides of q, k, v and o in that order.  Returns the
-// launch's cudaError_t (0 on success); the caller raises on anything else.
+// (batch, head, seq) strides of q, k, v and o in that order.  window: the
+// local-attention window (keys qpos - window < kpos), <= 0 for none.
+// Returns the launch's cudaError_t (0 on success); the caller raises on
+// anything else.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int b,
                                    int hq, int hkv, int s, int t, int d,
                                    const long long* strides, int causal,
-                                   float scale, void* stream) {
+                                   int window, float scale, void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -243,6 +259,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   a.group = hq / hkv;
   a.q_offset = t - s;
   a.causal = causal;
+  a.window = window;
   a.scale = scale;
   a.qs = {strides[0], strides[1], strides[2]};
   a.ks = {strides[3], strides[4], strides[5]};

@@ -1,9 +1,10 @@
 """Flash-attention forward: the wrapper around ``csrc/flash_attention.cu``.
 
-``flash_attention(q, k, v, causal)`` computes the function of the TPU kernel
-``repro/kernels/flash_attention.py`` (q ``(B, Hq, S, D)``, k/v
+``flash_attention(q, k, v, causal, window)`` computes the function of the
+TPU kernel ``repro/kernels/flash_attention.py`` (q ``(B, Hq, S, D)``, k/v
 ``(B, Hkv, T, D)``, GQA, right-aligned causal queries, fp32 softmax, output
-in q's dtype).  CUDA tensors launch the hand-written kernel; CPU tensors take
+in q's dtype), plus the local-attention window of the reference's
+``full_attention`` (recurrentgemma's attention layers).  CUDA tensors launch the hand-written kernel; CPU tensors take
 the plain version :func:`~repro_torch.kernels.ref.flash_attention_ref`.
 Any other case raises.
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -28,7 +30,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> None:
+           causal: bool, window: Optional[int]) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention wants q (B,Hq,S,D) and k/v "
                          f"(B,Hkv,T,D) of one shape; got {tuple(q.shape)}, "
@@ -42,6 +44,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal and s > t:
         raise ValueError(f"causal flash_attention needs S <= T (queries "
                          f"right-aligned to the keys); got S={s}, T={t}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention window must be >= 1, got "
+                         f"{window}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes one dtype of "
                         f"{list(_DTYPES)}; got {q.dtype}, {k.dtype}, "
@@ -52,14 +57,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hq, S, D); k/v: (B, Hkv, T, D) -> (B, Hq, S, D).
 
     When S != T the queries are right-aligned: query i sits at absolute
-    position T - S + i."""
-    _check(q, k, v, causal)
+    position qpos = T - S + i.  ``window``: key kpos is visible only when
+    kpos > qpos - window (the kernel never visits the KV tiles before a
+    query tile's window)."""
+    _check(q, k, v, causal, window)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, "
                          f"not {q.device}")
@@ -79,7 +87,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  _DTYPES[q.dtype], b, hq, hkv, s, t, d, strides,
-                 int(causal), d ** -0.5, stream)
+                 int(causal), window or 0, d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -92,6 +100,6 @@ def _kernel():
     fn = _build.load("flash_attention").flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                      ctypes.c_float, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

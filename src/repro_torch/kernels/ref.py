@@ -2,25 +2,36 @@
 kernels are held against, and what a wrapper runs for CPU tensors."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
     """q: (B,Hq,S,D); k/v: (B,Hkv,T,D) -> (B,Hq,S,D), fp32 softmax.
 
-    Queries are right-aligned: query i sits at absolute position T - S + i.
+    Queries are right-aligned: query i sits at absolute position
+    qpos = T - S + i.  ``window`` (local attention): key kpos is visible
+    only when kpos > qpos - window, the reference's mask
+    (``repro/models/attention.py`` ``full_attention``).
     """
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, hkv, g, s, d).float()
     scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / (d ** 0.5)
+    qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones(s, t, dtype=torch.bool, device=q.device)
     if causal:
-        mask = torch.ones(s, t, dtype=torch.bool,
-                          device=q.device).tril(diagonal=t - s)
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    if causal or window is not None:
         scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", probs, v.float())
@@ -89,3 +100,15 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                state + uf * kv))
         state = wf[:, :, t, :, None] * state + kv
     return torch.stack(ys, 2).to(r.dtype), state
+
+
+def matmul_qi8_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (M,K) int8; w: (K,N) int8 -> (M,N) int32, exact.
+
+    On the CPU the product is taken in int32.  CUDA has no integer matmul,
+    so on a card it is taken in float64 and cast to int32, which is just as
+    exact: each |x w| <= 2^14, so every partial sum of a K-long dot product
+    is an integer of magnitude at most K 2^14, far below 2^53."""
+    if x.device.type == "cuda":
+        return (x.double() @ w.double()).to(torch.int32)
+    return x.to(torch.int32) @ w.to(torch.int32)

@@ -26,10 +26,19 @@ token's logits), and one of ``--max-new-tokens`` greedy decode steps of
 ``--requests`` rows after a ``--prompt-len`` prompt went into the cache
 (rwkv6: in one call; recurrentgemma: token by token).
 
+A CNN of the paper's zoo (``--model cnn:<Name>`` or
+``synthetic-cnn:<f>``; fp32, TF32 off as the reference's function): one
+window of ``--forwards`` direct single-image forwards, and one of a
+warm-up request plus ``--requests`` single-image requests streamed through
+the ``--stages``-stage ``--strategy`` plan (``cnn_stage_fns``, one host
+thread and CUDA stream per stage), after an unprofiled round.
+
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --seq 1024 --requests 8
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --arch rwkv6-1.6b --seq 1024 --requests 4 --prompt-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --model cnn:ResNet50 --requests 64
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --workload decode --decode-concurrency 8 --max-context 2048 \\
         --prompt-len 1024 --max-new-tokens 64 --requests 16 \\
@@ -47,14 +56,20 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs
+from repro_torch.api import DeploymentSpec
 from repro_torch.launch import serve
-from repro_torch.models import api, lm
+from repro_torch.models import api, cnn, lm
 
 KINDS = (("flash_attention", ("flash_attention",)),
          ("flash_decode", ("flash_decode",)),
          ("rwkv6_scan", ("rwkv6_scan",)),
          ("rglru_scan", ("rglru_scan",)),
-         ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")))
+         ("matmul_qi8", ("matmul_qi8",)),
+         # cuDNN's convolution kernels (fprop, implicit GEMM, winograd)
+         # before the GEMM keys, which their names also hold
+         ("conv", ("conv", "fprop", "implicit", "winograd", "cudnn")),
+         ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
+         ("elementwise", ("elementwise",)))
 
 
 def _kind(name: str) -> str:
@@ -153,14 +168,58 @@ def profile_model(args: argparse.Namespace, forwards: int) -> None:
                           f"{decode_steps} steps")
 
 
+def cnn_model(ref: str):
+    """A ``cnn:<Name>`` or ``synthetic-cnn:<f>`` ref -> its GraphModel."""
+    kind, _, rest = ref.partition(":")
+    if kind == "cnn":
+        return cnn.REAL_CNNS[rest]()
+    if kind == "synthetic-cnn":
+        return cnn.synthetic_cnn(int(rest))
+    raise SystemExit(f"--model takes cnn:<Name> or synthetic-cnn:<f>, not "
+                     f"{ref!r}")
+
+
+def profile_cnn(args: argparse.Namespace, ref: str, forwards: int) -> None:
+    """The CNN windows (module docstring)."""
+    model = cnn_model(ref)
+    dev = torch.device("cuda")
+    params = model.init(dev, torch.Generator(dev).manual_seed(args.seed))
+    dep = serve.deploy_cnn(model, params, DeploymentSpec(
+        model=ref, stages=args.stages, strategy=args.strategy), dev)
+    print("plan:", dep.plan.describe())
+    reqs = serve.cnn_requests(model, args.requests, dev, args.seed)
+    x = reqs[0][model.INPUT]
+
+    def run_forwards():
+        for _ in range(forwards):
+            model.apply(params, x)
+
+    run_forwards()
+    torch.cuda.synchronize()
+    prof, wall = profiled(run_forwards)
+    summarize(prof, wall, f"{model.name} direct x{forwards}")
+    serve.serve_stream(dep, reqs)               # warms every stage
+    prof, wall = profiled(lambda: serve.serve_stream(dep, reqs))
+    summarize(prof, wall, f"{model.name} serve 1+{len(reqs)}")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--forwards", type=int, default=3)
+    ap.add_argument("--model", default=None,
+                    help="a CNN ref (cnn:<Name> or synthetic-cnn:<f>) to "
+                         "profile instead of --arch")
     extra, rest = ap.parse_known_args(argv)
     args = serve.parse_args(rest)
     if args.device != "cuda":
         raise SystemExit("profile_serve measures the card: --device cuda")
     print(torch.cuda.get_device_name(0))
+    if extra.model is not None:
+        # the reference's CNN forward is fp32; cuDNN would run TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        profile_cnn(args, extra.model, extra.forwards)
+        return
     if configs.get(args.arch).config().family not in serve.SERVED_FAMILIES:
         profile_model(args, extra.forwards)
         return

@@ -23,6 +23,11 @@ Edge TPU), then stream ``--requests`` prompts of ``--prompt-len`` tokens,
 ``--max-new-tokens`` each, through the continuous-batching
 :class:`~repro_torch.decode.engine.DecodeServer`.
 
+CNNs (the paper's Table-1 zoo) are served through the library, not this
+CLI (the reference's CLI is LM-only): :func:`cnn_stage_fns` is the stage
+function builder to hand ``deploy(DeploymentSpec(model="cnn:<Name>"),
+stage_fn_builder=...)``.
+
 The recurrent families (rwkv6-1.6b, recurrentgemma-9b) plan but are not
 served, as in the reference: both workloads print the plan, the report and
 the reference's note, and return (:func:`plan_only`).  Their runnable
@@ -110,6 +115,56 @@ def make_stage_fns(cfg: lm.LMConfig, params: lm.Params,
                              params["blocks"][offsets[i]:offsets[i + 1]],
                              i == 0, i == len(counts) - 1, stream))
     return fns
+
+
+def _cnn_stage_fn(model, params, layers: Sequence[str],
+                  stream: Optional[torch.cuda.Stream]) -> Callable:
+    def run(boundary: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        # as _stage_fn: the stage's busy time is device time, and the next
+        # stage gets finished tensors
+        with torch.cuda.stream(stream):
+            out = model.apply_subset(params, boundary, layers)
+            if stream is not None:
+                stream.synchronize()
+        return out
+    return run
+
+
+def cnn_stage_fns(model, params, plan: PlacementPlan,
+                  device) -> List[Callable]:
+    """Per-stage callables of a CNN ``GraphModel`` (``models/cnn.py``):
+    stage i runs ``model.apply_subset(params, boundary, layers)`` over the
+    plan's i-th layer range, on its own CUDA stream when ``device`` is a
+    CUDA device.  A request is ``{GraphModel.INPUT: x}`` with x (B, H, W,
+    C) on ``device``; the last stage returns ``{model.output: y}``.  Pass
+    ``lambda p: cnn_stage_fns(model, params, p, device)`` to
+    ``deploy(..., stage_fn_builder=)``."""
+    device = torch.device(device)
+    return [_cnn_stage_fn(model, params, layers,
+                          torch.cuda.Stream(device)
+                          if device.type == "cuda" else None)
+            for layers in plan.stage_layers]
+
+
+def deploy_cnn(model, params, spec: DeploymentSpec, device,
+               base_spec: Optional[EdgeTPUSpec] = None):
+    """``deploy(spec)`` over ``model``'s own graph with
+    :func:`cnn_stage_fns` as the stage function builder (resizes rebuild
+    the stages on the same weights)."""
+    return deploy(spec, graph=model.to_layer_graph(), base_spec=base_spec,
+                  stage_fn_builder=lambda p: cnn_stage_fns(model, params, p,
+                                                           device))
+
+
+def cnn_requests(model, n: int, device, seed: int = 0
+                 ) -> List[Dict[str, torch.Tensor]]:
+    """``n`` single-image requests ``{GraphModel.INPUT: x}``, x (1, H, W,
+    C) drawn from ``seed`` on ``device``."""
+    device = torch.device(device)
+    gen = torch.Generator(device).manual_seed(seed)
+    return [{model.INPUT: torch.randn((1,) + tuple(model.input_shape),
+                                      generator=gen, device=device)}
+            for _ in range(n)]
 
 
 def spec_from_args(args: argparse.Namespace) -> DeploymentSpec:

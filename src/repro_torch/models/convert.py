@@ -7,6 +7,7 @@ of the hybrid family) and lays weights out ``(in, out)``;
 layer and keeps every layout.  A JAX bf16 array becomes an
 ``ml_dtypes.bfloat16`` numpy array, which :func:`torch.from_numpy` rejects,
 so such arrays pass through their uint16 bits.
+:func:`cnn_params_from_numpy` maps the CNN zoo's per-node dicts.
 """
 from __future__ import annotations
 
@@ -55,4 +56,25 @@ def params_from_numpy(cfg: LMConfig, tree: Dict[str, Any],
                         for i in range(stacks[key])]
         else:
             out[key] = _tree(sub, lambda a: tensor_from_numpy(a, dev))
+    return out
+
+
+def cnn_params_from_numpy(tree: Dict[str, Dict[str, Any]],
+                          device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """The reference's CNN parameters (``{node: {"w", "b", "gamma", ...}}``
+    of numpy arrays, e.g. ``jax.tree.map(np.asarray, model.init(key))``) ->
+    :mod:`repro_torch.models.layers`'s: conv weights HWIO -> OIHW held
+    ``channels_last``; dense weights keep their ``(fin, units)`` layout;
+    biases and BN tensors stay as they are."""
+    dev = resolve_device(device)
+    out = {}
+    for node, sub in tree.items():
+        p = {}
+        for key, a in sub.items():
+            t = tensor_from_numpy(a, dev)
+            if key == "w" and t.dim() == 4:
+                t = t.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+            p[key] = t
+        out[node] = p
     return out

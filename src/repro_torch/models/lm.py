@@ -207,15 +207,9 @@ def attn_block(cfg: LMConfig, p: Params, x: torch.Tensor,
 
     ``cache_rows`` (one sequence, B = 1): a decode slot's ``(T, Hkv, D)``
     K and V caches, whose first S rows take the post-RoPE k/v in place.
-    ``window`` (a local-attention layer): up to S = window the window masks
-    nothing and the causal kernel computes the reference's function; a
-    longer sequence raises."""
+    ``window`` (a local-attention layer): the kernel masks keys at or
+    before ``qpos - window``, the reference's ``full_attention`` mask."""
     b, s, _ = x.shape
-    if window is not None and s > window:
-        raise NotImplementedError(
-            f"{cfg.name}: windowed prefill of {s} tokens above the local "
-            f"window {window} is not ported to repro_torch yet (the flash "
-            f"kernel takes no window); prompts up to {window} tokens run")
     q, k, v = _qkv(cfg, p, x)
     q = A.apply_rope(q, positions, cfg.rope_theta)
     k = A.apply_rope(k, positions, cfg.rope_theta)
@@ -223,7 +217,7 @@ def attn_block(cfg: LMConfig, p: Params, x: torch.Tensor,
         cache_rows[0][:s].copy_(k[0])
         cache_rows[1][:s].copy_(v[0])
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=True)
+                          v.transpose(1, 2), causal=True, window=window)
     return out.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"]
 
 

@@ -17,9 +17,10 @@ reference: ``super`` is a list of (rec1, rec2, attn) super-blocks and
 Every rec layer's recurrence goes through
 :func:`repro_torch.kernels.rglru_scan.rglru_scan` (the CUDA kernel on the
 card, its plain version on the CPU) and every attention layer through the
-flash kernels of :mod:`repro_torch.models.lm` (``attn_block`` for a prompt,
-up to ``local_window`` tokens; ``attn_block_decode`` over the ring cache of
-min(max_len, window) rows for a decode token).
+flash kernels of :mod:`repro_torch.models.lm` (``attn_block`` for a prompt
+of any length, its keys masked to the last ``local_window`` positions;
+``attn_block_decode`` over the ring cache of min(max_len, window) rows for
+a decode token).
 
 Decode state: the conv tail (W - 1 inputs) and the fp32 LRU h per rec
 layer, a ring KV cache per attention layer.
@@ -161,9 +162,7 @@ def _attn_layer(cfg: LMConfig, ab: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 def forward_hidden(cfg: LMConfig, params: Params,
                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Post-block hidden states (B, S, D): pair with :func:`unembed`.
-    Sequences above ``local_window`` raise (windowed prefill is not
-    ported)."""
+    """Post-block hidden states (B, S, D): pair with :func:`unembed`."""
     require_ported(cfg, "hybrid")
     x = lm.embed_tokens(cfg, params, batch["tokens"])
     positions = lm.positions_for(x)

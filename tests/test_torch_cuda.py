@@ -10,24 +10,30 @@ Tolerances: 1e-4 in fp32 (summation order of the kernel's online softmax
 against the materialized one; flash_decode, whose sums are shorter, 1e-5),
 2e-2 in bf16 (one bf16 rounding of outputs of magnitude ~1).  The scans:
 rtol = atol = 2e-4 (rwkv6_scan) and 1e-5 (rglru_scan) in fp32, 2e-2 in
-bf16, the tolerances of the reference's own kernel tests.
+bf16, the tolerances of the reference's own kernel tests.  matmul_qi8 and
+the int8 API: exact.  The CNN forward: 1e-4 of max |y| against the CPU
+(fp32, TF32 off; convolution algorithms sum in other orders).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import api as tapi
 from repro_torch import configs
 from repro_torch.configs.common import concrete_batch
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import matmul_qi8 as mq
+from repro_torch.kernels import quant
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.kernels.ref import (flash_attention_ref, flash_decode_ref,
-                                     rglru_scan_ref, rwkv6_scan_ref)
+                                     matmul_qi8_ref, rglru_scan_ref,
+                                     rwkv6_scan_ref)
 from repro_torch.launch import serve
-from repro_torch.models import api, lm
+from repro_torch.models import api, cnn, lm
 
 pytestmark = pytest.mark.cuda
 
@@ -263,3 +269,84 @@ def test_recurrent_smoke_models_on_card_match_cpu(sm90, arch, seq,
             toks.append(logits[:, -1].argmax(-1, keepdim=True).cpu())
         runs.append(torch.cat(toks, 1))
     assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,window,dtype", [
+    (1, 16, 1, 300, 300, 256, 128, "bfloat16"),     # recurrentgemma MQA
+    (1, 16, 1, 200, 200, 256, 64, "float32"),
+    (2, 4, 2, 130, 130, 64, 1, "float32"),          # each query alone
+    (1, 4, 2, 100, 260, 128, 70, "float32"),        # right-aligned, ragged
+    (1, 16, 8, 1000, 1000, 128, 2048, "bfloat16"),  # wider than T
+])
+def test_windowed_flash_attention_matches_plain(sm90, b, hq, hkv, s, t, d,
+                                                window, dtype):
+    g = torch.Generator(sm90).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=g, device=sm90,
+                           dtype=DTYPES[dtype])
+               for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    expect = flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), expect.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (512, 512, 512), (8, 2048, 1000), (25088, 64, 256), (7, 30, 13),
+    (1, 1, 1), (65, 129, 63), (3, 0, 5),
+])
+def test_matmul_qi8_is_exact_on_card(sm90, m, k, n):
+    """Exact against the plain version (float64 on the card, exact for
+    these sums) and the CPU's int32 product; the extremes -128 x -128 must
+    not wrap."""
+    g = torch.Generator(sm90).manual_seed(m + k + n)
+    x = torch.randint(-128, 128, (m, k), generator=g, device=sm90,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=g, device=sm90,
+                      dtype=torch.int8)
+    if k:
+        x[0], w[:, 0] = -128, -128
+    before = _build.launches("matmul_qi8")
+    got = mq.matmul_qi8(x, w)
+    torch.cuda.synchronize()
+    assert _build.launches("matmul_qi8") == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, matmul_qi8_ref(x, w))
+    assert torch.equal(got.cpu(), matmul_qi8_ref(x.cpu(), w.cpu()))
+
+
+def test_quantized_dense_on_card_equals_cpu(sm90):
+    g = torch.Generator("cpu").manual_seed(3)
+    x, w = torch.randn(8, 2048, generator=g), torch.randn(2048, 1000,
+                                                           generator=g)
+    got = quant.quantized_dense(x.to(sm90), w.to(sm90))
+    assert torch.equal(got.cpu(), quant.quantized_dense(x, w))
+
+
+@pytest.mark.parametrize("name", ["MobileNetV2", "InceptionV3"])
+def test_cnn_forward_on_card_matches_cpu(sm90, name):
+    """fp32 with TF32 off, as the reference's function: 1e-4 of max |y|
+    (cuDNN's and the CPU's convolution algorithms sum in other orders)."""
+    m = cnn.REAL_CNNS[name]()
+    cpu = torch.device("cpu")
+    params = m.init(cpu, torch.Generator(cpu).manual_seed(0))
+    x = torch.randn((1,) + m.input_shape,
+                    generator=torch.Generator(cpu).manual_seed(1))
+    expect = m.apply(params, x)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        got = m.apply(_to(params, sm90), x.to(sm90)).cpu()
+    err = (got - expect).abs().max().item()
+    assert err <= 1e-4 * expect.abs().max().item()
+
+
+def test_cnn_served_on_card_equals_direct(sm90):
+    m = cnn.synthetic_cnn(32, hw=32)
+    params = m.init(sm90, torch.Generator(sm90).manual_seed(0))
+    dep = tapi.deploy(
+        tapi.DeploymentSpec(model="synthetic-cnn:32", stages=3),
+        graph=m.to_layer_graph(),
+        stage_fn_builder=lambda p: serve.cnn_stage_fns(m, params, p, sm90))
+    xs = [torch.randn(1, 32, 32, 3, device=sm90) for _ in range(4)]
+    outs, snap, _ = serve.serve_stream(dep, [{m.INPUT: x} for x in xs])
+    assert snap["requests"] == 4
+    for x, out in zip(xs, outs):
+        assert torch.equal(out[m.output], m.apply(params, x))

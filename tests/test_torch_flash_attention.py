@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import attention as JA
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.ref import flash_attention_ref
@@ -105,3 +106,35 @@ def test_wrapper_rejects_bad_inputs(shapes, dtypes, causal, exc):
     q, k, v = (torch.zeros(s, dtype=dt) for s, dt in zip(shapes, dtypes))
     with pytest.raises(exc):
         fa.flash_attention(q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,window,dtype", [
+    (1, 4, 2, 24, 24, 16, 8, "float32"),
+    (2, 4, 1, 8, 24, 16, 5, "float32"),          # right-aligned queries
+    (1, 16, 1, 40, 40, 32, 16, "float32"),       # recurrentgemma's 16:1
+    (1, 2, 2, 40, 40, 16, 64, "float32"),        # wider than S: no mask
+    (1, 4, 2, 64, 64, 16, 1, "float32"),         # each query sees itself
+    (1, 4, 4, 96, 96, 64, 32, "bfloat16"),
+])
+def test_window_matches_reference(b, hq, hkv, s, t, d, window, dtype):
+    """``window=`` against the reference's mask (``full_attention``: key
+    kpos visible when qpos - window < kpos <= qpos), through the CPU
+    wrapper; the reference takes (B, S, H, D) and an explicit q_offset."""
+    q, k, v = _inputs(s + window, b, hq, hkv, s, t, d, dtype)
+    got = fa.flash_attention(*map(_torch, (q, k, v)), causal=True,
+                             window=window)
+    expect = JA.full_attention(*(jnp.asarray(a).transpose(0, 2, 1, 3)
+                                 for a in (q, k, v)),
+                               causal=True, q_offset=t - s, window=window)
+    np.testing.assert_allclose(_np32(got),
+                               _np32(expect).transpose(0, 2, 1, 3),
+                               rtol=_tol(dtype), atol=_tol(dtype))
+    if window >= t:
+        np.testing.assert_array_equal(
+            _np32(got), _np32(fa.flash_attention(*map(_torch, (q, k, v)))))
+
+
+def test_window_must_be_positive():
+    q = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, q, q, window=0)

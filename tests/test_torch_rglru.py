@@ -10,9 +10,9 @@ Same numpy inputs and the reference's weights (its init, converted with
   the recurrence written out in numpy: 2e-5;
 * model pieces and plain windowed attention: 1e-5 (fp32 arithmetic in
   another order);
-* the smoke forward (S up to the smoke window of 16) and the decode loop
-  (24 tokens, past the window, so the ring cache wraps): 1e-4, greedy
-  tokens equal.
+* the smoke forward (S up to and above the smoke window of 16) and the
+  decode loop (24 tokens, past the window, so the ring cache wraps):
+  1e-4, greedy tokens equal.
 """
 import dataclasses
 
@@ -250,10 +250,15 @@ def test_hidden_and_unembed_compose_to_forward(weights):
 
 
 def test_prompt_above_the_window_raises(weights):
-    _, tcfg, _, tparams = weights
-    tokens = torch.from_numpy(_tokens(tcfg, 1, tcfg.local_window + 1, 0))
-    with pytest.raises(NotImplementedError, match="windowed prefill"):
-        tapi.forward(tcfg, tparams, {"tokens": tokens})
+    """A prompt one token above the window no longer raises: the flash
+    kernel's plain version masks the keys outside the window, and the
+    forward equals the reference's (1e-4, as the smoke forward)."""
+    jcfg, tcfg, jparams, tparams = weights
+    tokens = _tokens(tcfg, 1, tcfg.local_window + 1, 0)
+    expect = japi.forward(jcfg, jparams, {"tokens": jnp.asarray(tokens)})
+    got = tapi.forward(tcfg, tparams, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_decode_loop_wraps_the_ring_like_the_reference(weights):

@@ -22,6 +22,7 @@ from repro.launch.pipeline_spmd import stage_block_counts as j_counts
 from repro.models import api as jmodels
 from repro_torch import api as tapi
 from repro_torch import configs as tconfigs
+from repro_torch import profiling as tprofiling
 from repro_torch.launch import serve as tserve
 from repro_torch.models.convert import params_from_numpy
 
@@ -145,10 +146,13 @@ def test_serve_entry_point_raises_without_cuda(monkeypatch):
         cfg=dataclasses.replace(tconfigs.get(ARCH).smoke_config(),
                                 family="moe", n_experts=4, top_k=2)
     ).serve(params={}),
-    lambda dep: tapi.plan(tapi.DeploymentSpec(model="cnn:ResNet50",
-                                              stages=2)),
-    lambda dep: tapi.plan(tapi.DeploymentSpec(
-        **{**SPEC, "cost_source": "trace:profile.json"})),
+    # a CNN plans and serves on the host tier; its SPMD tier is not ported
+    lambda dep: tapi.deploy(tapi.DeploymentSpec(model="cnn:ResNet50",
+                                                stages=2, backend="spmd"),
+                            stage_fns=[None, None]).executor(),
+    # trace: and calibrated: plan; the live (serving-fed) trace source is
+    # the self-healing slice
+    lambda dep: tprofiling.LiveTraceBuilder,
 ], ids=["spmd", "self_heal", "decode", "cnn", "trace_cost_source"])
 def test_unported_paths_raise(served, call):
     with pytest.raises(NotImplementedError, match="repro_torch"):
