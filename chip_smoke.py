@@ -6,14 +6,18 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the model paths from the sources in this
    checkout (flash_attention, flash_decode, rwkv6_scan, rglru_scan,
-   matmul_qi8; one nvcc per source, started together);
+   matmul_qi8; one nvcc per source, started together), prints ptxas's
+   registers and spills of each kernel and the tensor-core instructions
+   in the SASS of bf16 flash_attention (HMMA) and matmul_qi8 (IMMA),
+   failing if any of their instantiations has none;
 3. holds each kernel against its plain PyTorch version at the shapes the
    model paths give it (the flash kernels also at recurrentgemma's head dim
    256 with 16 q heads per kv head; flash_attention with recurrentgemma's
    window of 2048 at S = T = 4096; matmul_qi8 exactly at 512^3, ResNet50's
    head, a 1x1 conv and a ragged K), and times kernel, plain version and,
    where one exists, one library call (the yardstick; the port never calls
-   it; no single PyTorch call computes either recurrence);
+   it; no single PyTorch call computes either recurrence), with
+   flash_attention's achieved TFLOP/s beside SDPA's;
 4. holds the full model on the card against the same model on the CPU at
    the smoke configs of qwen3-1.7b, rwkv6-1.6b and recurrentgemma-9b (the
    CPU runs the plain versions), for a prefill forward and for a greedy
@@ -68,6 +72,7 @@ result.
 import dataclasses
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -100,6 +105,24 @@ from repro_torch.profiling import profile_model  # noqa: E402
 
 KERNELS = ("flash_attention", "flash_decode", "rwkv6_scan", "rglru_scan",
            "matmul_qi8")
+# each kernel's design, as its source note sets it out
+DESIGNS = {
+    "flash_attention": "bf16: mma.sync m16n8k16 (fp32 accumulate), "
+                       "ldmatrix / ldmatrix.trans, cp.async 2-stage K/V "
+                       "ring (one barrier a tile), P in registers, 4 warps "
+                       "x 16 q rows, heavy and light causal tiles paired "
+                       "on each SM; fp32: CUDA cores, 64 x 64 tiles, 256 "
+                       "threads",
+    "flash_decode": "CUDA cores: 4 warps per (T split, kv head, row), "
+                    "16-byte row slices, a combine pass",
+    "rwkv6_scan": "CUDA cores: one warp per 32 state columns, the state in "
+                  "registers for the whole sequence",
+    "rglru_scan": "CUDA cores: one thread per channel, loads of 16 steps "
+                  "ahead",
+    "matmul_qi8": "mma.sync m16n8k32 s8 -> s32, cp.async 2-stage x ring, w "
+                  "transposed by prmt on load, 64 x 64 or 16 x 64 tiles, "
+                  "split-K with int32 atomics",
+}
 
 ARCH = "qwen3-1.7b"
 SEQ = 1024
@@ -181,17 +204,35 @@ def cuda_ms(fns, reps=20, backlog=True):
     return start.elapsed_time(end) / reps
 
 
-def attention_bound(q, k, causal, window=None):
-    """Least time (ms) for one flash-attention call on these inputs: q/k/v
-    read and o written once over HBM bandwidth, against 4*D flops per
-    unmasked (query, key) pair over the peak rate of the input type."""
+def tensor_core_ops(path, op, kernel):
+    """SASS instructions ``op`` (HMMA, IMMA) in each function of the built
+    library at ``path`` whose name holds ``kernel``, by ``cuobjdump
+    -sass``: name -> count."""
+    cuobjdump = pathlib.Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return {fn.split("\n", 1)[0].strip(): len(re.findall(rf"\s{op}\.", fn))
+            for fn in sass.split("Function : ")[1:]
+            if kernel in fn.split("\n", 1)[0]}
+
+
+def attention_flops(q, k, causal, window=None):
+    """4*D flops per unmasked (query, key) pair: the work of one call."""
     b, hq, s, d = q.shape
-    hkv, t = k.shape[1], k.shape[2]
+    t = k.shape[2]
     if causal:      # query i (right-aligned) sees keys 0 .. t - s + i
         pairs = sum(min(t, t - s + i + 1, window or t) for i in range(s))
     else:
         pairs = s * t
-    flops = 4 * d * pairs * b * hq
+    return 4 * d * pairs * b * hq
+
+
+def attention_bound(q, k, causal, window=None):
+    """Least time (ms) for one flash-attention call on these inputs: q/k/v
+    read and o written once over HBM bandwidth, against 4*D flops per
+    unmasked (query, key) pair over the peak rate of the input type."""
+    flops = attention_flops(q, k, causal, window)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     t_ops = flops / PEAK_FLOPS[q.dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -215,6 +256,12 @@ def attention_inputs(b, hq, hkv, s, t, d, dtype, model_layout=False):
     return out
 
 
+def tflops(q, k, ms, window=None):
+    """Achieved TFLOP/s of a causal call that took ``ms``: the bound's
+    operation count over the time."""
+    return attention_flops(q, k, True, window) / (ms * 1e-3) / 1e12
+
+
 def time_attention(q, k, v):
     """Kernel, plain version and SDPA (ms), and the bound, on one input."""
     ms = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=True)])
@@ -225,7 +272,8 @@ def time_attention(q, k, v):
     bound_ms, bound_by = attention_bound(q, k, causal=True)
     return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "tflops": tflops(q, k, ms),
+            "library_tflops": tflops(q, k, library_ms)}
 
 
 def check_flash_attention():
@@ -265,8 +313,10 @@ def check_flash_attention():
         if record is None or (d == 256 and layout):
             times = time_attention(q, k, v)
             print(f"flash_attention timing at {name}: kernel "
-                  f"{times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
-                  f"sdpa {times['library_ms']:.4f} ms, bound "
+                  f"{times['ms']:.4f} ms ({times['tflops']:.1f} TFLOP/s), "
+                  f"plain {times['plain_ms']:.4f} ms, sdpa "
+                  f"{times['library_ms']:.4f} ms "
+                  f"({times['library_tflops']:.1f} TFLOP/s), bound "
                   f"{times['bound_ms']:.4f} ms ({times['bound_by']})")
             if record is None:
                 record = {"name": "flash_attention", "route": "cuda",
@@ -278,6 +328,13 @@ def check_flash_attention():
             else:
                 record["d256"] = {"max_abs_err": err, **times,
                                   "shape": shape}
+        elif dtype == torch.float32 and d == 128:
+            # the CUDA-core route, beside the bf16 route's times
+            ms = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=True)])
+            record["fp32"] = {"max_abs_err": err, "ms": ms,
+                              "tflops": tflops(q, k, ms), "shape": shape}
+            print(f"flash_attention timing at {name}: kernel {ms:.4f} ms "
+                  f"({record['fp32']['tflops']:.1f} TFLOP/s)")
     return record
 
 
@@ -587,10 +644,14 @@ def check_windowed_flash_attention():
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True)])
     out["bound_ms"], out["bound_by"] = attention_bound(q, k, True, window)
+    out["tflops"] = tflops(q, k, out["ms"], window)
+    out["library_tflops"] = tflops(q, k, out["library_ms"], window)
     print(f"flash_attention windowed timing (bf16): kernel {out['ms']:.4f} "
-          f"ms (without the window {out['causal_ms']:.4f} ms), plain "
+          f"ms ({out['tflops']:.1f} TFLOP/s; without the window "
+          f"{out['causal_ms']:.4f} ms), plain "
           f"{out['plain_ms']:.4f} ms, sdpa with the mask "
-          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"{out['library_ms']:.4f} ms ({out['library_tflops']:.1f} "
+          f"TFLOP/s), bound {out['bound_ms']:.4f} ms "
           f"({out['bound_by']})")
     return out
 
@@ -1251,6 +1312,19 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  {name} ptxas: {line.strip()}")
+    # the redesigned kernels run on the tensor cores: every bf16
+    # flash_attention and every matmul_qi8 instantiation holds mma.sync
+    tensor_ops = {}
+    for name, op, kernel in (("flash_attention", "HMMA", "bf16_kernel"),
+                             ("matmul_qi8", "IMMA", "matmul_qi8_kernel")):
+        counts = tensor_core_ops(libs[name], op, kernel)
+        print(f"{name} SASS: {op} per {kernel} instantiation "
+              f"{sorted(counts.values())}")
+        if not counts or min(counts.values()) == 0:
+            raise SystemExit(f"{name}: a {kernel} without {op} (or none "
+                             f"found): {counts}")
+        tensor_ops[name] = {"op": op, "instantiations": len(counts),
+                            "count": sum(counts.values())}
 
     record = check_flash_attention()
     record["windowed"] = check_windowed_flash_attention()
@@ -1328,8 +1402,12 @@ def main() -> int:
     qi8_record["launches"] = run_int8_head()
     print(json.dumps({"cnn": {"zoo_worst_rel_err": zoo_worst, **cnn_res}}))
 
-    print(json.dumps({"kernels": [record, decode_record, rwkv_record,
-                                  rglru_record, qi8_record]}))
+    kernels = [record, decode_record, rwkv_record, rglru_record, qi8_record]
+    for rec in kernels:
+        rec["design"] = DESIGNS[rec["name"]]
+        if rec["name"] in tensor_ops:
+            rec["sass"] = tensor_ops[rec["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,9 +4,16 @@
 TPU kernel ``repro/kernels/flash_attention.py`` (q ``(B, Hq, S, D)``, k/v
 ``(B, Hkv, T, D)``, GQA, right-aligned causal queries, fp32 softmax, output
 in q's dtype), plus the local-attention window of the reference's
-``full_attention`` (recurrentgemma's attention layers).  CUDA tensors launch the hand-written kernel; CPU tensors take
-the plain version :func:`~repro_torch.kernels.ref.flash_attention_ref`.
-Any other case raises.
+``full_attention`` (recurrentgemma's attention layers).  CUDA tensors
+launch the hand-written kernel; CPU tensors take the plain version
+:func:`~repro_torch.kernels.ref.flash_attention_ref`.  Any other case
+raises.
+
+The route is chosen by dtype, one route each: bf16 runs on the tensor
+cores (``mma.sync``, its K/V tiles filled by 16-byte ``cp.async``), fp32
+on CUDA cores (tensor cores would mean TF32, a different function).  The
+bf16 route needs 16-byte aligned rows (:func:`aligned`); a bf16 input that
+is not raises ``ValueError`` and falls back to nothing.
 
 The kernel takes element strides for the batch, head and sequence axes, so
 q/k/v may be transposed views of ``(B, S, H, D)`` projections as long as the
@@ -27,6 +34,17 @@ from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ALIGN = 16             # bytes of one cp.async
+
+
+def aligned(data_ptr: int, strides, sizes, itemsize: int) -> bool:
+    """Whether the bf16 kernel's 16-byte copies can read a (B, H, S, D)
+    tensor at ``data_ptr`` with element ``strides``: the base and every
+    batch, head and sequence stride (in bytes) a multiple of 16.  The
+    stride of an axis of size 1 is never stepped, so it is not asked."""
+    return data_ptr % _ALIGN == 0 and all(
+        size == 1 or st * itemsize % _ALIGN == 0
+        for st, size in zip(strides[:3], sizes[:3]))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,6 +98,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention needs a contiguous head dim "
                          "(stride 1 on the last axis)")
     out = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        bad = [name for name, x in zip("qkv", (q, k, v))
+               if not aligned(x.data_ptr(), x.stride(), x.shape,
+                              x.element_size())]
+        if bad:
+            raise ValueError(f"bf16 flash_attention needs 16-byte aligned "
+                             f"rows (data_ptr and batch, head and sequence "
+                             f"strides); {', '.join(bad)} are not")
     strides = (ctypes.c_longlong * 12)(
         *(st for x in (q, k, v, out) for st in x.stride()[:3]))
     fn = _kernel()

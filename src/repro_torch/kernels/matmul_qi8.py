@@ -7,9 +7,12 @@ public wrapper (``repro/kernels/ops.py`` ``matmul_qi8``) does off the TPU:
 the Pallas function's ``block=`` argument and its assert that the shape
 divides the block are the TPU's (8, 128) / MXU tiling, and the CUDA kernel
 masks its ragged edge tiles itself (zero-fill on load, so any K is exact).
-CUDA tensors launch the hand-written kernel (row-major, contiguous); CPU
-tensors take the plain version :func:`~repro_torch.kernels.ref.matmul_qi8_ref`.
-Any other case raises.  The scaled int8 API (``quantize_int8``,
+CUDA tensors launch the hand-written kernel (s8 tensor cores; row-major,
+contiguous); CPU tensors take the plain version
+:func:`~repro_torch.kernels.ref.matmul_qi8_ref`.  Any other case raises.
+Where the output tiles would not fill the card, :func:`split_k` cuts K
+into slices that add into a zeroed output with exact int32 atomics, still
+one launch.  The scaled int8 API (``quantize_int8``,
 ``matmul_qi8`` with scales, ``quantized_dense``) is :mod:`.quant`.
 """
 from __future__ import annotations
@@ -23,6 +26,26 @@ from . import _build
 from .ref import matmul_qi8_ref
 
 _MAX_ROWS = 65535 * 64          # the grid's y extent x the kernel's rows
+SMS = 132                       # streaming multiprocessors of an H100 SXM
+K_STEP = 32                     # K of one m16n8k32 step: slices are multiples
+_BN = 64                        # output columns a block
+
+
+def block_rows(m: int) -> int:
+    """Output rows of the kernel's tile: 16 for M <= 16, else 64."""
+    return 16 if m <= 16 else 64
+
+
+def split_k(m: int, k: int, n: int, sms: int = SMS) -> tuple:
+    """``(splits, k_chunk)``: K cut into ``splits`` slices of ``k_chunk``
+    (a multiple of :data:`K_STEP`; the last slice ends at K), enough that
+    the output tiles times the slices fill ``sms`` blocks where K allows.
+    One slice when the tiles alone fill the card."""
+    steps = max(1, -(-k // K_STEP))
+    tiles = max(1, -(-m // block_rows(m)) * -(-n // _BN))
+    want = min(steps, -(-sms // tiles)) if tiles < sms else 1
+    chunk_steps = -(-steps // want)
+    return -(-steps // chunk_steps), chunk_steps * K_STEP
 
 
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -52,13 +75,19 @@ def matmul_qi8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if m > _MAX_ROWS:
         raise ValueError(f"matmul_qi8 kernel takes at most {_MAX_ROWS} "
                          f"rows, got {m}")
-    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     if m == 0 or n == 0:
-        return out
+        return torch.empty((m, n), dtype=torch.int32, device=x.device)
+    splits, k_chunk = split_k(
+        m, k, n, torch.cuda.get_device_properties(x.device)
+        .multi_processor_count)
+    # the slices add into zeros (a memset); one slice stores its tiles
+    alloc = torch.zeros if splits > 1 else torch.empty
+    out = alloc((m, n), dtype=torch.int32, device=x.device)
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, stream)
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                 k_chunk, splits, stream)
     if err != 0:
         raise RuntimeError(f"matmul_qi8 kernel launch failed: CUDA error "
                            f"{err}")
@@ -69,7 +98,7 @@ def matmul_qi8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 @functools.cache
 def _kernel():
     fn = _build.load("matmul_qi8").matmul_qi8_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

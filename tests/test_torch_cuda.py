@@ -8,7 +8,8 @@ has only PyTorch:
 
 Tolerances: 1e-4 in fp32 (summation order of the kernel's online softmax
 against the materialized one; flash_decode, whose sums are shorter, 1e-5),
-2e-2 in bf16 (one bf16 rounding of outputs of magnitude ~1).  The scans:
+2e-2 in bf16 (one bf16 rounding of outputs of magnitude ~1; the bf16
+flash_attention also rounds P to bf16 for the tensor cores).  The scans:
 rtol = atol = 2e-4 (rwkv6_scan) and 1e-5 (rglru_scan) in fp32, 2e-2 in
 bf16, the tolerances of the reference's own kernel tests.  matmul_qi8 and
 the int8 API: exact.  The CNN forward: 1e-4 of max |y| against the CPU
@@ -50,24 +51,50 @@ def sm90():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal,dtype", [
-    (1, 2, 2, 128, 128, 64, True, "float32"),
-    (2, 4, 2, 256, 256, 64, True, "float32"),
-    (1, 8, 1, 128, 256, 128, True, "float32"),      # MQA, s != t
-    (2, 2, 2, 128, 128, 64, False, "float32"),
-    (1, 4, 4, 256, 256, 64, True, "bfloat16"),
-    (2, 4, 1, 72, 200, 16, True, "float32"),        # ragged
-    (1, 2, 2, 24, 16, 32, False, "float32"),        # non-causal, s > t
-    (1, 16, 8, 1000, 1000, 128, True, "bfloat16"),  # the slice's widths
-    (1, 16, 8, 128, 1024, 128, True, "bfloat16"),
-    (2, 16, 1, 256, 256, 256, True, "bfloat16"),    # recurrentgemma MQA
-    (1, 16, 1, 200, 200, 256, True, "float32"),
+def _attention_inputs(g, dev, b, hq, hkv, s, t, d, dtype, layout=False):
+    """q/k/v, as (B, H, S, D) tensors or (``layout``) as (B, H, S, D)
+    views of the model's (B, S, H, D) projections."""
+    out = []
+    for h, n in ((hq, s), (hkv, t), (hkv, t)):
+        if layout:
+            out.append(torch.randn(b, n, h, d, generator=g, device=dev,
+                                   dtype=DTYPES[dtype]).transpose(1, 2))
+        else:
+            out.append(torch.randn(b, h, n, d, generator=g, device=dev,
+                                   dtype=DTYPES[dtype]))
+    return out
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal,dtype,layout", [
+    (1, 2, 2, 128, 128, 64, True, "float32", False),
+    (2, 4, 2, 256, 256, 64, True, "float32", False),
+    (1, 8, 1, 128, 256, 128, True, "float32", False),   # MQA, s != t
+    (2, 2, 2, 128, 128, 64, False, "float32", False),
+    (1, 4, 4, 256, 256, 64, True, "bfloat16", False),
+    (2, 4, 1, 72, 200, 16, True, "float32", False),     # ragged
+    (1, 2, 2, 24, 16, 32, False, "float32", False),     # non-causal, s > t
+    (1, 16, 8, 1000, 1000, 128, True, "bfloat16", False),   # the slice's
+    (1, 16, 8, 128, 1024, 128, True, "bfloat16", False),
+    (2, 16, 1, 256, 256, 256, True, "bfloat16", False),     # MQA 16:1
+    (1, 16, 1, 200, 200, 256, True, "float32", False),
+    # bf16 on the tensor cores: every head dim, ragged S and T, S < T,
+    # non-causal S > T, groups 1, 2, 16, the model layout
+    (1, 2, 2, 1, 1, 16, True, "bfloat16", False),
+    (2, 4, 1, 72, 200, 16, True, "bfloat16", False),
+    (1, 4, 2, 17, 17, 32, True, "bfloat16", False),
+    (1, 2, 2, 24, 16, 32, False, "bfloat16", False),
+    (1, 4, 2, 100, 17, 64, False, "bfloat16", False),
+    (1, 4, 4, 1000, 1000, 64, True, "bfloat16", False),
+    (1, 16, 1, 17, 72, 128, True, "bfloat16", False),
+    (2, 16, 8, 72, 72, 128, True, "bfloat16", True),
+    (1, 16, 1, 1, 1000, 256, True, "bfloat16", False),
+    (1, 16, 1, 1000, 1000, 256, True, "bfloat16", True),
+    (2, 2, 1, 200, 72, 256, False, "bfloat16", False),
 ])
-def test_kernel_matches_plain(sm90, b, hq, hkv, s, t, d, causal, dtype):
+def test_kernel_matches_plain(sm90, b, hq, hkv, s, t, d, causal, dtype,
+                              layout):
     g = torch.Generator(sm90).manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=g, device=sm90,
-                           dtype=DTYPES[dtype])
-               for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+    q, k, v = _attention_inputs(g, sm90, b, hq, hkv, s, t, d, dtype, layout)
     before = _build.launches("flash_attention")
     got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -87,6 +114,19 @@ def test_kernel_reads_and_writes_model_layout(sm90):
     assert got.transpose(1, 2).is_contiguous()
     torch.testing.assert_close(got.float(), flash_attention_ref(q, k, v)
                                .float(), rtol=2e-2, atol=2e-2)
+
+
+def test_bf16_kernel_rejects_misaligned_rows(sm90):
+    """The bf16 route copies 16-byte rows: a view one element into its
+    storage raises, and nothing falls back."""
+    n = 1 * 2 * 64 * 64
+    q = torch.randn(n + 1, device=sm90, dtype=torch.bfloat16)[1:].view(
+        1, 2, 64, 64)
+    k = torch.randn(1, 2, 64, 64, device=sm90, dtype=torch.bfloat16)
+    before = _build.launches("flash_attention")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(q, k, k)
+    assert _build.launches("flash_attention") == before
 
 
 def test_smoke_forward_matches_cpu(sm90):
@@ -277,6 +317,11 @@ def test_recurrent_smoke_models_on_card_match_cpu(sm90, arch, seq,
     (2, 4, 2, 130, 130, 64, 1, "float32"),          # each query alone
     (1, 4, 2, 100, 260, 128, 70, "float32"),        # right-aligned, ragged
     (1, 16, 8, 1000, 1000, 128, 2048, "bfloat16"),  # wider than T
+    (2, 4, 2, 130, 130, 64, 1, "bfloat16"),         # each query alone
+    (1, 4, 2, 100, 260, 128, 70, "bfloat16"),       # right-aligned, ragged
+    (1, 16, 1, 17, 1000, 256, 33, "bfloat16"),
+    (1, 2, 2, 72, 72, 32, 5000, "bfloat16"),        # wider than T
+    (1, 2, 1, 1000, 1000, 16, 100, "bfloat16"),
 ])
 def test_windowed_flash_attention_matches_plain(sm90, b, hq, hkv, s, t, d,
                                                 window, dtype):
@@ -293,6 +338,11 @@ def test_windowed_flash_attention_matches_plain(sm90, b, hq, hkv, s, t, d,
 @pytest.mark.parametrize("m,k,n", [
     (512, 512, 512), (8, 2048, 1000), (25088, 64, 256), (7, 30, 13),
     (1, 1, 1), (65, 129, 63), (3, 0, 5),
+    # split-K over the 16-row tile, the head's N
+    (1, 2048, 1000), (16, 2048, 1000), (1, 4096, 1000), (8, 4096, 1000),
+    (16, 4096, 1000),
+    # ragged K through the byte loaders, split and not
+    (8, 30, 1000), (16, 129, 64), (300, 129, 1000), (1000, 30, 300),
 ])
 def test_matmul_qi8_is_exact_on_card(sm90, m, k, n):
     """Exact against the plain version (float64 on the card, exact for

@@ -138,3 +138,44 @@ def test_window_must_be_positive():
     q = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention(q, q, q, window=0)
+
+
+@pytest.mark.parametrize("offset,expect", [
+    (0, True), (8, True),           # 16-byte steps of bf16
+    (1, False), (4, False),         # one element in; 8 bytes in
+])
+def test_alignment_rule_on_offset_storage(offset, expect):
+    """The bf16 kernel's rule (16-byte cp.async): a view ``offset``
+    elements into its storage, as ``torch.empty(n + 1)[1:]`` gives."""
+    n = 2 * 4 * 40 * 16
+    x = torch.empty(n + 16, dtype=torch.bfloat16)[offset:offset + n].view(
+        2, 4, 40, 16)
+    assert x.untyped_storage().data_ptr() % 16 == 0
+    assert fa.aligned(x.data_ptr(), x.stride(), x.shape,
+                      x.element_size()) is expect
+
+
+@pytest.mark.parametrize("b,s,h,d,expect", [
+    (1, 300, 16, 128, True),        # qwen3's q projection, (B, S, H, D)
+    (2, 1024, 1, 256, True),        # recurrentgemma's MQA k/v
+    (1, 40, 4, 16, True),
+])
+def test_alignment_rule_on_model_views(b, s, h, d, expect):
+    """The model's ``q.transpose(1, 2)`` views (``models/lm.py``): head
+    stride D, sequence stride H * D, both multiples of 8 elements."""
+    x = torch.zeros(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+    assert x.is_contiguous() is (h == 1)
+    assert fa.aligned(x.data_ptr(), x.stride(), x.shape,
+                      x.element_size()) is expect
+
+
+def test_alignment_rule_rejects_odd_row_strides():
+    """Rows 17 elements (34 bytes) apart cannot be copied 16 bytes at a
+    time; a stride on an axis of size 1 is never stepped and not asked."""
+    x = torch.zeros(1, 4, 40, 17, dtype=torch.bfloat16)[..., :16]
+    assert not fa.aligned(x.data_ptr(), x.stride(), x.shape, 2)
+    y = torch.zeros(1, 1, 40, 16, dtype=torch.bfloat16).as_strided(
+        (1, 1, 40, 16), (3, 5, 16, 1))
+    assert fa.aligned(y.data_ptr(), y.stride(), y.shape, 2)
+    assert fa.aligned(y.data_ptr(), y.stride(), y.shape, 4)
+    assert not fa.aligned(y.data_ptr() + 2, y.stride(), y.shape, 2)

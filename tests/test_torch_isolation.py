@@ -56,3 +56,14 @@ def test_decode_engine_import_loads_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("call", ["scaled_dot_product_attention", "_int_mm",
+                                  "torch.compile"])
+def test_no_source_calls_a_library_kernel(call):
+    """The port's kernels are its own: no module calls SDPA,
+    ``torch._int_mm`` or ``torch.compile`` (``chip_smoke.py`` times the
+    first two beside the kernels as yardsticks, outside the package)."""
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    assert [f.name for f in files if call in f.read_text()] == []

@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.matmul_qi8 import matmul_qi8 as jmatmul_pallas
 from repro_torch.kernels import _build, quant
+from repro_torch.kernels import matmul_qi8 as mq
 from repro_torch.kernels.matmul_qi8 import matmul_qi8
 from repro_torch.kernels.ref import matmul_qi8_ref
 
@@ -113,3 +114,49 @@ def test_scaled_matmul_and_quantized_dense_are_bit_equal(m, k, n):
     np.testing.assert_array_equal(
         quant.quantized_dense(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
         np.asarray(jops.quantized_dense(jnp.asarray(x), jnp.asarray(w))))
+
+
+SPLIT_SHAPES = [  # m, k, n: the head, the card tests' split shapes, others
+    (8, 2048, 1000), (1, 2048, 1000), (16, 2048, 1000), (1, 4096, 1000),
+    (8, 4096, 1000), (16, 4096, 1000), (512, 512, 512), (25088, 64, 256),
+    (1000, 30, 300), (8, 30, 1000), (16, 129, 64), (300, 129, 1000),
+    (65, 129, 63), (3, 0, 5), (1, 1, 1), (17, 100_000, 8), (0, 64, 5),
+]
+
+
+@pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+def test_split_k_slices_cover_k_exactly(m, k, n):
+    """The wrapper's launch plan: at least one slice, each a multiple of
+    32 long, together covering [0, K) with none empty; more slices only
+    while the output tiles leave SMs idle."""
+    splits, chunk = mq.split_k(m, k, n)
+    assert splits >= 1 and chunk > 0 and chunk % mq.K_STEP == 0
+    assert (splits - 1) * chunk < max(k, 1) <= splits * chunk
+    tiles = -(-m // mq.block_rows(m)) * -(-n // 64)
+    if tiles >= mq.SMS:
+        assert splits == 1
+    else:
+        assert tiles * (splits - 1) < mq.SMS
+
+
+def test_split_k_splits_the_head():
+    """ResNet50's int8 head: 16 tiles of 16 x 64 on 132 SMs, K = 2048, so
+    K is cut; the 16-row tile serves M <= 16."""
+    assert mq.block_rows(8) == 16 and mq.block_rows(17) == 64
+    splits, chunk = mq.split_k(8, 2048, 1000)
+    assert splits > 1 and 16 * splits <= mq.SMS
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 1000), (65, 129, 63),
+                                   (16, 129, 64)])
+def test_split_k_slices_sum_to_the_product(m, k, n):
+    """The slices' partial products, added in any order, are the product
+    exactly (integer addition is associative): what the kernel's int32
+    atomics rely on."""
+    rng = np.random.default_rng(m + k)
+    x, w = (torch.from_numpy(_int8(rng, s)) for s in ((m, k), (k, n)))
+    splits, chunk = mq.split_k(m, k, n)
+    parts = [matmul_qi8_ref(x[:, i * chunk:(i + 1) * chunk],
+                            w[i * chunk:(i + 1) * chunk])
+             for i in range(splits)]
+    assert torch.equal(sum(reversed(parts)), matmul_qi8_ref(x, w))
