@@ -2,22 +2,33 @@
 """Smoke run of the PyTorch port (src/repro_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times [--tree DIR]
+
+The second form only builds and times flash_decode and rwkv6_scan at the
+points below (one JSON line), importing the port from DIR/src (another
+checkout, such as the parent commit's) when ``--tree`` is given, so two
+trees' kernels are timed by the same code on one card.  With no
+arguments:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the model paths from the sources in this
    checkout (flash_attention, flash_decode, rwkv6_scan, rglru_scan,
    matmul_qi8; one nvcc per source, started together), prints ptxas's
-   registers and spills of each kernel and the tensor-core instructions
-   in the SASS of bf16 flash_attention (HMMA) and matmul_qi8 (IMMA),
+   registers and spills of each kernel (failing if flash_decode or
+   rwkv6_scan spills) and the tensor-core instructions in the SASS of
+   bf16 flash_attention and flash_decode (HMMA) and matmul_qi8 (IMMA),
    failing if any of their instantiations has none;
 3. holds each kernel against its plain PyTorch version at the shapes the
    model paths give it (the flash kernels also at recurrentgemma's head dim
    256 with 16 q heads per kv head; flash_attention with recurrentgemma's
    window of 2048 at S = T = 4096; matmul_qi8 exactly at 512^3, ResNet50's
-   head, a 1x1 conv and a ragged K), and times kernel, plain version and,
-   where one exists, one library call (the yardstick; the port never calls
-   it; no single PyTorch call computes either recurrence), with
-   flash_attention's achieved TFLOP/s beside SDPA's;
+   head, a 1x1 conv and a ragged K; flash_decode with lengths ending
+   inside a split, rwkv6_scan with decays of 1e-30 and 1), and times
+   kernel, plain version and, where one exists, one library call (the
+   yardstick; the port never calls it; no single PyTorch call computes
+   either recurrence), with flash_attention's achieved TFLOP/s beside
+   SDPA's, flash_decode also at recurrentgemma's full window and beside
+   one torch.sum over as many bytes, rwkv6_scan also at S = 1;
 4. holds the full model on the card against the same model on the CPU at
    the smoke configs of qwen3-1.7b, rwkv6-1.6b and recurrentgemma-9b (the
    CPU runs the plain versions), for a prefill forward and for a greedy
@@ -81,7 +92,10 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# --tree DIR: the port is imported from DIR/src instead of this checkout's
+TREE = (pathlib.Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
+        if "--tree" in sys.argv[:-1] else ROOT)
+sys.path.insert(0, str(TREE / "src"))
 
 from repro_torch import configs  # noqa: E402  (needs src/ on the path)
 from repro_torch.api import DeploymentSpec, plan  # noqa: E402
@@ -113,10 +127,16 @@ DESIGNS = {
                        "x 16 q rows, heavy and light causal tiles paired "
                        "on each SM; fp32: CUDA cores, 64 x 64 tiles, 256 "
                        "threads",
-    "flash_decode": "CUDA cores: 4 warps per (T split, kv head, row), "
-                    "16-byte row slices, a combine pass",
-    "rwkv6_scan": "CUDA cores: one warp per 32 state columns, the state in "
-                  "registers for the whole sequence",
+    "flash_decode": "bf16: mma.sync m16n8k16 (fp32 accumulate), one block "
+                    "of 4 warps per (split, kv head, row) serving up to 16 "
+                    "q heads, a cp.async ring per warp of 16-key tiles, P "
+                    "in registers, splits from the SM count cut each row's "
+                    "length, a combine pass; fp32: CUDA cores, 16-byte row "
+                    "slices",
+    "rwkv6_scan": "CUDA cores: 256 threads per (head, row), the state split "
+                  "over 256 / D threads a column (a warp on one part, y's "
+                  "partial sums through shared memory), rows staged 64 "
+                  "steps a chunk by cp.async, double-buffered",
     "rglru_scan": "CUDA cores: one thread per channel, loads of 16 steps "
                   "ahead",
     "matmul_qi8": "mma.sync m16n8k32 s8 -> s32, cp.async 2-stage x ring, w "
@@ -374,14 +394,23 @@ def decode_inputs(b, hq, hkv, t, d, dtype, model_layout=False, seed=0):
 
 def time_decode(sets, lens, reps=40):
     """Kernel (device time, and as the host issues the calls), plain
-    version and SDPA (ms), and the bound, rotating over cache sets."""
+    version, SDPA and one torch.sum over as many bytes as the valid K/V
+    rows (ms), and the bound, rotating over cache sets."""
     t = sets[0][1].shape[2]
     valid = (torch.arange(t, device="cuda")[None, :]
              < lens[:, None])[:, None, None, :]
     kernel = [lambda s=s: fd.flash_decode(*s, lens) for s in sets]
     ms = cuda_ms(kernel, reps=reps)
     bound_ms, bound_by = decode_bound(sets[0][0], sets[0][1], lens)
-    return {"ms": ms, "kernel_ms": ms,
+    # the reach of one plain read pass: torch.sum over contiguous tensors
+    # of as many bytes as the valid K/V rows, rotated as the caches are
+    n = int(lens.clamp(0, t).sum()) * 2 * sets[0][1].shape[1] * \
+        sets[0][1].shape[3]
+    flat = [torch.ones(n, dtype=sets[0][1].dtype, device="cuda")
+            for _ in sets]
+    stream_ms = cuda_ms([lambda x=x: x.sum() for x in flat], reps=reps)
+    del flat
+    return {"ms": ms, "kernel_ms": ms, "stream_ms": stream_ms,
             "issued_ms": cuda_ms(kernel, reps=reps, backlog=False),
             "plain_ms": cuda_ms([lambda s=s: flash_decode_ref(*s, lens)
                                  for s in sets], reps=reps),
@@ -414,6 +443,15 @@ def check_flash_decode():
          2e-2),
         ("fp32 D=256 MQA group 16, B=8 T=2048, per-slot lengths", 8, 16, 1,
          2048, 256, torch.float32, False, DECODE_LENS, 1e-5),
+        ("bf16 group 2 B=8 T=2048, model layout, lengths ending inside a "
+         "split", 8, 16, 8, 2048, 128, torch.bfloat16, True,
+         [0, 200, 223, 225, 500, 1056, 1057, 1999], 2e-2),
+        ("bf16 D=256 group 16, B=16 T=64, model layout, per-slot lengths",
+         16, 16, 1, 64, 256, torch.bfloat16, True,
+         [0, 1, 15, 16, 17, 33, 63, 64] * 2, 2e-2),
+        ("bf16 D=256 group 16, B=16 T=2048, model layout, lengths 2048 and "
+         "inside a split", 16, 16, 1, 2048, 256, torch.bfloat16, True,
+         [2048] * 8 + [0, 1, 100, 127, 129, 1000, 2047, 2048], 2e-2),
     ]
     record = None
     for name, b, hq, hkv, t, d, dtype, layout, lens, tol in cases:
@@ -436,34 +474,49 @@ def check_flash_decode():
         if record is None:
             record = {"max_abs_err": err}
 
-    points = [  # b, hq, hkv, t, d, timed length: qwen3, recurrentgemma
-        (8, 16, 8, DECODE_CONTEXT, 128, DECODE_TIMED_LEN),
-        (GEMMA_ROWS, 16, 1, GEMMA_MAX_LEN, 256, GEMMA_MAX_LEN)]
-    for b, hq, hkv, t, d, n in points:
+    times = time_decode_points()
+    record.update({
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:62",
+        **times["qwen3"]})
+    record["d256"] = times["d256"]
+    record["d256_full"] = times["d256_full"]
+    return record
+
+
+DECODE_POINTS = {  # b, hq, hkv, t, d, timed length
+    "qwen3": (8, 16, 8, DECODE_CONTEXT, 128, DECODE_TIMED_LEN),
+    "d256": (GEMMA_ROWS, 16, 1, GEMMA_MAX_LEN, 256, GEMMA_MAX_LEN),
+    # recurrentgemma's window when full
+    "d256_full": (GEMMA_ROWS, 16, 1, 2048, 256, 2048)}
+
+
+def time_decode_points():
+    """Kernel, plain version and SDPA at the qwen3 decode path's point, at
+    recurrentgemma's decode loop's (T 64) and at its full window (T 2048),
+    bf16 in the model layout, rotating over cache sets."""
+    out = {}
+    for key, (b, hq, hkv, t, d, n) in DECODE_POINTS.items():
         lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
         sets = [decode_inputs(b, hq, hkv, t, d, torch.bfloat16, True, seed=i)
                 for i in range(COLD_SETS)]
         times = time_decode(sets, lens)
-        shape = {"b": b, "hq": hq, "hkv": hkv, "t": t, "d": d,
-                 "dtype": str(torch.bfloat16), "lens": n,
-                 "cache_sets": COLD_SETS}
+        times["shape"] = {"b": b, "hq": hq, "hkv": hkv, "t": t, "d": d,
+                          "dtype": str(torch.bfloat16), "lens": n,
+                          "cache_sets": COLD_SETS}
         print(f"flash_decode timing at B={b} Hq={hq} Hkv={hkv} D={d} T={t} "
               f"len={n} (bf16, model layout, {COLD_SETS} cache sets): "
               f"kernel {times['ms']:.4f} ms ({times['issued_ms']:.4f} ms a "
               f"call as the host issues them), plain "
               f"{times['plain_ms']:.4f} ms, sdpa {times['library_ms']:.4f} "
-              f"ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']})")
-        if d == 128:
-            record.update({
-                "name": "flash_decode", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-                "replaces": "src/repro/kernels/flash_decode.py:62",
-                **times, "shape": shape})
-        else:
-            record["d256"] = {**times, "shape": shape}
+              f"ms, bound {times['bound_ms']:.4f} ms ({times['bound_by']}), "
+              f"one torch.sum over as many bytes {times['stream_ms']:.4f} "
+              f"ms")
+        out[key] = times
         del sets
         torch.cuda.empty_cache()
-    return record
+    return out
 
 
 def allclose_err(got, expect, tol):
@@ -507,9 +560,10 @@ def rwkv6_inputs(b, h, s, d, dtype, model_layout, seed=0):
 def check_rwkv6_scan():
     """Kernel vs plain version at rwkv6-1.6b's shape (B 4, H 32, S 1024, D
     64, fp32, the model's (B, S, H, D) layout, nonzero s0), in bf16, at the
-    decode step S = 1, ragged S and the smaller head dims; y and s_last
-    within tol (1 + |plain|).  Times kernel and plain version at the main
-    shape.  Returns the kernel's record."""
+    decode step S = 1, ragged S, the smaller head dims and the extreme
+    decays (w 1e-30 and 1); y and s_last within tol (1 + |plain|).  Times
+    kernel and plain version at the main shape and at S = 1.  Returns the
+    kernel's record."""
     cases = [  # name, b, h, s, d, dtype, model layout, tol
         ("fp32 B=4 H=32 S=1024 D=64, model layout", 4, 32, 1024, 64,
          torch.float32, True, 2e-4),
@@ -521,10 +575,15 @@ def check_rwkv6_scan():
         ("fp32 D=32 S=257", 2, 4, 257, 32, torch.float32, False, 2e-4),
         ("bf16 D=16 S=300, model layout", 2, 4, 300, 16, torch.bfloat16,
          True, 2e-2),
+        ("fp32 S=31, decays 1e-30 and 1, model layout", 4, 32, 31, 64,
+         torch.float32, True, 2e-4),
     ]
     record = None
     for name, b, h, s, d, dtype, layout, tol in cases:
         x = rwkv6_inputs(b, h, s, d, dtype, layout)
+        if "decays" in name:      # alternate steps at the two extremes
+            x[3][:, :, 0::2] = 1e-30
+            x[3][:, :, 1::2] = 1.0
         y, s_last = rw.rwkv6_scan(*x)
         y_ref, s_ref = rwkv6_scan_ref(*x)
         torch.cuda.synchronize()
@@ -536,25 +595,42 @@ def check_rwkv6_scan():
             raise SystemExit(f"rwkv6_scan disagrees with its plain version "
                              f"on {name}: {err_y:.3e}, {err_s:.3e}")
         if record is None:
-            ms = cuda_ms([lambda: rw.rwkv6_scan(*x)])
-            plain_ms = cuda_ms([lambda: rwkv6_scan_ref(*x)], reps=3)
-            esz = x[0].element_size()
-            nbytes = 5 * b * h * s * d * esz + 2 * b * h * d * d * 4
-            bound_ms, bound_by = scan_bound(nbytes, 4 * b * h * s * d * d)
-            record = {"name": "rwkv6_scan", "route": "cuda",
-                      "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
-                      "replaces": "src/repro/kernels/rwkv6_scan.py:53",
-                      "max_abs_err": max(err_y, err_s), "ms": ms,
-                      "kernel_ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": None,
-                      "shape": {"b": b, "h": h, "s": s, "d": d,
-                                "dtype": str(dtype)}}
-            print(f"rwkv6_scan timing at {name}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}); no single PyTorch call computes it")
+            record = {"max_abs_err": max(err_y, err_s)}
         del x
+    times = time_rwkv6_points()
+    record.update({"name": "rwkv6_scan", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                   "replaces": "src/repro/kernels/rwkv6_scan.py:53",
+                   **times["main"], "s1": times["s1"]})
     return record
+
+
+RWKV_POINTS = {"main": (4, 32, 1024, 64),   # b, h, s, d: rwkv6-1.6b's
+               "s1": (4, 32, 1, 64)}        # forward and its decode step
+
+
+def time_rwkv6_points():
+    """Kernel and plain version (ms) and the bound at rwkv6-1.6b's forward
+    shape and its S = 1 decode step, fp32 in the model layout (the kernel
+    timed L2-warm, as the model's just-written projections)."""
+    out = {}
+    for key, (b, h, s, d) in RWKV_POINTS.items():
+        x = rwkv6_inputs(b, h, s, d, torch.float32, True)
+        ms = cuda_ms([lambda: rw.rwkv6_scan(*x)])
+        plain_ms = cuda_ms([lambda: rwkv6_scan_ref(*x)], reps=3)
+        nbytes = 5 * b * h * s * d * 4 + 2 * b * h * d * d * 4
+        bound_ms, bound_by = scan_bound(nbytes, 4 * b * h * s * d * d)
+        out[key] = {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None,
+                    "shape": {"b": b, "h": h, "s": s, "d": d,
+                              "dtype": str(torch.float32)}}
+        print(f"rwkv6_scan timing at B={b} H={h} S={s} D={d} (fp32, model "
+              f"layout): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); no single PyTorch call "
+              f"computes it")
+        del x
+    return out
 
 
 def check_rglru_scan():
@@ -1291,6 +1367,26 @@ def check_fp32_decode_path(res, n_new=16):
                          f"check: {worst:.3e} > {TEACHER_TOL:g}")
 
 
+def device_line():
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
+def kernel_times() -> int:
+    """Build and time flash_decode and rwkv6_scan of the imported tree at
+    this script's timing points."""
+    t0 = time.perf_counter()
+    _build.build(("flash_decode", "rwkv6_scan"))
+    print(f"built flash_decode, rwkv6_scan from {TREE} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    times = {"flash_decode": time_decode_points(),
+             "rwkv6_scan": time_rwkv6_points()}
+    print(json.dumps({"kernel_times": times, "tree": str(TREE)}))
+    print(device_line())
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1303,6 +1399,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--kernel-times" in sys.argv:
+        return kernel_times()
 
     t0 = time.perf_counter()
     libs = _build.build(KERNELS)
@@ -1312,10 +1410,17 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  {name} ptxas: {line.strip()}")
-    # the redesigned kernels run on the tensor cores: every bf16
-    # flash_attention and every matmul_qi8 instantiation holds mma.sync
+    # the two latest redesigns must not spill
+    for name in ("flash_decode", "rwkv6_scan"):
+        log = libs[name].with_suffix(".log").read_text()
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+        if not spills or max(spills) > 0:
+            raise SystemExit(f"{name}: ptxas reports spills {spills}")
+    # the tensor-core kernels: every bf16 flash_attention and
+    # flash_decode and every matmul_qi8 instantiation holds mma.sync
     tensor_ops = {}
     for name, op, kernel in (("flash_attention", "HMMA", "bf16_kernel"),
+                             ("flash_decode", "HMMA", "bf16_kernel"),
                              ("matmul_qi8", "IMMA", "matmul_qi8_kernel")):
         counts = tensor_core_ops(libs[name], op, kernel)
         print(f"{name} SASS: {op} per {kernel} instantiation "
@@ -1408,9 +1513,7 @@ def main() -> int:
         if rec["name"] in tensor_ops:
             rec["sass"] = tensor_ops[rec["name"]]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(device_line())
     return 0
 
 

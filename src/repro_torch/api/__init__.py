@@ -9,9 +9,12 @@
     dep = deploy(spec, graph=g, stage_fn_builder=fns_for)
 
 A copy of the reference package's front door, with the decode tier's
-``decode_placement`` strategy registered.  Per-depth costs are
-``"analytic"`` only; the trace-backed cost sources and the fleet tier are
-not ported yet.
+``decode_placement`` strategy registered.  Per-depth costs come from
+``DeploymentSpec.cost_source``: ``"analytic"`` (the default),
+``"trace:<path>"`` (measured per-depth times of a
+:class:`~repro_torch.profiling.ProfileTrace`) or ``"calibrated:<path>"``
+(the analytic model fitted to such a trace), as in the reference.  The
+fleet tier is not ported.
 """
 from .spec import DeploymentSpec, resolve_model_graph
 from .report import PlanReport

@@ -26,13 +26,14 @@ decode prices the same level very differently:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Tuple
 
 import torch
 
 from ..core.edge_tpu_model import EdgeTPUSpec
 from ..core.graph import LayerGraph
 from ..models.lm import LMConfig
+from ..profiling.sources import CostSource, DepthCosts
 
 ACT_BYTES = 2          # bf16 activations between decode stages
 
@@ -41,22 +42,6 @@ def _itemsize(dtype: torch.dtype) -> int:
     """Bytes per element of a config's :class:`torch.dtype` (4 for the
     fp32 smoke config, 2 for bf16), as the reference's numpy itemsize."""
     return dtype.itemsize
-
-
-@dataclasses.dataclass(frozen=True)
-class DepthCosts:
-    """Per-depth arrays a :class:`SegmentCostEngine` materializes once (a
-    copy of the reference's ``profiling/sources.py`` ``DepthCosts``; the
-    profiler is not ported yet).  ``state_bytes``: per-depth per-sequence
-    decode state (KV cache) bytes."""
-
-    params: Sequence[int]
-    macs: Sequence[int]
-    weight_bytes: Sequence[int]
-    cut_bytes: Sequence[int]
-    time_s: Optional[Sequence[float]] = None
-    weight_load_s: Optional[Sequence[float]] = None
-    state_bytes: Optional[Sequence[int]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +136,7 @@ def decode_depth_costs(cfg: LMConfig, graph: LayerGraph,
     return macs, state
 
 
-class DecodeCostSource:
+class DecodeCostSource(CostSource):
     """Price a graph at a decode operating point.
 
     Rides the engine's measured-mode seam: ``time_s[d]`` is the weight

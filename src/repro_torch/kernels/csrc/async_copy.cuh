@@ -1,8 +1,8 @@
-// Shared-memory staging shared by the tensor-core kernels of this
-// directory (flash_attention's bf16 route, matmul_qi8): 16-byte cp.async
-// copies with zero fill, their commit and wait, and ldmatrix.  _build.py
-// hashes this header into each library's name, so an edit here rebuilds
-// every kernel.
+// Shared-memory staging shared by the kernels of this directory
+// (flash_attention's and flash_decode's bf16 routes, matmul_qi8,
+// rwkv6_scan's chunks): 16-byte cp.async copies with zero fill, their
+// commit and wait, and ldmatrix.  _build.py hashes this header into each
+// library's name, so an edit here rebuilds every kernel.
 #pragma once
 #include <stdint.h>
 

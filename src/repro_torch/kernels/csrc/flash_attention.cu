@@ -68,6 +68,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -254,21 +255,6 @@ cudaError_t launch_f32(const Args& a, int b, int hq, cudaStream_t stream) {
 // ---------------------------------------------------------------- bf16 --
 
 using bf16 = __nv_bfloat16;
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // rows [r0, r0 + ROWS) of a (rows, D) bf16 matrix with row stride `ld`
 // (elements) -> shared (ROWS, D + 8) by 16-byte cp.async; rows at or past

@@ -18,45 +18,68 @@
 // Bound at the decode path's shape (B=8, Hq=16, Hkv=8, D=128, bf16, every
 // slot ~1056 positions): the valid K/V rows are 8*8*1056*128*2*2 = 34.6 MB,
 // 10.3 us at 3.35 TB/s, against 4*D flops per (q head, position) = 69 MFLOP,
-// 0.07 us at 989 TFLOP/s.  So the work is bound by bytes: each K/V row must
-// be read from device memory once and only once, in wide loads, by enough
-// blocks in flight to fill the card.
+// 0.07 us at 989 TFLOP/s.  So the work is bound by bytes: each valid K/V
+// row must be read from device memory once per kv head, in wide loads, by
+// enough blocks in flight to fill the card.  (One call reads them in a few
+// microseconds, so ramp-up counts: chip_smoke.py times a plain torch.sum
+// over as many bytes beside the kernel, the reach of a single read pass.)
 //
-// Design: one block of 4 warps per (split of `chunk` positions, kv head,
-// batch row) serves all G = Hq / Hkv q heads of its kv head, so each K/V row
-// is read once per group (the TPU grid (B, Hq, T/bk) reads it once per q
-// head).  Splitting T (flash-decoding) gives B * Hkv * T / chunk blocks
-// (512 at the path's shape, not 64); blocks whose split starts past the
-// slot's length exit at once.  Inside a block each lane owns a 16-byte slice
-// of a cache row (LPR lanes per row, 32 / LPR rows per warp load); a warp
-// loads kUnroll rows per lane before it computes, which keeps 16 KB of
-// K/V in flight per block.  The q slices live in registers; a row's G
-// scores are reduced across its LPR lanes by warp shuffles; each lane keeps
-// the online-softmax state (max, denominator, its D-slice of the G
-// accumulators) of the rows it reads.  At the end the row groups of a warp
-// merge by shuffles, the warps through shared memory, and the block writes
-// the output (one split) or its partial state; a second kernel merges the
-// splits of each (batch row, q head).  The arithmetic is fp32 on CUDA cores
-// (about 0.25 flop per byte read: far below any compute limit).
-// A block serves at most 8 q heads: a larger group (recurrentgemma's MQA
-// layers, 16 q heads over 1 kv head) is cut into chunks of 8 along the
-// grid's kv-head axis, each chunk reading the K/V rows once (the static
-// shared merge buffer stays at 4 * 8 * D floats, 32 KB at D = 256).  A row
-// wider than 32 16-byte slices (fp32 at D = 256) gives a lane two slices
-// per row, and at D = 256 a lane loads 2 rows ahead instead of 4, which
-// keeps the q, accumulator and load registers of 8 heads under the limit.
+// The split plan (the wrapper's split_plan): the grid is (nsplit, kv head
+// x group chunk, batch row), nsplit chosen by the wrapper from the card's
+// SM count so that B * Hkv * nsplit fills the blocks the card holds at
+// once (two an SM below D 256, one at D 256) in one wave: a fifth split
+// at qwen3's shape put 56 blocks in a tail wave.  Each row cuts its own
+// valid length, not T, into nsplit splits of ceil(len / nsplit) rounded
+// up to the 16-key tile (split_length), so every split of a row carries
+// about the same work whatever its length; blocks whose split starts at
+// or past the row's length exit at once.  With nsplit > 1 each block
+// writes its partial (max, denominator, accumulator) to per-call scratch
+// and a second kernel merges the splits; a fused last-arriving-block
+// merge would need a counter per call, zeroed by a launch of its own, so
+// it saves no launch.
+//
+// bf16: tensor cores.  One block of 4 warps serves all G = Hq / Hkv q
+// heads of its kv head (up to 16: the M of mma.sync m16n8k16; a smaller
+// group is padded with zero rows that are never stored; a larger one is
+// cut into chunks of 16 along the grid), so each K/V row is read once per
+// kv head.  The q rows are staged in shared memory once.  Warp w takes the
+// split's 16-key tiles w, w + 4, ... through its own 3-stage ring of
+// 16-byte cp.async copies (108 KB a block at D 128, 211 KB at D 256),
+// rows past the split's end zero-filled, so only __syncwarp orders a
+// stage.  S = Q K^T runs on
+// mma.sync (fp32 accumulate) with Q's A fragments and K's B fragments by
+// ldmatrix (K as stored is the "col" operand); the online softmax (exp2,
+// scale * log2 e folded in) reduces a row over the 4 lanes that hold it;
+// P, rounded to bf16, stays in registers as the A operand of O += P V,
+// whose B fragments come by ldmatrix.trans: flash_attention's fragment
+// scheme.  No per-row shuffle chain remains.  At the end the 4 warps'
+// states merge through shared memory (the ring's space).  The one
+// rounding the reference does not make is P to bf16 before P V.
+//
+// fp32: CUDA cores (tensor cores would mean TF32, a different function).
+// One block of 4 warps per (split, kv head, chunk of <= 8 q heads, row):
+// each lane owns a 16-byte slice of a cache row (LPR lanes per row), loads
+// kUnroll rows ahead, reduces a row's scores across its LPR lanes by
+// shuffles and keeps the online-softmax state of the rows it reads; the
+// row groups of a warp merge by shuffles, the warps through shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "convert.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 4;            // rows a lane loads before computing
+constexpr int kTile = 16;             // keys a bf16 warp tile; splits are
+                                      // multiples of it
+constexpr int kHeadsB = 16;           // q heads a bf16 block (the mma's M)
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Args {
   const void* q;
@@ -67,13 +90,13 @@ struct Args {
   float* part_ml;                     // (B, Hq, nsplit, 2): max, denominator
   const int* lens;                    // (B,) int32 on the device, or null
   int len;                            // the length of every row if !lens
-  int t, hq, group, chunk, nsplit;
-  int gchunks;                        // blocks (chunks of <= 8 q heads) per kv head
+  int t, hq, group, nsplit;
+  int gchunks;                        // blocks (chunks of q heads) per kv head
   float scale;
   long long qsb, qsh, ksb, ksh, kst, vsb, vsh, vst, osb, osh;
 };
 
-// 16 loaded bytes -> 16 / sizeof(T) floats
+// 16 loaded bytes -> 16 / sizeof(T) floats (the CUDA-core route: fp32)
 template <typename T>
 __device__ __forceinline__ void unpack(const uint4& x, float* f);
 template <>
@@ -83,21 +106,17 @@ __device__ __forceinline__ void unpack<float>(const uint4& x, float* f) {
   f[2] = __uint_as_float(x.z);
   f[3] = __uint_as_float(x.w);
 }
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& x,
-                                                      float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = __bfloat1622float2(h[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
-  }
-}
 
 __device__ __forceinline__ int row_length(const Args& a, int b) {
   const int len = a.lens != nullptr ? a.lens[b] : a.len;
   return min(max(len, 0), a.t);
+}
+
+// positions a split of a row of `len` valid positions covers: len cut into
+// nsplit, rounded up to the key tile (the wrapper's split_length)
+__device__ __forceinline__ int split_length(const Args& a, int len) {
+  const int c = (len + a.nsplit - 1) / a.nsplit;
+  return (c + kTile - 1) / kTile * kTile;
 }
 
 template <typename T, int D, int KG>
@@ -125,8 +144,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Args a) {
   const int b = blockIdx.z;
   const int g_n = min(KG, a.group - g0);          // q heads of this block
   const int len = row_length(a, b);
-  const int k_begin = split * a.chunk;
-  const int k_end = min(len, k_begin + a.chunk);
+  const int chunk = split_length(a, len);
+  const int k_begin = split * chunk;
+  const int k_end = min(len, k_begin + chunk);
   const bool final_out = a.nsplit == 1;
   if (!final_out && k_begin >= k_end) return;   // the combine skips it
 
@@ -285,12 +305,15 @@ __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Args a) {
 }
 
 // one block per (q head, batch row), one thread per output element: merges
-// the partial states of the splits that saw valid positions
+// the partial states of the splits that saw valid positions (maxima in
+// natural-log units)
 template <typename T>
 __global__ void flash_decode_combine_kernel(Args a, int d) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int n = (row_length(a, b) + a.chunk - 1) / a.chunk;
+  const int len = row_length(a, b);
+  const int chunk = split_length(a, len);
+  const int n = chunk > 0 ? (len + chunk - 1) / chunk : 0;
   const long long base = (static_cast<long long>(b) * a.hq + h) * a.nsplit;
   float mx = kNegInf;
   for (int i = 0; i < n; ++i) mx = fmaxf(mx, a.part_ml[2 * (base + i)]);
@@ -305,6 +328,294 @@ __global__ void flash_decode_combine_kernel(Args a, int d) {
         from_float<T>(num / fmaxf(den, 1e-30f));
   }
 }
+
+// ---------------------------------------------------------------- bf16 --
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct Bf16Plan {
+  static constexpr int kLd = D + 8;           // padded shared row (elements)
+  static constexpr int kStages = 3;           // a warp's ring
+  static constexpr int kQ = kHeadsB * kLd;    // the staged q rows
+  static constexpr int kStage = 2 * kTile * kLd;   // a K and a V tile
+  static constexpr int kRing = kStages * kStage;   // one warp's ring
+  // 108 KB at D 128 (two blocks an SM), 211 KB at D 256 (one)
+  static constexpr int kBytes = (kQ + kWarps * kRing) * sizeof(bf16);
+  static constexpr int kAld = D + 8;          // padded merge row (floats)
+  static_assert(kWarps * kHeadsB * kAld * sizeof(float) <= kBytes,
+                "the warps' merge fits in the ring's space");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_decode_bf16_kernel(Args a) {
+  using P = Bf16Plan<D>;
+  constexpr int kLd = P::kLd;
+  constexpr int kStages = P::kStages;
+  constexpr int kDB = D / 8;                  // 8-column output blocks
+  constexpr int kChunks = D / 8;              // 16-byte chunks a row
+  static_assert(kDB % 2 == 0, "ldmatrix.x4 pairs column blocks");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);          // (16, kLd)
+  __shared__ float s_m[kWarps][kHeadsB];
+  __shared__ float s_l[kWarps][kHeadsB];
+  __shared__ float s_c[kWarps][kHeadsB];     // a warp's weight in a row
+  __shared__ float s_mx[kHeadsB], s_den[kHeadsB];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int split = blockIdx.x;
+  const int hk = blockIdx.y / a.gchunks;
+  const int g0 = (blockIdx.y % a.gchunks) * kHeadsB;
+  const int b = blockIdx.z;
+  const int g_n = min(kHeadsB, a.group - g0);   // q heads of this block
+  const int len = row_length(a, b);
+  const int chunk = split_length(a, len);
+  const int k_begin = split * chunk;
+  const int k_end = min(len, k_begin + chunk);
+  const bool final_out = a.nsplit == 1;
+  if (!final_out && k_begin >= k_end) return;   // the combine skips it
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile
+                                      : 0;
+  // this warp's tiles: warp, warp + kWarps, ...
+  const int my_tiles = n_tiles > warp ? (n_tiles - warp + kWarps - 1) / kWarps
+                                      : 0;
+  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.ksb + hk * a.ksh;
+  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.vsb + hk * a.vsh;
+  bf16* ring = qs + P::kQ + warp * P::kRing;
+
+  // the warp's i-th tile -> stage i % kStages; rows at or past k_end are
+  // zero-filled (a V row of an unwritten cache slot may hold anything)
+  auto load_tile = [&](int i) {
+    if (i < my_tiles) {
+      const int k0 = k_begin + (warp + i * kWarps) * kTile;
+      bf16* kd = ring + (i % kStages) * P::kStage;
+      bf16* vd = kd + kTile * kLd;
+#pragma unroll
+      for (int c = lane; c < kTile * kChunks; c += 32) {
+        const int r = c / kChunks, col = (c % kChunks) * 8;
+        const int key = k0 + r;
+        const bool ok = key < k_end;
+        cp_async16(kd + r * kLd + col, ok ? kg + key * a.kst + col : kg,
+                   ok ? 16 : 0);
+        cp_async16(vd + r * kLd + col, ok ? vg + key * a.vst + col : vg,
+                   ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_tile(i);
+
+  // q rows of the block's heads, rows past the group zero: all loads in
+  // flight before the first store, so the block waits one round trip
+  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.qsb +
+                   (hk * a.group + g0) * a.qsh;
+  constexpr int kQPer = kHeadsB * D / kThreads;
+  bf16 qv[kQPer];
+#pragma unroll
+  for (int j = 0; j < kQPer; ++j) {
+    const int i = threadIdx.x + j * kThreads, r = i / D;
+    qv[j] = r < g_n ? qg[r * a.qsh + i % D] : __float2bfloat16(0.f);
+  }
+#pragma unroll
+  for (int j = 0; j < kQPer; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    qs[i / D * kLd + i % D] = qv[j];
+  }
+  __syncthreads();
+
+  float acc[kDB][4];
+#pragma unroll
+  for (int db = 0; db < kDB; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[db][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};            // this lane's share of the row sums
+  const float scale_log2 = a.scale * 1.4426950408889634f;
+  // ldmatrix row addresses, fixed per lane
+  const bf16* q_lane =
+      qs + ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd + (lane >> 4) * 8;
+  const int k_lane =
+      ((lane & 7) + (lane >> 4) * 8) * kLd + ((lane >> 3) & 1) * 8;
+  const int v_lane =
+      ((lane & 7) + ((lane >> 3) & 1) * 8) * kLd + (lane >> 4) * 8;
+
+  for (int i = 0; i < my_tiles; ++i) {
+    cp_async_wait<kStages - 2>();     // this lane's copies of tile i
+    // every lane's copies of tile i have landed and every lane is done
+    // with tile i - 1, whose stage now takes tile i + kStages - 1
+    __syncwarp();
+    load_tile(i + kStages - 1);
+    const bf16* kt = ring + (i % kStages) * P::kStage;
+    const bf16* vt = kt + kTile * kLd;
+    const int k0 = k_begin + (warp + i * kWarps) * kTile;
+
+    // S = Q K^T: 16 heads x 16 keys
+    float s[2][4];
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4], kb[4];
+      ldmatrix_x4(qa, q_lane + kk * 16);
+      ldmatrix_x4(kb, kt + k_lane + kk * 16);
+      mma_bf16(s[0], qa, kb[0], kb[1]);
+      mma_bf16(s[1], qa, kb[2], kb[3]);
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nb][e] *= scale_log2;
+        if (k0 + nb * 8 + tig * 2 + (e & 1) >= k_end) s[nb][e] = kNegInf;
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // row g + 8 r: elements e = 2 r, 2 r + 1 of both key blocks, over
+      // the 4 lanes 4 g .. 4 g + 3
+      float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                       fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[nb][e] - m[e >> 1]);
+        s[nb][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int db = 0; db < kDB; ++db) {
+      acc[db][0] *= alpha[0];
+      acc[db][1] *= alpha[0];
+      acc[db][2] *= alpha[1];
+      acc[db][3] *= alpha[1];
+    }
+    // O += P V: P's accumulator fragments are the A fragments, in bf16
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
+                            pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]),
+                            pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int db = 0; db < kDB; db += 2) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, vt + v_lane + db * 8);
+      mma_bf16(acc[db], pa, vb[0], vb[1]);
+      mma_bf16(acc[db + 1], pa, vb[2], vb[3]);
+    }
+  }
+  cp_async_wait<0>();                 // no copy outlives the ring
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  // merge the warps through shared memory (the ring's space; rows padded
+  // so a half-warp's 8-byte stores hit distinct banks); a warp that saw
+  // no tile holds m = -1e30, l = 0 and weighs 0
+  __syncthreads();
+  constexpr int kAld = P::kAld;
+  float* s_acc = reinterpret_cast<float*>(smem_raw);   // (kWarps, 16, kAld)
+  float* mine = s_acc + warp * kHeadsB * kAld + g * kAld + tig * 2;
+#pragma unroll
+  for (int db = 0; db < kDB; ++db) {
+    *reinterpret_cast<float2*>(mine + db * 8) =
+        make_float2(acc[db][0], acc[db][1]);
+    *reinterpret_cast<float2*>(mine + 8 * kAld + db * 8) =
+        make_float2(acc[db][2], acc[db][3]);
+  }
+  if (tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      s_m[warp][g + 8 * r] = m[r];
+      s_l[warp][g + 8 * r] = l[r];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < kHeadsB) {        // each row's weights, once
+    const int gi = threadIdx.x;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w][gi]);
+    float den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = exp2f(s_m[w][gi] - mx);
+      s_c[w][gi] = c;
+      den += s_l[w][gi] * c;
+    }
+    s_mx[gi] = mx;
+    s_den[gi] = den;
+  }
+  __syncthreads();
+#pragma unroll 8
+  for (int j = 0; j < kHeadsB * D / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const int gi = i / D, d = i % D;
+    if (gi >= g_n) break;             // rows are in order: the rest too
+    float num = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      num += s_acc[(w * kHeadsB + gi) * kAld + d] * s_c[w][gi];
+    const int h = hk * a.group + g0 + gi;
+    if (final_out) {
+      static_cast<bf16*>(a.o)[b * a.osb + h * a.osh + d] =
+          __float2bfloat16(num / fmaxf(s_den[gi], 1e-30f));
+    } else {
+      const long long idx = (static_cast<long long>(b) * a.hq + h) *
+                                a.nsplit + split;
+      a.part_acc[idx * D + d] = num;
+      if (d == 0) {
+        a.part_ml[2 * idx] = s_mx[gi] * kLn2;   // log2 -> natural units
+        a.part_ml[2 * idx + 1] = s_den[gi];
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_bf16(const Args& a, int b, int hkv, cudaStream_t stream) {
+  constexpr int smem = Bf16Plan<D>::kBytes;
+  auto kernel = flash_decode_bf16_kernel<D>;
+  static bool configured = false;     // set once; a repeat is harmless
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  kernel<<<dim3(a.nsplit, hkv * a.gchunks, b), kThreads, smem, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.nsplit == 1) return err;
+  flash_decode_combine_kernel<bf16><<<dim3(a.hq, b), D, 0, stream>>>(a, D);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bf16(const Args& a, int b, int hkv, int d,
+                          cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch_bf16<16>(a, b, hkv, stream);
+    case 32: return launch_bf16<32>(a, b, hkv, stream);
+    case 64: return launch_bf16<64>(a, b, hkv, stream);
+    case 128: return launch_bf16<128>(a, b, hkv, stream);
+    case 256: return launch_bf16<256>(a, b, hkv, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ----------------------------------------------------------- fp32 launch --
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, int b, int hkv, cudaStream_t stream) {
@@ -338,8 +649,9 @@ cudaError_t dispatch_d(const Args& a, int b, int hkv, int d,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  lens: (B,) int32 device lengths, or
-// null to use `len` for every row.  part_acc / part_ml: fp32 scratch of
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  lens:
+// (B,) int32 device lengths, or null to use `len` for every row.  nsplit:
+// the splits of every row (the wrapper's split_plan).  part_acc / part_ml: fp32 scratch of
 // B * Hq * nsplit * D and B * Hq * nsplit * 2 floats (unused, may be null,
 // when nsplit == 1).  strides: 10 element strides, the (batch, head) strides
 // of q, the (batch, head, seq) strides of k and of v, and the (batch, head)
@@ -348,7 +660,7 @@ cudaError_t dispatch_d(const Args& a, int b, int hkv, int d,
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 void* o, float* part_acc, float* part_ml,
                                 const int* lens, int len, int dtype, int b,
-                                int hq, int hkv, int t, int d, int chunk,
+                                int hq, int hkv, int t, int d,
                                 int nsplit, const long long* strides,
                                 float scale, void* stream) {
   Args a;
@@ -363,8 +675,9 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   a.t = t;
   a.hq = hq;
   a.group = hq / hkv;
-  a.gchunks = (a.group + 7) / 8;
-  a.chunk = chunk;
+  // q heads a block serves: 16 on the bf16 route, 8 on the fp32 one
+  const int heads = dtype == 1 ? kHeadsB : 8;
+  a.gchunks = (a.group + heads - 1) / heads;
   a.nsplit = nsplit;
   a.scale = scale;
   a.qsb = strides[0];
@@ -378,9 +691,8 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   a.osb = strides[8];
   a.osh = strides[9];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? dispatch_d<float>(a, b, hkv, d, st)
-                    : dtype == 1
-                        ? dispatch_d<__nv_bfloat16>(a, b, hkv, d, st)
-                        : cudaErrorInvalidValue;
+  cudaError_t err = dtype == 0   ? dispatch_d<float>(a, b, hkv, d, st)
+                    : dtype == 1 ? dispatch_bf16(a, b, hkv, d, st)
+                                 : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -13,9 +13,15 @@ The kernel takes element strides for the batch, head and sequence axes, so
 the caches may be ``(B, Hkv, T, D)`` views of the decode engine's
 ``(slots, T, Hkv, D)`` layer caches, read in place; the head dim must be
 contiguous and every cache row 16-byte aligned (it is loaded 16 bytes a
-lane).  A block serves up to 8 q heads of one kv head; a larger GQA group
-is cut into chunks of 8 along the grid.  A ``(B,)`` length tensor is read by the kernel from device memory,
-so nothing on the host waits for it.
+lane).  bf16 runs on the tensor cores, one block serving up to 16 q heads
+of one kv head; fp32 on CUDA cores, up to 8.  A ``(B,)`` length tensor is
+read by the kernel from device memory, so nothing on the host waits for
+it.
+
+The split plan is host arithmetic, pinned by the CPU tests:
+:func:`split_plan` picks the number of splits of every row from the card's
+SM count, and :func:`split_length` (computed again in the kernel) cuts a
+row's valid length, not T, into that many splits of whole key tiles.
 """
 from __future__ import annotations
 
@@ -28,8 +34,34 @@ from . import _build
 from .ref import decode_lengths, flash_decode_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-CHUNK = 256                   # cache positions per block (one split)
+KEY_TILE = 16                 # keys a warp's tile; splits are multiples
+WARPS = 4                     # warps a block, each on its own tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def split_plan(b: int, hkv: int, t: int, d: int, n_sm: int) -> int:
+    """Splits of every row: as many as fill the card's resident blocks in
+    one wave (two blocks an SM below head dim 256, whose bf16 block holds
+    211 KB of shared memory, one above), but no more than leave each split
+    one key tile per warp of a cache of ``t`` positions.  A block more
+    than the card holds at once would run in a tail wave of its own."""
+    resident = n_sm * (1 if d >= 256 else 2)
+    fill = resident // max(1, b * hkv)
+    return max(1, min(fill, t // (KEY_TILE * WARPS)))
+
+
+def split_length(length: int, nsplit: int) -> int:
+    """Positions each split of a row of ``length`` valid positions covers:
+    ``length / nsplit`` rounded up to whole key tiles, so split ``i`` covers
+    ``[i * n, min((i + 1) * n, length))`` and every split of a row carries
+    about the same work.  The kernel computes the same per row."""
+    per = -(-length // nsplit)
+    return -(-per // KEY_TILE) * KEY_TILE
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -85,7 +117,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     else:
         lens = decode_lengths(cache_len, b, q.device).contiguous()
         len_ptr, scalar = lens.data_ptr(), 0
-    nsplit = max(1, -(-t // CHUNK))
+    nsplit = split_plan(b, hkv, t, d, _sm_count(q.device.index))
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     part_acc = part_ml = None
     if nsplit > 1:
@@ -104,7 +136,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  None if part_acc is None else part_acc.data_ptr(),
                  None if part_ml is None else part_ml.data_ptr(),
                  len_ptr, scalar, _DTYPES[q.dtype], b, hq, hkv, t, d,
-                 CHUNK, nsplit, strides, d ** -0.5, stream)
+                 nsplit, strides, d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
@@ -115,7 +147,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 @functools.cache
 def _kernel():
     fn = _build.load("flash_decode").flash_decode_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int

@@ -5,15 +5,18 @@
 ``S`` (D x D), ``y_t = r_t (S + diag(u) k_t^T v_t)`` and ``S <- diag(w_t) S
 + k_t^T v_t``.  r/k/v/w ``(B, H, S, D)`` (fp32 or bf16, one dtype), u
 ``(H, D)``, s0 ``(B, H, D, D)`` -> (y ``(B, H, S, D)`` in r's dtype, s_last
-fp32).  There is no chunk: any S, and S = 1 is the decode step.  CUDA
-tensors launch the hand-written kernel; CPU tensors take the plain version
+fp32).  Any S, and S = 1 is the decode step (the kernel stages chunks of
+64 steps but takes a ragged last one).  CUDA tensors launch the
+hand-written kernel; CPU tensors take the plain version
 :func:`~repro_torch.kernels.ref.rwkv6_scan_ref`.  Any other case raises.
 
 The kernel takes element strides for the batch, head and sequence axes of
 r/k/v/w and of the output, so r/k/v/w may be ``(B, H, S, D)`` views of the
 model's ``(B, S, H, D)`` projections; ``out`` (optional) is where y goes,
 e.g. the ``(B, H, S, D)`` view of a ``(B, S, H, D)`` buffer, so the caller
-reshapes it to ``(B, S, H * D)`` for free.
+reshapes it to ``(B, S, H * D)`` for free.  The kernel copies r/k/v/w rows
+16 bytes at a time, so their base pointers and strides must be 16-byte
+aligned (a contiguous projection's are).
 """
 from __future__ import annotations
 
@@ -75,6 +78,11 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(x.stride(-1) != 1 for x in (r, k, v, w, out)):
         raise ValueError("rwkv6_scan needs a contiguous head dim (stride 1 "
                          "on the last axis of r/k/v/w and out)")
+    size = r.element_size()
+    if any(x.data_ptr() % 16 or any(st * size % 16 for st in x.stride()[:3])
+           for x in (r, k, v, w)):
+        raise ValueError("rwkv6_scan needs 16-byte aligned r/k/v/w rows "
+                         "(base pointer and batch/head/seq strides)")
     u32 = u.float().contiguous()
     s0_32 = s0.float().contiguous()
     s_last = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)

@@ -240,24 +240,26 @@ def attn_block_decode(cfg: LMConfig, p: Params, x: torch.Tensor,
     The new token goes to slot (len - 1) mod T and attention covers
     min(len, T) rows; softmax over a set of keys does not depend on their
     order and RoPE is applied before the write, so flash-decode over those
-    rows computes the ring exactly."""
+    rows computes the ring exactly.  A caller-built linear cache of T rows
+    above the window takes the new token at (len - 1) mod T, as the
+    reference does, and attends positions [len - window, len), the
+    reference's ``decode_attention(window=)`` mask: flash-decode reads
+    that contiguous run of rows as a view."""
     b = x.shape[0]
+    lo = 0                                          # first row attended
     if window is not None:
         t = k_cache.shape[1]
-        if t > window:
-            raise NotImplementedError(
-                f"{cfg.name}: a windowed cache of {t} rows above the window "
-                f"{window} is not ported (init_cache makes min(max_len, "
-                f"window) rows)")
         write = (slice(None), (cache_len - 1) % t)
-        cache_len = min(cache_len, t)
+        if t > window:
+            lo = min(max(cache_len - window, 0), t)
+        cache_len = min(cache_len, t) - lo
     q, k, v = _qkv(cfg, p, x)                       # S == 1
     q = A.apply_rope(q, positions, cfg.rope_theta)
     k = A.apply_rope(k, positions, cfg.rope_theta)
     k_cache[write] = k[write[0], 0]
     v_cache[write] = v[write[0], 0]
-    out = flash_decode(q[:, 0], k_cache.transpose(1, 2),
-                       v_cache.transpose(1, 2), cache_len)
+    out = flash_decode(q[:, 0], k_cache[:, lo:].transpose(1, 2),
+                       v_cache[:, lo:].transpose(1, 2), cache_len)
     return out.reshape(b, 1, cfg.q_dim) @ p["wo"]
 
 

@@ -166,6 +166,14 @@ def test_serve_smoke_on_card(sm90):
     (2, 4, 4, 256, 64, 1000, "float32"),            # length past T
     (2, 16, 1, 64, 256, [64, 33], "bfloat16"),      # recurrentgemma ring
     (3, 16, 1, 600, 256, [1, 599, 300], "float32"),  # group 16, D 256
+    # the tensor-core route's split plan: lengths of 0 and ending inside
+    # a split, at recurrentgemma's decode loop, its full window and qwen3's
+    (16, 16, 1, 64, 256, [0, 1, 15, 16, 17, 33, 63, 64] * 2, "bfloat16"),
+    (16, 16, 1, 2048, 256, [2048] * 8 + [0, 1, 100, 127, 129, 1000, 2047,
+                                         2048], "bfloat16"),
+    (8, 16, 8, 2048, 128, [0, 200, 223, 225, 500, 1056, 1057, 1999],
+     "bfloat16"),
+    (2, 40, 2, 300, 64, [300, 17], "bfloat16"),     # group 20: two blocks
 ])
 def test_flash_decode_matches_plain(sm90, b, hq, hkv, t, d, lens, dtype):
     g = torch.Generator(sm90).manual_seed(0)
@@ -250,6 +258,37 @@ def test_rwkv6_scan_matches_plain(sm90, b, h, s, d, dtype, layout):
     tol = 2e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(s_last, s_ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("s", [1, 31, 1024])
+def test_rwkv6_scan_extreme_decays_match_plain(sm90, s):
+    """Decays at both ends of (0, 1], 1e-30 and 1, on alternate steps and
+    channels: the step recurrence is exact for any w."""
+    b, h, d = 4, 32, 64
+    g = torch.Generator(sm90).manual_seed(3)
+
+    def x(scale=1.0):
+        return (scale * torch.randn(b, s, h, d, generator=g, device=sm90)
+                ).transpose(1, 2)
+
+    w = torch.ones(b, s, h, d, device=sm90)
+    w[:, 0::2, :, 0::2] = 1e-30
+    w[:, 1::2, :, 1::2] = 1e-30
+    args = (x(), x(0.2), x(), w.transpose(1, 2),
+            0.2 * torch.randn(h, d, generator=g, device=sm90),
+            0.1 * torch.randn(b, h, d, d, generator=g, device=sm90))
+    y, s_last = rw.rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    y_ref, s_ref = rwkv6_scan_ref(*args)
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s_last, s_ref, rtol=2e-4, atol=2e-4)
+
+
+def test_rwkv6_scan_rejects_unaligned_rows(sm90):
+    r = torch.randn(1, 2, 8, 17, device=sm90)[..., :16]    # rows 68 B apart
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rw.rwkv6_scan(r, r, r, r, torch.zeros(2, 16, device=sm90),
+                      torch.zeros(1, 2, 16, 16, device=sm90))
 
 
 @pytest.mark.parametrize("b,s,r,dtype", [

@@ -96,6 +96,36 @@ def test_decode_costs_equal_the_reference(smoke):
             jcfg, jlm_graph.lm_layer_graph(jcfg, seq_len=64), point_j))
 
 
+def test_decode_cost_source_point_queries_equal_the_reference():
+    """``DecodeCostSource`` is a ``CostSource``: its per-depth point
+    queries (derived by the base class from ``materialize``) equal the
+    reference's on qwen3-1.7b smoke at ``DecodeOperatingPoint(2, 64)``."""
+    from repro.profiling.sources import CostSource as JCostSource
+    from repro_torch.profiling.sources import CostSource, DepthCosts
+    jcfg = jconfigs.get(ARCH).smoke_config()
+    tcfg = tconfigs.get(ARCH).smoke_config()
+    jg = jlm_graph.lm_layer_graph(jcfg, seq_len=64)
+    tg = tlm_graph.lm_layer_graph(tcfg, seq_len=64)
+    jsrc = jcosting.DecodeCostSource(jcfg, jcosting.DecodeOperatingPoint(2, 64))
+    tsrc = tcosting.DecodeCostSource(tcfg, tcosting.DecodeOperatingPoint(2, 64))
+    assert isinstance(jsrc, JCostSource) and isinstance(tsrc, CostSource)
+    jspec, tspec = JEdgeTPUSpec(), TEdgeTPUSpec()
+    jdc, tdc = jsrc.materialize(jg, jspec), tsrc.materialize(tg, tspec)
+    assert type(tdc) is DepthCosts
+    assert dataclasses.asdict(tdc) == dataclasses.asdict(jdc)
+    assert tsrc.layer_time_s(1, tg, tspec) == pytest.approx(4.9410549e-05,
+                                                           rel=1e-7)
+    depth = len(tg.levels())
+    for d in range(depth):
+        assert tsrc.layer_time_s(d, tg, tspec) == jsrc.layer_time_s(d, jg,
+                                                                    jspec)
+        assert tsrc.layer_params(d, tg) == jsrc.layer_params(d, jg)
+        assert (tsrc.layer_weight_bytes(d, tg)
+                == jsrc.layer_weight_bytes(d, jg))
+        assert tsrc.activation_bytes(d, tg) == jsrc.activation_bytes(d, jg)
+    assert tsrc.describe() == jsrc.describe()
+
+
 # ---------------------------------------------------------------------------
 # decode_placement plans
 # ---------------------------------------------------------------------------

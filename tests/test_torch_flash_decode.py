@@ -177,3 +177,98 @@ def test_decode_attention_matches_reference_per_slot():
                             torch.from_numpy(ctx))
     np.testing.assert_allclose(_np32(kern), np.asarray(expect)[:, 0],
                                rtol=2e-6, atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split plan and its split-then-merge, in plain arithmetic
+# ---------------------------------------------------------------------------
+N_SM = 132                    # an H100's SMs
+
+
+@pytest.mark.parametrize("b,hkv,t,d", [
+    (8, 8, 2048, 128),        # qwen3 decode
+    (16, 1, 64, 256),         # recurrentgemma's decode loop
+    (16, 1, 2048, 256),       # recurrentgemma's full window
+    (1, 1, 5000, 64), (3, 2, 300, 128), (64, 8, 4096, 128), (2, 4, 17, 16),
+    (1, 1, 1, 32),
+])
+def test_split_plan_covers_every_position_once(b, hkv, t, d):
+    nsplit = fd.split_plan(b, hkv, t, d, N_SM)
+    assert nsplit >= 1
+    # the blocks fill the card's resident slots in one wave where T
+    # allows, and never spill into a second one
+    resident = N_SM * (1 if d >= 256 else 2)
+    if nsplit > 1:
+        assert b * hkv * nsplit <= resident
+    if t >= fd.KEY_TILE * fd.WARPS * (resident // (b * hkv)):
+        assert b * hkv * nsplit > resident - b * hkv
+    lengths = range(t + 1) if t <= 2048 else range(0, t + 1, 7)
+    for length in lengths:
+        n = fd.split_length(length, nsplit)
+        assert n % fd.KEY_TILE == 0
+        covered = [p for i in range(nsplit)
+                   for p in range(i * n, min((i + 1) * n, length))]
+        assert covered == list(range(length))
+
+
+def test_split_length_balances_a_row():
+    # qwen3's timed point: 1056 valid positions of 2048 over 4 splits
+    assert fd.split_plan(8, 8, 2048, 128, N_SM) == 4
+    assert fd.split_length(1056, 4) == 272         # 3 x 272 + 240
+    assert fd.split_length(0, 4) == 0
+    assert fd.split_plan(16, 1, 2048, 256, N_SM) == 8
+    assert fd.split_plan(16, 1, 64, 256, N_SM) == 1   # one block's tiles
+
+
+def _split_merge(q, k, v, lens, nsplit):
+    """The kernel's two passes in plain fp32: each split's (max,
+    denominator, accumulator) over its positions, then the merge of the
+    splits that saw a position; a row of length 0 is zeros."""
+    b, hq, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    group = hq // hkv
+    out = torch.zeros(b, hq, d)
+    for row in range(b):
+        length = min(max(int(lens[row]), 0), t)
+        n = fd.split_length(length, nsplit)
+        parts = []
+        for i in range(nsplit):
+            lo, hi = i * n, min((i + 1) * n, length)
+            if lo >= hi:
+                continue
+            for h in range(hq):
+                kh, vh = k[row, h // group, lo:hi], v[row, h // group, lo:hi]
+                s = (kh.float() @ q[row, h].float()) * d ** -0.5
+                m = s.max()
+                p = torch.exp(s - m)
+                parts.append((h, m, p.sum(), p @ vh.float()))
+        for h in range(hq):
+            mine = [(m, l, acc) for hh, m, l, acc in parts if hh == h]
+            if not mine:
+                continue
+            mx = max(m for m, _, _ in mine)
+            den = sum(l * torch.exp(m - mx) for m, l, _ in mine)
+            num = sum(acc * torch.exp(m - mx) for m, _, acc in mine)
+            out[row, h] = num / max(float(den), 1e-30)
+    return out
+
+
+@pytest.mark.parametrize("group", [1, 2, 8, 16])
+def test_split_merge_matches_plain_and_pallas_interpret(group):
+    """Lengths of 0, ending inside a split, on a split's edge and past T,
+    through the split plan of a small batch (several splits a row)."""
+    b, hkv, t, d = 6, 2, 256, 32
+    lens = [0, 1, 63, 64, 150, 1000]
+    jx, tx = _inputs(10 + group, b, group * hkv, hkv, t, d)
+    nsplit = fd.split_plan(b, hkv, t, d, N_SM)
+    assert nsplit == 4
+    got = _split_merge(*tx, lens, nsplit)
+    np.testing.assert_allclose(
+        got.numpy(), _np32(flash_decode_ref(*tx, torch.tensor(lens))),
+        rtol=2e-6, atol=2e-6)
+    for row, n in enumerate(lens):
+        kernel = pallas_flash_decode(*(x[row:row + 1] for x in jx),
+                                     jnp.asarray(min(n, t), jnp.int32),
+                                     bk=64, interpret=True)
+        np.testing.assert_allclose(got[row:row + 1].numpy(),
+                                   np.asarray(kernel), rtol=2e-6, atol=2e-6)

@@ -166,6 +166,34 @@ def _rec(jparams, tparams):
             tparams["tail"][1])
 
 
+@pytest.mark.parametrize("n", [5, 16, 23, 32])
+def test_decode_on_a_linear_cache_above_the_window_matches_reference(
+        weights, n):
+    """A caller-built linear cache of 2 x window rows: the new token is
+    written at row n - 1 and attends the last ``window`` positions, as
+    the reference's ``attn_block_decode`` does."""
+    jcfg, tcfg, jparams, tparams = weights
+    window = tcfg.local_window
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(2, 1, tcfg.d_model)).astype(np.float32)
+    shape = (2, 2 * window, tcfg.n_kv_heads, tcfg.hd)
+    kc, vc = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    jp = jax.tree.map(lambda a: a[0], jparams["super"]["attn"]["attn"])
+    jout, jk, jv = jlm.attn_block_decode(
+        jcfg, jp, jnp.asarray(x), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(n), jnp.full((1, 1), n - 1), window=window)
+    tk, tv = _t(kc), _t(vc)
+    tout = tlm.attn_block_decode(
+        tcfg, tparams["super"][0]["attn"]["attn"], _t(x), tk, tv, n,
+        torch.full((1, 1), n - 1), window=window)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_converted_tree_matches_the_layer_pattern(weights):
     jcfg, tcfg, jparams, tparams = weights
     n_super, tail = trglru.n_super_and_tail(tcfg.n_layers, tcfg.attn_every)

@@ -76,6 +76,31 @@ def test_scan_matches_oracle_and_pallas_interpret(b, h, s, d, chunk):
                                    rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("s", [1, 31])
+@pytest.mark.parametrize("decay", ["tiny", "one", "both"])
+def test_scan_at_extreme_decays_matches_pallas_interpret(s, decay):
+    """Decays of 1e-30 and 1.0, the ends the kernel must take (it keeps the
+    step recurrence, exact for any w), at the decode step S = 1 and a
+    ragged S = 31, against the oracle and the Pallas kernel."""
+    r, k, v, w, u, s0 = _scan_inputs(np.random.default_rng(11), 2, 2, s, 16)
+    if decay == "tiny":
+        w[:] = 1e-30
+    elif decay == "one":
+        w[:] = 1.0
+    else:                     # alternate steps and channels
+        w[:] = 1.0
+        w[:, :, 0::2, 0::2] = 1e-30
+        w[:, :, 1::2, 1::2] = 1e-30
+    y, s_last = rwkv6_scan(*map(_t, (r, k, v, w, u, s0)))
+    jx = tuple(map(jnp.asarray, (r, k, v, w, u, s0)))
+    for yr, sr in (jref.rwkv6_scan_ref(*jx),
+                   jrwkv6_pallas(*jx, chunk=s, interpret=True)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(yr),
+                                   rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(s_last.numpy(), np.asarray(sr),
+                                   rtol=2e-4, atol=2e-4)
+
+
 def test_state_carries_across_a_split_sequence():
     """Half the sequence, then the other half from its state, equals one
     pass (the kernel's S = 1 decode step relies on it)."""
