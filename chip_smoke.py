@@ -4,31 +4,37 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
-The second form only builds and times flash_decode and rwkv6_scan at the
-points below (one JSON line), importing the port from DIR/src (another
-checkout, such as the parent commit's) when ``--tree`` is given, so two
-trees' kernels are timed by the same code on one card.  With no
-arguments:
+The second form only builds and times flash_decode, rwkv6_scan and
+rglru_scan at the points below (one JSON line), importing the port from
+DIR/src (another checkout, such as the parent commit's) when ``--tree`` is
+given, so two trees' kernels are timed by the same code on one card.
+With no arguments:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the model paths from the sources in this
    checkout (flash_attention, flash_decode, rwkv6_scan, rglru_scan,
    matmul_qi8; one nvcc per source, started together), prints ptxas's
-   registers and spills of each kernel (failing if flash_decode or
-   rwkv6_scan spills) and the tensor-core instructions in the SASS of
-   bf16 flash_attention and flash_decode (HMMA) and matmul_qi8 (IMMA),
-   failing if any of their instantiations has none;
+   registers and spills of each kernel (failing if flash_decode,
+   rwkv6_scan or rglru_scan spills) and the tensor-core instructions in
+   the SASS of bf16 flash_attention and flash_decode (HMMA) and
+   matmul_qi8 (IMMA), failing if any of their instantiations has none;
 3. holds each kernel against its plain PyTorch version at the shapes the
    model paths give it (the flash kernels also at recurrentgemma's head dim
    256 with 16 q heads per kv head; flash_attention with recurrentgemma's
    window of 2048 at S = T = 4096; matmul_qi8 exactly at 512^3, ResNet50's
    head, a 1x1 conv and a ragged K; flash_decode with lengths ending
-   inside a split, rwkv6_scan with decays of 1e-30 and 1), and times
-   kernel, plain version and, where one exists, one library call (the
-   yardstick; the port never calls it; no single PyTorch call computes
-   either recurrence), with flash_attention's achieved TFLOP/s beside
-   SDPA's, flash_decode also at recurrentgemma's full window and beside
-   one torch.sum over as many bytes, rwkv6_scan also at S = 1;
+   inside a split, rwkv6_scan with decays of 1e-30 and 1; rglru_scan at
+   recurrentgemma's S = 1 decode step at B 2 and 16, at S on both sides
+   of its route threshold and of its piece edges, at S = 4096, with
+   ragged R in fp32 and bf16 and with decays of 1e-30 and 1, one counted
+   launch a call, staged results equal bit for bit to the step route's),
+   and times kernel, plain version and, where one exists, one library
+   call (the yardstick; the port never calls it; no single PyTorch call
+   computes either recurrence), with flash_attention's achieved TFLOP/s
+   beside SDPA's, flash_decode also at recurrentgemma's full window and
+   beside one torch.sum over as many bytes, rwkv6_scan also at S = 1,
+   rglru_scan in fp32 and bf16 and at S = 1 (B 2 and 16) beside one
+   torch.add over as many bytes;
 4. holds the full model on the card against the same model on the CPU at
    the smoke configs of qwen3-1.7b, rwkv6-1.6b and recurrentgemma-9b (the
    CPU runs the plain versions), for a prefill forward and for a greedy
@@ -119,6 +125,8 @@ from repro_torch.profiling import profile_model  # noqa: E402
 
 KERNELS = ("flash_attention", "flash_decode", "rwkv6_scan", "rglru_scan",
            "matmul_qi8")
+# the kernels --kernel-times builds and times (the latest redesigns)
+TIMED = ("flash_decode", "rwkv6_scan", "rglru_scan")
 # each kernel's design, as its source note sets it out
 DESIGNS = {
     "flash_attention": "bf16: mma.sync m16n8k16 (fp32 accumulate), "
@@ -137,8 +145,13 @@ DESIGNS = {
                   "over 256 / D threads a column (a warp on one part, y's "
                   "partial sums through shared memory), rows staged 64 "
                   "steps a chunk by cp.async, double-buffered",
-    "rglru_scan": "CUDA cores: one thread per channel, loads of 16 steps "
-                  "ahead",
+    "rglru_scan": "CUDA cores: S >= 64 on the staged route, one block of "
+                  "256 threads per (128-byte tile row, batch row) copying "
+                  "S in 64-step pieces by 16-byte cp.async, 3 in flight, "
+                  "one thread a channel scanning each piece in order out "
+                  "of shared memory; S < 64 (the decode step) one thread "
+                  "per channel; both routes the same FMAs in the same "
+                  "order",
     "matmul_qi8": "mma.sync m16n8k32 s8 -> s32, cp.async 2-stage x ring, w "
                   "transposed by prmt on load, 64 x 64 or 16 x 64 tiles, "
                   "split-K with int32 atomics",
@@ -633,52 +646,134 @@ def time_rwkv6_points():
     return out
 
 
-def check_rglru_scan():
-    """Kernel vs plain version at recurrentgemma-9b's shape (B 2, S 1024, R
-    4096, fp32, nonzero h0), in bf16, at the decode step S = 1 and ragged
-    S; y and h_last within tol (1 + |plain|).  Times kernel and plain
-    version at the main shape.  Returns the kernel's record."""
-    cases = [  # name, b, s, r, dtype, tol
-        ("fp32 B=2 S=1024 R=4096", 2, 1024, 4096, torch.float32, 1e-5),
-        ("bf16 B=2 S=1024 R=4096", 2, 1024, 4096, torch.bfloat16, 2e-2),
-        ("fp32 S=1 (decode step)", 2, 1, 4096, torch.float32, 1e-5),
-        ("fp32 ragged S=1000 R=1000", 3, 1000, 1000, torch.float32, 1e-5),
+def rglru_inputs(b, s, r, dtype, seed=0):
+    """a in (0.3, 1), g 0.2 N and a nonzero h0 on the card."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    a = (0.3 + 0.7 * torch.rand(b, s, r, generator=g, device="cuda")
+         ).to(dtype)
+    gx = (0.2 * torch.randn(b, s, r, generator=g, device="cuda")).to(dtype)
+    return a, gx, torch.randn(b, r, generator=g, device="cuda")
+
+
+def rglru_cases():
+    """(name, b, s, r, dtype, tol) of the kernel check: the model's shape
+    in fp32 and bf16, the decode step at the two batch sizes of the paths,
+    S on both sides of the route threshold and of the staged route's piece
+    edges, prompts above recurrentgemma's 2048 window, ragged R (a partial
+    tile; rows off 16 bytes, which take the step route), and the extreme
+    decays."""
+    piece = rg.STAGED.piece
+    low = rg.STAGED_MIN_S
+    f32, b16 = torch.float32, torch.bfloat16
+    cases = [
+        ("fp32 B=2 S=1024 R=4096", 2, 1024, 4096, f32, 1e-5),
+        ("bf16 B=2 S=1024 R=4096", 2, 1024, 4096, b16, 2e-2),
+        ("fp32 S=1 (decode step)", 2, 1, 4096, f32, 1e-5),
+        ("fp32 S=1 B=16 (decode loop)", 16, 1, 4096, f32, 1e-5),
+        ("fp32 ragged S=1000 R=1000", 3, 1000, 1000, f32, 1e-5),
+        ("bf16 ragged S=300 R=1000", 3, 300, 1000, b16, 2e-2),
+        ("fp32 S=300 R=1001 (rows off 16 bytes)", 2, 300, 1001, f32, 1e-5),
+        ("fp32 S=4096 B=1 (prompt above the window)", 1, 4096, 4096, f32,
+         1e-5),
+        ("bf16 S=4096 B=1 (prompt above the window)", 1, 4096, 4096, b16,
+         2e-2),
+        ("fp32 S=1024, decays 1e-30 and 1", 2, 1024, 4096, f32, 1e-5),
+        ("fp32 S=4096 B=1, decays 1e-30 and 1", 1, 4096, 4096, f32, 1e-5),
     ]
+    for s in sorted({low - 1, low, piece - 1, piece + 1, 2 * piece - 1,
+                     2 * piece + 1}):
+        cases.append((f"fp32 S={s} (staged from {low}, pieces of {piece})",
+                      2, s, 4096, f32, 1e-5))
+    return cases
+
+
+def check_rglru_scan():
+    """Kernel vs plain version on every case of :func:`rglru_cases`; y and
+    h_last within tol (1 + |plain|), one counted launch a call, and on the
+    staged route equal bit for bit to the step route.  Times kernel, plain
+    version and one torch.add over the same bytes at the points of
+    :func:`time_rglru_points`.  Returns the kernel's record."""
     record = None
-    for name, b, s, r, dtype, tol in cases:
-        g = torch.Generator("cuda").manual_seed(0)
-        a = (0.3 + 0.7 * torch.rand(b, s, r, generator=g, device="cuda")
-             ).to(dtype)
-        gx = (0.2 * torch.randn(b, s, r, generator=g, device="cuda")
-              ).to(dtype)
-        h0 = torch.randn(b, r, generator=g, device="cuda")
+    for name, b, s, r, dtype, tol in rglru_cases():
+        a, gx, h0 = rglru_inputs(b, s, r, dtype)
+        if "decays" in name:
+            # even channels decay 1 (a plain running sum over all of S), odd
+            # channels 1e-30 and 1 on alternate steps
+            a[..., 0::2] = 1.0
+            a[:, 0::2, 1::2] = 1e-30
+            a[:, 1::2, 1::2] = 1.0
+        before = _build.launches("rglru_scan")
         y, h_last = rg.rglru_scan(a, gx, h0)
+        calls = _build.launches("rglru_scan") - before
         y_ref, h_ref = rglru_scan_ref(a, gx, h0)
+        plan = rg.scan_plan(s, r, a.element_size())
+        same = True
+        if plan.route == "staged":
+            y_step, h_step = rg.launch(a, gx, h0, rg.STEP)
+            same = bool(torch.equal(y, y_step)) and bool(
+                torch.equal(h_last, h_step))
         torch.cuda.synchronize()
         err_y, ok_y = allclose_err(y, y_ref, tol)
         err_h, ok_h = allclose_err(h_last, h_ref, tol)
-        print(f"rglru_scan {name}: max_abs_err y {err_y:.3e}, h_last "
-              f"{err_h:.3e} (within {tol:g} (1 + |plain|): {ok_y and ok_h})")
-        if not (ok_y and ok_h):
+        print(f"rglru_scan {name} ({plan.route} route): max_abs_err y "
+              f"{err_y:.3e}, h_last {err_h:.3e} (within {tol:g} (1 + "
+              f"|plain|): {ok_y and ok_h}), counted launches {calls}, equal "
+              f"to the step route: {same}")
+        if not (ok_y and ok_h and same) or calls != 1:
             raise SystemExit(f"rglru_scan disagrees with its plain version "
-                             f"on {name}: {err_y:.3e}, {err_h:.3e}")
+                             f"or its step route on {name}: {err_y:.3e}, "
+                             f"{err_h:.3e}, equal {same}, or counted {calls} "
+                             f"launches, not 1")
         if record is None:
-            ms = cuda_ms([lambda: rg.rglru_scan(a, gx, h0)])
-            plain_ms = cuda_ms([lambda: rglru_scan_ref(a, gx, h0)], reps=3)
-            nbytes = 3 * b * s * r * a.element_size() + 2 * b * r * 4
-            bound_ms, bound_by = scan_bound(nbytes, 2 * b * s * r)
-            record = {"name": "rglru_scan", "route": "cuda",
-                      "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
-                      "replaces": "src/repro/kernels/rglru_scan.py:47",
-                      "max_abs_err": max(err_y, err_h), "ms": ms,
-                      "kernel_ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": None,
-                      "shape": {"b": b, "s": s, "r": r, "dtype": str(dtype)}}
-            print(f"rglru_scan timing at {name}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}); no single PyTorch call computes it")
+            record = {"max_abs_err": max(err_y, err_h)}
+        del a, gx, y, y_ref
+    times = time_rglru_points()
+    record.update({"name": "rglru_scan", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "replaces": "src/repro/kernels/rglru_scan.py:47",
+                   **times["main"],
+                   **{k: v for k, v in times.items() if k != "main"}})
     return record
+
+
+# b, s, r, dtype: recurrentgemma-9b's (2, 1024) forward in fp32 (the model
+# casts to fp32 before the scan) and in bf16, its decode step at the
+# forward's batch and at the decode loop's 16 rows
+RGLRU_POINTS = {"main": (2, 1024, 4096, torch.float32),
+                "bf16": (2, 1024, 4096, torch.bfloat16),
+                "s1": (2, 1, 4096, torch.float32),
+                "s1_b16": (16, 1, 4096, torch.float32)}
+
+
+def time_rglru_points():
+    """Kernel and plain version (ms), the bound, and one torch.add(a, g,
+    out=y) over the same bytes (the reach of one plain elementwise pass of
+    this size; not a library call of the recurrence, which has none) at
+    each point of RGLRU_POINTS, L2-warm as the model's just-written
+    gates."""
+    out = {}
+    for key, (b, s, r, dtype) in RGLRU_POINTS.items():
+        a, gx, h0 = rglru_inputs(b, s, r, dtype)
+        ms = cuda_ms([lambda: rg.rglru_scan(a, gx, h0)])
+        plain_ms = cuda_ms([lambda: rglru_scan_ref(a, gx, h0)],
+                           reps=3 if s > 1 else 20)
+        y = torch.empty_like(a)
+        stream_ms = cuda_ms([lambda: torch.add(a, gx, out=y)])
+        nbytes = 3 * b * s * r * a.element_size() + 2 * b * r * 4
+        bound_ms, bound_by = scan_bound(nbytes, 2 * b * s * r)
+        plan = (rg.scan_plan(s, r, a.element_size())._asdict()
+                if hasattr(rg, "scan_plan") else None)
+        out[key] = {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+                    "stream_ms": stream_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None, "plan": plan,
+                    "shape": {"b": b, "s": s, "r": r, "dtype": str(dtype)}}
+        print(f"rglru_scan timing at B={b} S={s} R={r} ({dtype}, plan "
+              f"{plan}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), one torch.add over the same "
+              f"bytes {stream_ms:.4f} ms; no single PyTorch call computes "
+              f"it")
+        del a, gx, y
+    return out
 
 
 def check_windowed_flash_attention():
@@ -1374,14 +1469,15 @@ def device_line():
 
 
 def kernel_times() -> int:
-    """Build and time flash_decode and rwkv6_scan of the imported tree at
-    this script's timing points."""
+    """Build and time flash_decode, rwkv6_scan and rglru_scan of the
+    imported tree at this script's timing points."""
     t0 = time.perf_counter()
-    _build.build(("flash_decode", "rwkv6_scan"))
-    print(f"built flash_decode, rwkv6_scan from {TREE} in "
+    _build.build(TIMED)
+    print(f"built {', '.join(TIMED)} from {TREE} in "
           f"{time.perf_counter() - t0:.1f} s")
     times = {"flash_decode": time_decode_points(),
-             "rwkv6_scan": time_rwkv6_points()}
+             "rwkv6_scan": time_rwkv6_points(),
+             "rglru_scan": time_rglru_points()}
     print(json.dumps({"kernel_times": times, "tree": str(TREE)}))
     print(device_line())
     return 0
@@ -1410,8 +1506,8 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  {name} ptxas: {line.strip()}")
-    # the two latest redesigns must not spill
-    for name in ("flash_decode", "rwkv6_scan"):
+    # the three latest redesigns must not spill
+    for name in TIMED:
         log = libs[name].with_suffix(".log").read_text()
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
         if not spills or max(spills) > 0:

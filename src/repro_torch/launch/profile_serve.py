@@ -4,7 +4,9 @@ Runs ``torch.profiler`` (CPU + CUDA activities) over windows of the
 ``launch/serve.py`` paths and prints, for each: the window's wall time, the
 device's busy time (the union of kernel intervals over all streams) and
 idle share, kernel time by kind (the flash-attention and flash-decode
-kernels, GEMMs, the rest), and the top kernels by device time.
+kernels, GEMMs, the rest), the device time of the kernels launched inside
+each model's named profiler ranges (:data:`SPANS`), and the top kernels by
+device time.
 
 Batch workload (the default):
 
@@ -58,18 +60,24 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import configs
 from repro_torch.api import DeploymentSpec
 from repro_torch.launch import serve
-from repro_torch.models import api, cnn, lm
+from repro_torch.models import api, cnn, lm, rglru
 
 KINDS = (("flash_attention", ("flash_attention",)),
          ("flash_decode", ("flash_decode",)),
          ("rwkv6_scan", ("rwkv6_scan",)),
-         ("rglru_scan", ("rglru_scan",)),
+         # rglru_scan's step and staged kernels
+         ("rglru_scan", ("rglru_",)),
          ("matmul_qi8", ("matmul_qi8",)),
          # cuDNN's convolution kernels (fprop, implicit GEMM, winograd)
          # before the GEMM keys, which their names also hold
          ("conv", ("conv", "fprop", "implicit", "winograd", "cudnn")),
          ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
          ("elementwise", ("elementwise",)))
+
+
+# record_function ranges of the models: the kernels their ops launch are
+# summed apart (recurrentgemma's pointwise gates around rglru_scan)
+SPANS = (rglru.GATES_SPAN,)
 
 
 def _kind(name: str) -> str:
@@ -89,8 +97,30 @@ def _union_us(spans: List[Tuple[float, float]]) -> float:
     return total
 
 
+def span_device_s(prof, name: str) -> Tuple[float, int, int]:
+    """(device seconds, kernels, ranges) of the kernels launched by the ops
+    that ran inside the CPU ranges called ``name``, on the range's
+    thread."""
+    events = prof.events()
+    ranges = [(e.thread, e.time_range.start, e.time_range.end)
+              for e in events
+              if e.name == name and e.device_type == DeviceType.CPU]
+    total, n = 0.0, 0
+    for e in events:
+        if (e.device_type != DeviceType.CPU or e.name == name
+                or not e.kernels):
+            continue
+        if any(th == e.thread and lo <= e.time_range.start
+               and e.time_range.end <= hi for th, lo, hi in ranges):
+            total += sum(k.duration for k in e.kernels)
+            n += len(e.kernels)
+    return total / 1e6, n, len(ranges)
+
+
 def summarize(prof, wall_s: float, label: str, top: int = 10) -> Dict:
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the device-side copies of the named ranges are not kernels
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and e.name not in SPANS]
     busy_s = _union_us([(e.time_range.start, e.time_range.end)
                         for e in kernels]) / 1e6
     by_kind: Dict[str, float] = {}
@@ -107,6 +137,11 @@ def summarize(prof, wall_s: float, label: str, top: int = 10) -> Dict:
           f"device activity")
     for kind, t in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"[{label}]   {kind}: {t * 1e3:.3f} ms summed kernel time")
+    for name in SPANS:
+        t, n, ranges = span_device_s(prof, name)
+        if ranges:
+            print(f"[{label}]   range {name}: {t * 1e3:.3f} ms summed "
+                  f"kernel time, {n} kernels in {ranges} ranges")
     for name, (n, t) in sorted(by_name.items(),
                                key=lambda kv: -kv[1][1])[:top]:
         print(f"[{label}]     {t * 1e3:9.3f} ms  x{n:<5d} {name[:90]}")

@@ -39,6 +39,7 @@ from .lm import LMConfig, _dense_init, require_ported
 
 Params = Dict[str, Any]
 LRU_C = 8.0
+GATES_SPAN = "rg_lru.gates"
 
 
 def n_super_and_tail(n_layers: int, attn_every: int) -> Tuple[int, int]:
@@ -116,12 +117,15 @@ def _causal_conv(p: Params, x: torch.Tensor,
 
 
 def rg_lru(p: Params, x: torch.Tensor, h0: torch.Tensor):
-    """x: (B, S, R); h0: (B, R) fp32.  Returns (y in x's dtype, h_last)."""
-    xf = x.float()
-    r = torch.sigmoid(xf * p["a_gate_w"] + p["a_gate_b"])
-    i = torch.sigmoid(xf * p["i_gate_w"] + p["i_gate_b"])
-    a = torch.exp(-LRU_C * F.softplus(p["lam"]) * r)
-    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
+    """x: (B, S, R); h0: (B, R) fp32.  Returns (y in x's dtype, h_last).
+    The pointwise gates around the scan run in a profiler range named
+    :data:`GATES_SPAN` (``launch/profile_serve.py`` sums its kernels)."""
+    with torch.profiler.record_function(GATES_SPAN):
+        xf = x.float()
+        r = torch.sigmoid(xf * p["a_gate_w"] + p["a_gate_b"])
+        i = torch.sigmoid(xf * p["i_gate_w"] + p["i_gate_b"])
+        a = torch.exp(-LRU_C * F.softplus(p["lam"]) * r)
+        gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
     y, h_last = rglru_scan(a, gated, h0)
     return y.to(x.dtype), h_last
 

@@ -295,6 +295,16 @@ def test_rwkv6_scan_rejects_unaligned_rows(sm90):
     (2, 512, 4096, "float32"),                      # recurrentgemma widths
     (2, 1, 4096, "float32"),                        # the decode step
     (3, 100, 1000, "bfloat16"),                     # ragged channels
+    (16, 1, 4096, "float32"),                       # the decode loop's rows
+    (2, 63, 4096, "float32"),                       # the route threshold
+    (2, 64, 4096, "float32"),
+    (2, 65, 4096, "float32"),                       # piece edges
+    (2, 129, 4096, "float32"),
+    (1, 127, 2048, "float32"),
+    (1, 257, 2048, "float32"),
+    (1, 4096, 4096, "float32"),                     # above the 2048 window
+    (1, 4096, 4096, "bfloat16"),
+    (2, 300, 1001, "float32"),                      # rows off 16 bytes
 ])
 def test_rglru_scan_matches_plain(sm90, b, s, r, dtype):
     g = torch.Generator(sm90).manual_seed(0)
@@ -311,6 +321,54 @@ def test_rglru_scan_matches_plain(sm90, b, s, r, dtype):
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(h, h_ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,r", [(2, 1024, 4096), (1, 4096, 4096),
+                                   (2, 40, 4096)])
+def test_rglru_scan_extreme_decays_match_plain(sm90, b, s, r):
+    """Decays of exactly 1 on even channels (a running sum over all of S)
+    and 1e-30 and 1 on alternate steps of odd channels: the kernel keeps
+    the recurrence's order, so it holds the fp32 tolerance at any S, with
+    one counted launch."""
+    g = torch.Generator(sm90).manual_seed(2)
+    a = torch.ones(b, s, r, device=sm90)
+    a[:, 0::2, 1::2] = 1e-30
+    x = 0.2 * torch.randn(b, s, r, generator=g, device=sm90)
+    h0 = torch.randn(b, r, generator=g, device=sm90)
+    before = _build.launches("rglru_scan")
+    y, h = rg.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert _build.launches("rglru_scan") == before + 1
+    y_ref, h_ref = rglru_scan_ref(a, x, h0)
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,r,dtype", [(2, 1024, 4096, "float32"),
+                                         (1, 4096, 4096, "bfloat16"),
+                                         (3, 300, 1000, "bfloat16")])
+def test_rglru_scan_staged_route_equals_step_route(sm90, b, s, r, dtype):
+    """The two routes run the same FMAs in the same order: equal bits."""
+    plan = rg.scan_plan(s, r, DTYPES[dtype].itemsize)
+    assert plan.route == "staged"
+    g = torch.Generator(sm90).manual_seed(4)
+    a = (0.3 + 0.7 * torch.rand(b, s, r, generator=g, device=sm90)).to(
+        DTYPES[dtype])
+    x = (0.2 * torch.randn(b, s, r, generator=g, device=sm90)).to(
+        DTYPES[dtype])
+    h0 = torch.randn(b, r, generator=g, device=sm90)
+    y, h = rg.launch(a, x, h0, plan)
+    y_step, h_step = rg.launch(a, x, h0, rg.STEP)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_step) and torch.equal(h, h_step)
+
+
+def test_rglru_scan_rejects_non_contiguous_inputs(sm90):
+    a = torch.rand(2, 4096, 128, device=sm90).transpose(1, 2)   # (2,128,4096)
+    x = torch.zeros(2, 128, 4096, device=sm90)
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.rglru_scan(a, x, torch.zeros(2, 4096, device=sm90))
 
 
 def _to(tree, dev):

@@ -8,6 +8,9 @@ Same numpy inputs and the reference's weights (its init, converted with
   the reference's oracle and its Pallas kernel in interpret mode: 1e-5, as
   ``tests/test_kernels.py`` holds the Pallas kernel to the oracle; against
   the recurrence written out in numpy: 2e-5;
+* the kernel's staged route emulated in numpy on the plan's pieces and
+  tiles against the oracle and the Pallas kernel in interpret mode: 1e-5
+  (the same tolerance; the emulation runs the recurrence in its order);
 * model pieces and plain windowed attention: 1e-5 (fp32 arithmetic in
   another order);
 * the smoke forward (S up to and above the smoke window of 16) and the
@@ -15,6 +18,8 @@ Same numpy inputs and the reference's weights (its init, converted with
   1e-4, greedy tokens equal.
 """
 import dataclasses
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +39,7 @@ from repro.models import lm_graph as jlm_graph
 from repro.models import rglru as jrglru
 from repro_torch import api as tfront
 from repro_torch import configs as tconfigs
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.launch import serve as tserve
 from repro_torch.models import api as tapi
@@ -110,6 +116,184 @@ def test_scan_keeps_dtype_and_rejects_bad_inputs():
                 (a[:, :0], g[:, :0], h0)):
         with pytest.raises((ValueError, TypeError)):
             rglru_scan(*bad)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan and its staged route, emulated
+# ---------------------------------------------------------------------------
+_INSTANTIATED = {
+    rg.ScanPlan("staged", *map(int, m)) for m in re.findall(
+        r"RGLRU_PLAN\((\d+), (\d+), (\d+), (\d+)\)",
+        (pathlib.Path(rg.__file__).parent / "csrc" / "rglru_scan.cu")
+        .read_text())}
+
+
+@pytest.mark.parametrize("s,r,itemsize,want", [
+    (1, 4096, 4, rg.STEP),                    # the decode step
+    (rg.STAGED_MIN_S - 1, 4096, 4, rg.STEP),
+    (rg.STAGED_MIN_S, 4096, 4, rg.STAGED),
+    (1024, 4096, 4, rg.STAGED),               # recurrentgemma's forward
+    (1024, 4096, 2, rg.STAGED),
+    (4096, 4096, 4, rg.STAGED),               # above the 2048 window
+    (1000, 1000, 4, rg.STAGED),               # a partial last tile
+    (300, 1000, 2, rg.STAGED),
+    (300, 1001, 4, rg.STEP),                  # rows off 16 bytes
+    (300, 1004, 2, rg.STEP),
+    (100, 7, 4, rg.STEP),
+])
+def test_scan_plan_routes_by_s_and_row_alignment(s, r, itemsize, want):
+    """The staged route from STAGED_MIN_S steps on rows of whole 16-byte
+    copies; the step route for short S (the S = 1 decode step), for other
+    rows and for base pointers off 16 bytes."""
+    assert rg.scan_plan(s, r, itemsize) == want
+    assert rg.scan_plan(s, r, itemsize, aligned=False) == rg.STEP
+
+
+def test_staged_plan_is_the_instantiated_one_and_fits_a_block():
+    assert _INSTANTIATED == {rg.STAGED}
+    plan = rg.STAGED
+    assert plan.row_bytes // 2 <= plan.threads      # a thread a channel
+    assert plan.stages >= 3
+    assert 2 * plan.stages * plan.piece * plan.row_bytes <= 227 * 1024
+
+
+def _pieces(s, plan):
+    """[start, stop) of every piece, as the kernel walks them."""
+    return [(t0, min(t0 + plan.piece, s)) for t0 in range(0, s, plan.piece)]
+
+
+def _copies(r, plan, itemsize):
+    """(first channel, channels) of every 16-byte copy of a tile row the
+    kernel issues for rows of ``r`` channels, over all tiles."""
+    tile, per = plan.row_bytes // itemsize, 16 // itemsize
+    return [(c0 + e, per) for c0 in range(0, r, tile)
+            for e in range(0, tile, per) if c0 + e < r]
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 257, 1000,
+                               4096])
+def test_pieces_cover_every_step_once(s):
+    spans = _pieces(s, rg.STAGED)
+    assert [t for lo, hi in spans for t in range(lo, hi)] == list(range(s))
+    assert all(0 < hi - lo <= rg.STAGED.piece for lo, hi in spans)
+
+
+@pytest.mark.parametrize("r,itemsize", [(4096, 4), (4096, 2), (1000, 4),
+                                        (1000, 2), (12, 4), (8, 2)])
+def test_tile_copies_cover_every_channel_once(r, itemsize):
+    """On rows the staged route takes, the tiles' 16-byte copies (a copy
+    wholly inside R or wholly past it, so past it is zero-filled) cover
+    every channel once."""
+    assert rg.staged_fits(r, itemsize)
+    covered = [c for c0, n in _copies(r, rg.STAGED, itemsize)
+               for c in range(c0, c0 + n)]
+    assert covered == list(range(r))
+
+
+def _staged_scan(a, g, h0, plan):
+    """The staged route in numpy fp32, with the kernel's index math: for
+    every (tile, batch row) block, each piece copied by whole 16-byte
+    copies into a zero-filled stage, the tile's channels scanned in order
+    over the piece's steps (y written over g's tile), then y's copies
+    stored.  numpy multiplies and adds where the kernel fuses the two."""
+    b, s, r = a.shape
+    tile, per = plan.row_bytes // a.itemsize, 16 // a.itemsize
+    y = np.full((b, s, r), np.nan, np.float32)
+    h_last = np.full((b, r), np.nan, np.float32)
+    for bi in range(b):
+        for c0 in range(0, r, tile):
+            cols = [e for e in range(0, tile, per) if c0 + e < r]
+            scan = [c for c in range(tile) if c0 + c < r]
+            h = h0[bi, [c0 + c for c in scan]].astype(np.float32)
+            for t0, t1 in _pieces(s, plan):
+                sa = np.zeros((plan.piece, tile), np.float32)
+                sg = np.zeros((plan.piece, tile), np.float32)
+                for e in cols:
+                    sa[:t1 - t0, e:e + per] = a[bi, t0:t1, c0 + e:c0 + e + per]
+                    sg[:t1 - t0, e:e + per] = g[bi, t0:t1, c0 + e:c0 + e + per]
+                for t in range(t1 - t0):
+                    h = sa[t, scan] * h + sg[t, scan]
+                    sg[t, scan] = h
+                for e in cols:
+                    y[bi, t0:t1, c0 + e:c0 + e + per] = sg[:t1 - t0, e:e + per]
+            h_last[bi, [c0 + c for c in scan]] = h
+    return y, h_last
+
+
+def _decays(rng, b, s, r, kind):
+    a = rng.uniform(0.3, 1.0, (b, s, r)).astype(np.float32)
+    if kind == "one":
+        a[:] = 1.0
+    elif kind == "tiny":
+        a[:] = 1e-30
+    elif kind == "alternating":     # even channels 1; odd 1e-30 and 1
+        a[..., 0::2] = 1.0
+        a[:, 0::2, 1::2] = 1e-30
+        a[:, 1::2, 1::2] = 1.0
+    return a
+
+
+@pytest.mark.parametrize("s,r", [(1, 40), (63, 40), (65, 36), (129, 12),
+                                 (257, 44), (300, 8)])
+@pytest.mark.parametrize("kind", ["mixed", "one", "tiny", "alternating"])
+def test_staged_emulation_matches_oracle_and_pallas_interpret(s, r, kind):
+    """The staged route's pieces and tiles, S across piece edges, R over a
+    partial last tile, decays in (0.3, 1), exactly 1, 1e-30 and
+    alternating, nonzero h0: every y and h_last written once, equal to the
+    reference's oracle and its Pallas kernel in interpret mode within
+    1e-5."""
+    rng = np.random.default_rng(s + r)
+    b = 2
+    a = _decays(rng, b, s, r, kind)
+    g = (rng.normal(size=(b, s, r)) * 0.2).astype(np.float32)
+    h0 = rng.normal(size=(b, r)).astype(np.float32)
+    y, h = _staged_scan(a, g, h0, rg.STAGED)
+    assert np.isfinite(y).all() and np.isfinite(h).all()
+    jx = tuple(map(jnp.asarray, (a, g, h0)))
+    for yr, hr in (jref.rglru_scan_ref(*jx),
+                   jrglru_pallas(*jx, chunk=s, interpret=True)):
+        np.testing.assert_allclose(y, np.asarray(yr), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(h, np.asarray(hr), rtol=1e-5, atol=1e-5)
+
+
+def test_scan_raises_off_cpu_and_cuda():
+    a, g, h0 = (torch.empty(x.shape, device="meta") for x in map(
+        _t, _scan_inputs(np.random.default_rng(7), 1, 4, 8)))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        rglru_scan(a, g, h0)
+
+
+def test_gates_range_holds_the_pointwise_chain_and_its_kernels_sum():
+    """rg_lru runs its pointwise gates inside the GATES_SPAN profiler
+    range, and profile_serve sums the kernels of the ops inside that range
+    on its thread, and of no other op."""
+    from types import SimpleNamespace as NS
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import profile_serve
+
+    r = 8
+    p = {k: torch.full((r,), 0.5) for k in
+         ("a_gate_w", "a_gate_b", "i_gate_w", "i_gate_b", "lam")}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trglru.rg_lru(p, torch.ones(1, 3, r), torch.zeros(1, r))
+    names = [e.name for e in prof.events()]
+    assert trglru.GATES_SPAN in names and "aten::sigmoid" in names
+
+    def ev(name, thread, lo, hi, kernels=(), dev=DeviceType.CPU):
+        return NS(name=name, thread=thread, device_type=dev,
+                  time_range=NS(start=lo, end=hi),
+                  kernels=[NS(duration=d) for d in kernels])
+
+    span = trglru.GATES_SPAN
+    fake = NS(events=lambda: [
+        ev(span, 1, 0, 10), ev(span, 1, 20, 30),
+        ev("aten::sigmoid", 1, 1, 2, (3.0,)),
+        ev("aten::exp", 1, 21, 29, (4.0, 1.0)),
+        ev("aten::mm", 1, 11, 19, (100.0,)),           # between the ranges
+        ev("aten::mul", 2, 1, 2, (50.0,)),             # another thread
+        ev(span, 0, 0, 10, (7.0,), DeviceType.CUDA)])  # the device copy
+    assert profile_serve.span_device_s(fake, span) == (8e-6, 3, 2)
 
 
 # ---------------------------------------------------------------------------
