@@ -79,8 +79,38 @@ With no arguments:
    direct forward;
    then the int8 API on ResNet50's head (``quantized_dense``, 1
    matmul_qi8 launch between a reset and a read of the counts);
-10. prints one JSON line of CNN results and one of kernel results, then,
-   as the last line, ``{"ok": true, "device": {...}}``.
+10. the fault-tolerance tier on ResNet50 (the weights of 9): the placement
+   DP's 4-stage cut with its two slowest modeled stages on a second
+   device each (6 devices), served through ``cnn_stage_fns`` with
+   stage-loss retries, hedging and a ``HealthMonitor`` while a
+   ``ChaosMonkey`` kills one replica of each replicated stage and then
+   the last replica of the second; the monitor replans the survivors
+   through ``ElasticPlanner`` and hot-swaps.  64 requests 15 ms apart: 0
+   lost, 0 misordered, every output equal to the direct forward;
+11. full-width qwen3-1.7b prefill through ``serve.run`` with
+   ``--device-budget 6 --stage-loss-retries 1``, hedging after three
+   bottleneck-stage times of 5 and a deadline no request reaches: the
+   first output within 2e-2 of the direct forward, flash_attention's
+   launches equal to layers x forwards plus the layers of every hedged
+   stage execution the executor reports;
+12. self-healing on ResNet50: the analytic 4-stage plan served under
+   ``dep.self_heal(canaries)``, a ``tick()`` after each of 12 batches of
+   8 requests (deterministic in windows): each window's req/s, per-item
+   stage busy, drift and state, the controller's commits, rollbacks and
+   events, the live trace's per-stage times beside the card trace's (the
+   ``vs trace`` form); then the plan the live trace gives, its canary
+   cold and warm and the stream served over it and the incumbent in
+   turns; every output equal to the direct forward;
+13. a fleet of ResNet50 (share 3) and MobileNetV2 (share 1) over 6
+   devices, each member served through ``cnn_stage_fns``: 4 windows of
+   share-proportional traffic, then 4 with ResNet50's load tripled, the
+   autoscaler ticked after each window: the pool split before and after,
+   its events, attainment and the audit (0 lost, 0 misordered, every
+   output equal to its member's direct forward); the phases 10 to 13
+   launch no hand-written kernel but the prefill's flash_attention;
+14. prints one JSON line of CNN results, one of the fault-tolerance,
+   self-healing and fleet results, one of kernel results, then, as the
+   last line, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises and exits non-zero.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -92,6 +122,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -104,11 +135,15 @@ TREE = (pathlib.Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
 sys.path.insert(0, str(TREE / "src"))
 
 from repro_torch import configs  # noqa: E402  (needs src/ on the path)
-from repro_torch.api import DeploymentSpec, plan  # noqa: E402
+from repro_torch.api import Deployment, DeploymentSpec, plan  # noqa: E402
 from repro_torch.configs.common import concrete_batch  # noqa: E402
 from repro_torch.core.edge_tpu_model import EdgeTPUSpec  # noqa: E402
-from repro_torch.core.pipeline import stage_balance_metrics  # noqa: E402
+from repro_torch.core.pipeline import (PipelineExecutor,  # noqa: E402
+                                       stage_balance_metrics)
+from repro_torch.core.placement import PlacementPlan  # noqa: E402
 from repro_torch.decode.engine import PipelineDecodeEngine  # noqa: E402
+from repro_torch.fleet import (FleetMemberSpec, FleetSpec,  # noqa: E402
+                               deploy_fleet)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
@@ -122,6 +157,9 @@ from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
 from repro_torch.launch import profile_serve, serve  # noqa: E402
 from repro_torch.models import api, cnn, lm, lm_graph  # noqa: E402
 from repro_torch.profiling import profile_model  # noqa: E402
+from repro_torch.runtime import (ChaosEvent, ChaosMonkey,  # noqa: E402
+                                 ElasticPlanner, FaultPolicy,
+                                 HealthMonitor)
 
 KERNELS = ("flash_attention", "flash_decode", "rwkv6_scan", "rglru_scan",
            "matmul_qi8")
@@ -207,6 +245,26 @@ CNN = "ResNet50"
 CNN_REQUESTS = 64
 CNN_ROUNDS = 2          # every plan served in turn, twice: host noise shows
 CNN_TOL = 1e-4          # card vs CPU forward, relative to max |y|
+# the fault-tolerance, self-healing and fleet phases (ResNet50's weights of
+# the CNN path, fp32): devices of the replicated plan and of the fleet's
+# pool; the chaos stream's spacing and kill times (two replicas, then the
+# last replica of one stage); a heartbeat timeout far above any stage time
+FT_BUDGET = 6
+FT_INTERVAL_S = 0.015
+FT_KILL_AT_S = (0.15, 0.30, 0.45)
+FT_HEARTBEAT_S = 10.0
+FT_HEDGE_X = 3          # hedge after this many bottleneck-stage times
+FT_DEADLINE_MS = 60_000.0       # a deadline no request should reach
+# self-healing: batches of the stream, one tick() after each
+HEAL_BATCHES = 12
+HEAL_BATCH = 8
+HEAL_CANARIES = 4
+HEAL_DRIFT = 0.3
+# the fleet: (member, Table-1 model, share, p95 SLO ms), windows a phase
+FLEET = (("resnet50", "ResNet50", 3.0, 100.0),
+         ("mobilenetv2", "MobileNetV2", 1.0, 50.0))
+FLEET_WINDOWS = 4
+FLEET_POOL = 16         # distinct images a member's requests cycle over
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, int8
 # tensor cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -993,7 +1051,8 @@ def run_cnn_path():
     the reference's Edge TPU (8 MiB a stage: its memory refinement
     decides the cuts) and once for a quarter of the card's memory a stage
     (the decode path's planning device), the plans served in turn
-    CNN_ROUNDS times.  Returns every plan's numbers."""
+    CNN_ROUNDS times.  Returns every plan's numbers, and the model, its
+    weights, the requests and the trace for the phases after it."""
     m = cnn.REAL_CNNS[CNN]()
     graph = m.to_layer_graph()
     dev = torch.device("cuda")
@@ -1048,7 +1107,7 @@ def run_cnn_path():
             out["plans"][label]["served"].append(serve_cnn(
                 f"{CNN} {label} plan", m, params, dep, reqs))
     check_counts(f"{CNN} serving", read_counts(), {})
-    return out
+    return out, {"model": m, "params": params, "reqs": reqs, "trace": trace}
 
 
 def run_int8_head():
@@ -1080,6 +1139,456 @@ def run_int8_head():
     if not (torch.equal(y.cpu(), y_cpu) and rel < 0.05):
         raise SystemExit(f"int8 head: card != CPU or {rel:.3e} off fp32")
     return counts["matmul_qi8"]
+
+
+def exit_misordered(reqs):
+    """Adjacent inversions in the order the requests that completed on
+    their first admission left the pipeline (their completion times):
+    the order-restoring merge keeps submission order across failover and
+    hot swaps.  A request re-admitted after a stage loss re-enters the
+    stream at its tail by design, so it is left out."""
+    done = sorted((r.t_done, i) for i, r in enumerate(reqs)
+                  if r.event.is_set() and r.error is None and r.retries == 0)
+    order = [i for _, i in done]
+    return sum(1 for a, b in zip(order, order[1:]) if b < a)
+
+
+def check_outputs(label, m, reqs, direct):
+    """Every completed request's output equals the direct forward of its
+    input, bit for bit (the same kernels on one card)."""
+    errs = [(r.result[m.output] - d).abs().max().item()
+            for r, d in zip(reqs, direct)
+            if r.event.is_set() and r.error is None]
+    worst = max(errs, default=0.0)
+    print(f"{label}: {len(errs)} served outputs vs the direct forward, "
+          f"max_abs_err {worst:.3e} (must be 0)")
+    if worst != 0:
+        raise SystemExit(f"{label}: served outputs differ from the direct "
+                         f"forward by {worst:.3e}")
+
+
+def replicated_plan(graph, budget):
+    """The placement DP's cut over STAGES devices, the stages of largest
+    modeled time given one more device each until ``budget`` devices are
+    used: a 4-stage cut with replicated bottleneck stages."""
+    base = plan(DeploymentSpec(strategy="placement", device_budget=STAGES),
+                graph=graph)
+    reps = [1] * base.n_stages
+    slowest = sorted(range(base.n_stages),
+                     key=lambda i: -base.stage_times_s[i])
+    for i in slowest[:budget - base.n_devices]:
+        reps[i] += 1
+    return PlacementPlan.from_cuts(graph, base.cuts, strategy="replicated",
+                                   replicas=reps)
+
+
+def run_chaos_phase(m, params, reqs, dev, hedge_after_s,
+                    interval_s=FT_INTERVAL_S, kill_at_s=FT_KILL_AT_S):
+    """ResNet50 over a replicated 4-stage plan on FT_BUDGET devices, served
+    with stage-loss retries, hedging and a HealthMonitor, while a
+    ChaosMonkey (getter: the server's live executor) kills one replica of
+    each replicated stage and then the last replica of the second: the
+    monitor replans the survivors through ElasticPlanner and hot-swaps.
+    The requests arrive every ``interval_s``.  Requires 3 kills applied,
+    1 replan, 0 lost and 0 misordered, and every completed output equal
+    to the direct forward."""
+    graph = m.to_layer_graph()
+    placed = plan(DeploymentSpec(strategy="placement",
+                                 device_budget=FT_BUDGET), graph=graph)
+    print(f"chaos: the placement DP over {FT_BUDGET} devices cuts "
+          f"{graph.name} into {placed.n_stages} stages, replicas "
+          f"{list(placed.replica_counts)}")
+    pl0 = replicated_plan(graph, FT_BUDGET)
+    spec = DeploymentSpec(model=f"cnn:{CNN}", strategy="placement",
+                          device_budget=FT_BUDGET, stage_loss_retries=2,
+                          hedge_after=hedge_after_s)
+
+    def builder(p):
+        return serve.cnn_stage_fns(m, params, p, dev)
+
+    dep = Deployment.from_plan(pl0, spec, graph=graph,
+                               stage_fn_builder=builder)
+    a, b = [i for i, k in enumerate(pl0.replica_counts) if k > 1][:2]
+    events = [ChaosEvent(kill_at_s[0], "kill_replica", a, 1),
+              ChaosEvent(kill_at_s[1], "kill_replica", b, 1),
+              ChaosEvent(kill_at_s[2], "kill_replica", b, 0)]
+    direct = [m.apply(params, r[m.INPUT]) for r in reqs]
+    _build.reset_launches()
+    with dep.serve() as server:
+        server.serve_batch(reqs[:1])            # warm-up
+        server.start()
+        server.snapshot()
+        mon = HealthMonitor(server, ElasticPlanner(graph, spec=spec),
+                            builder, policy=FaultPolicy(
+                                heartbeat_timeout_s=FT_HEARTBEAT_S,
+                                poll_interval_s=0.01)).start()
+        monkey = ChaosMonkey(lambda: server.executor, events).start()
+        t0 = time.perf_counter()
+        pending = []
+        for i, r in enumerate(reqs):
+            pending.append(server.submit(r))
+            time.sleep(max(0.0, t0 + (i + 1) * interval_s
+                           - time.perf_counter()))
+        lost = sum(1 for r in pending if not r.event.wait(120))
+        seconds = time.perf_counter() - t0
+        snap = server.snapshot()
+        health = server.executor.health_snapshot()
+        monkey.join(timeout=10)
+        mon.stop()
+        pl1 = server.plan
+    counts = read_counts()
+    failed = sum(1 for r in pending if r.event.is_set() and r.error)
+    completed = sum(1 for r in pending if r.event.is_set() and not r.error)
+    retried = sum(1 for r in pending if r.retries)
+    misordered = exit_misordered(pending)
+    lat = snap["latency"]
+    kills = [(ev.kind, ev.stage, ev.slot, ok) for ev, ok in monkey.applied]
+    print(f"chaos plan before: {pl0.describe()}")
+    print(f"chaos plan after: {pl1.describe()}")
+    print(f"chaos: kills applied {kills}; replans {mon.replans}; "
+          f"monitor kills {mon.kills}")
+    print(f"chaos: {len(reqs)} requests every {interval_s * 1e3:.0f} ms in "
+          f"{seconds * 1e3:.1f} ms: completed {completed}, failed {failed}, "
+          f"lost {lost}, misordered {misordered}, retried {retried}; "
+          f"p50/p95 {lat['p50_s'] * 1e3:.3f} / {lat['p95_s'] * 1e3:.3f} ms "
+          f"(n={lat['n']}); the final executor's hedges {health['hedges']} "
+          f"after {hedge_after_s * 1e3:.2f} ms and re-dispatches "
+          f"{health['redispatches']}")
+    check_outputs("chaos", m, pending, direct)
+    check_counts("chaos serving", counts, {})
+    if not (sum(ok for *_, ok in kills) == 3 and len(mon.replans) == 1
+            and lost == 0 and misordered == 0
+            and completed + failed == len(reqs)):
+        raise SystemExit(f"chaos: kills {kills}, replans {mon.replans}, "
+                         f"lost {lost}, misordered {misordered}")
+    return {"plan_before": {"cuts": list(pl0.cuts),
+                            "replicas": list(pl0.replica_counts)},
+            "plan_after": {"cuts": list(pl1.cuts),
+                           "replicas": list(pl1.replica_counts)},
+            "kills": kills, "replans": mon.replans,
+            "completed": completed, "failed": failed, "lost": lost,
+            "misordered": misordered, "retried": retried,
+            "p50_ms": lat["p50_s"] * 1e3, "p95_ms": lat["p95_s"] * 1e3,
+            "n": lat["n"], "seconds": seconds, "hedges": health["hedges"],
+            "hedge_after_ms": hedge_after_s * 1e3,
+            "redispatches": health["redispatches"]}
+
+
+def run_ft_prefill(arch, hedge_after_ms, argv=()):
+    """Full-width qwen3-1.7b prefill through ``serve.run`` over the
+    placement plan of FT_BUDGET devices with stage-loss retries, hedging
+    after ``hedge_after_ms`` and a deadline no request should reach.  The
+    first output must be within 2e-2 of the direct forward, and
+    flash_attention's launches must equal layers x forwards plus, for each
+    hedged duplicate the executor reports, its stage's layers."""
+    args = serve.parse_args(
+        ["--arch", arch, "--device-budget", str(FT_BUDGET),
+         "--stage-loss-retries", "1", "--hedge-after-ms",
+         f"{hedge_after_ms}", "--deadline-ms", f"{FT_DEADLINE_MS}",
+         "--requests", str(REQUESTS), "--seq", str(SEQ), *argv])
+    _build.reset_launches()
+    res = serve.run(args)
+    counts = read_counts()
+    cfg, pl, snap = res["cfg"], res["plan"], res["snapshot"]
+    blocks = serve.stage_block_counts(pl, cfg.n_layers)
+    hedges = snap["health"]["hedges"]
+    forwards = args.requests + 2        # warm-up, requests, direct reference
+    expect = cfg.n_layers * forwards + sum(h * n for h, n in zip(hedges,
+                                                                 blocks))
+    lat = snap["latency"]
+    print(f"fault-tolerant prefill plan: {pl.describe()}; blocks per stage "
+          f"{blocks}")
+    print(f"fault-tolerant prefill: {len(res['outs'])} requests in "
+          f"{res['seconds'] * 1e3:.2f} ms ({snap['throughput_rps']:.2f} "
+          f"req/s); p50/p95 {lat['p50_s'] * 1e3:.2f} / "
+          f"{lat['p95_s'] * 1e3:.2f} ms; hedges {hedges} after "
+          f"{hedge_after_ms:.2f} ms; failed {snap['failed']}; pipeline vs "
+          f"direct max err {res['max_err']:.2e}")
+    print(f"fault-tolerant prefill flash_attention launches: "
+          f"{counts['flash_attention']} = {cfg.n_layers} layers x "
+          f"{forwards} forwards + hedged stage executions {hedges} x "
+          f"blocks {blocks}")
+    if not (res["max_err"] < 2e-2 and snap["failed"] == 0):
+        raise SystemExit(f"fault-tolerant prefill: err {res['max_err']:.2e}"
+                         f" or {snap['failed']} failed")
+    check_counts("fault-tolerant prefill", counts,
+                 {"flash_attention": expect})
+    return {"plan": {"cuts": list(pl.cuts),
+                     "replicas": list(pl.replica_counts)},
+            "blocks": blocks, "hedges": hedges,
+            "hedge_after_ms": hedge_after_ms, "max_err": res["max_err"],
+            "rps": snap["throughput_rps"], "p50_ms": lat["p50_s"] * 1e3,
+            "p95_ms": lat["p95_s"] * 1e3,
+            "flash_attention": counts["flash_attention"]}
+
+
+def stage_times_of(tmap, graph, pl):
+    depth = graph.depths()
+    return [sum(tmap.get(d, 0.0) for d in {depth[n] for n in layers})
+            for layers in pl.stage_layers]
+
+
+def err_pct(got, ref):
+    """The plan report's ``vs trace`` form: mean over stages of
+    |got - ref| / ref, in percent."""
+    rel = [abs(g - r) / r for g, r in zip(got, ref) if r > 0]
+    return sum(rel) / len(rel) * 100 if rel else -1.0
+
+
+def run_selfheal_phase(m, params, trace, dev, batches=HEAL_BATCHES,
+                       batch=HEAL_BATCH):
+    """ResNet50 over the analytic balanced STAGES-stage plan under
+    ``dep.self_heal(canaries)``, its windows driven by ``tick()`` after
+    each batch of the stream (deterministic in windows).  Prints each
+    window (req/s, per-item stage busy, drift, state), the controller's
+    windows, commits, rollbacks, state and events, both plans, and the
+    live trace's per-stage times beside the card trace's.  Every served
+    output must equal the direct forward."""
+    graph = m.to_layer_graph()
+    spec = DeploymentSpec(model=f"cnn:{CNN}", stages=STAGES,
+                          strategy="balanced", drift_threshold=HEAL_DRIFT,
+                          canary_requests=HEAL_CANARIES)
+    dep = serve.deploy_cnn(m, params, spec, dev)
+    reqs = serve.cnn_requests(m, batches * batch, dev, seed=2)
+    canaries = serve.cnn_requests(m, HEAL_CANARIES, dev, seed=3)
+    direct = [m.apply(params, r[m.INPUT]) for r in reqs]
+    pl0 = dep.plan
+    windows = []
+    _build.reset_launches()
+    with dep.serve() as server:
+        server.serve_batch(reqs[:1])            # warm-up
+        server.start()
+        server.snapshot()
+        healer = dep.self_heal(canaries)        # no thread: tick() drives
+        pending = []
+        for k in range(batches):
+            ex = server.executor
+            busy0, items0 = ex.busy_snapshot(), ex.items_snapshot()
+            t0 = time.perf_counter()
+            part = [server.submit(r)
+                    for r in reqs[k * batch:(k + 1) * batch]]
+            if not all(r.event.wait(120) for r in part):
+                raise SystemExit(f"self-heal: batch {k} timed out")
+            wall = time.perf_counter() - t0
+            busy = [b - a for a, b in zip(busy0, ex.busy_snapshot())]
+            items = [b - a for a, b in zip(items0, ex.items_snapshot())]
+            cuts = list(server.plan.cuts)
+            drift = healer.tick()
+            per_item = [bz / max(1, n) * 1e3 for bz, n in zip(busy, items)]
+            windows.append({"cuts": cuts, "rps": batch / wall,
+                            "stage_ms_per_item": per_item,
+                            "bottleneck_ms": max(per_item),
+                            "drift": drift, "state": healer.state})
+            print(f"self-heal window {k}: cuts {cuts}, "
+                  f"{batch / wall:.2f} req/s, per-item stage busy ms "
+                  f"{[round(t, 4) for t in per_item]}, drift "
+                  f"{'-' if drift is None else round(drift, 4)}, state "
+                  f"{healer.state}")
+            pending += part
+        pl1 = server.plan
+    counts = read_counts()
+    check_outputs("self-heal", m, pending, direct)
+    check_counts("self-heal serving", counts, {})
+    if any(r.error is not None for r in pending):
+        raise SystemExit("self-heal: requests failed")
+    live = healer.trace.trace().depth_time_map()
+    card = trace.depth_time_map()
+    stages = {}
+    for label, pl in (("before", pl0), ("after", pl1)):
+        lv = stage_times_of(live, graph, pl)
+        cd = stage_times_of(card, graph, pl)
+        stages[label] = {"cuts": list(pl.cuts),
+                         "live_stage_ms": [t * 1e3 for t in lv],
+                         "card_trace_stage_ms": [t * 1e3 for t in cd],
+                         "live_vs_card_trace_err_pct": err_pct(lv, cd)}
+        print(f"self-heal plan {label}: {pl.describe()}; live-trace stage "
+              f"ms {[round(t * 1e3, 4) for t in lv]} vs card-trace stage ms "
+              f"{[round(t * 1e3, 4) for t in cd]} (live vs card trace: "
+              f"{err_pct(lv, cd):.1f}% err)")
+    first = next((i for i, w in enumerate(windows)
+                  if w["cuts"] != windows[0]["cuts"]), len(windows))
+    phases = {"before": windows[:first], "after": windows[first:]}
+    summary = {}
+    for label, ws in phases.items():
+        if ws:
+            summary[label] = {
+                "windows": len(ws),
+                "rps": sum(w["rps"] for w in ws) / len(ws),
+                "bottleneck_ms": sum(w["bottleneck_ms"] for w in ws)
+                / len(ws)}
+    print(f"self-heal: {healer.windows} windows, {healer.commits} commits, "
+          f"{healer.rollbacks} rollbacks (state={healer.state}); mean over "
+          f"windows before / after the first commit: {summary}")
+    print(f"self-heal events: {healer.events}")
+    live_plan = measure_live_plan(m, params, dep, healer, reqs[:CNN_REQUESTS],
+                                  direct, canaries, dev)
+    return {"windows": healer.windows, "commits": healer.commits,
+            "rollbacks": healer.rollbacks, "state": healer.state,
+            "events": healer.events, "per_window": windows,
+            "before_after": summary, "stages": stages,
+            "live_plan": live_plan}
+
+
+def measure_live_plan(m, params, dep, healer, reqs, direct, canaries, dev):
+    """The plan the controller derives from the live trace (its replan,
+    redone: the spec's stage count, the time-balancing replan strategy,
+    the live trace as the cost source), measured apart from the canary's
+    verdict: its canary per-item stage busy cold (a fresh executor, as the
+    controller runs it) and warm (the same executor again), and the stream
+    served over the incumbent and over it in turns (incumbent, live, live,
+    incumbent), every output equal to the direct forward."""
+    graph = dep.graph
+    shaped = dataclasses.replace(
+        dep.spec.with_stages(dep.plan.n_devices),
+        strategy=healer.policy.replan_strategy, objective=None)
+    cand = plan(shaped, graph=graph,
+                cost_source=healer.trace.cost_source("trace"),
+                attach_report=False)
+
+    def builder(p):
+        return serve.cnn_stage_fns(m, params, p, dev)
+
+    with PipelineExecutor.for_plan(cand, builder(cand),
+                                   name_prefix="canary") as ex:
+        _, cold = ex.run_batch(canaries, collect_stage_times=True)
+        _, warm = ex.run_batch(canaries, collect_stage_times=True)
+    cold = [b / len(canaries) * 1e3 for b in cold]
+    warm = [b / len(canaries) * 1e3 for b in warm]
+    print(f"live-trace plan: {cand.describe()}; canary per-item stage busy "
+          f"ms cold {[round(t, 4) for t in cold]}, warm "
+          f"{[round(t, 4) for t in warm]}")
+    deps = {"incumbent": dep,
+            "live": Deployment.from_plan(cand, dep.spec, graph=graph,
+                                         stage_fn_builder=builder)}
+    served = {"incumbent": [], "live": []}
+    for label in ("incumbent", "live", "live", "incumbent"):
+        outs, snap, seconds = serve.serve_stream(deps[label], reqs)
+        err = max((o[m.output] - d).abs().max().item()
+                  for o, d in zip(outs, direct))
+        busy = snap["stage_busy_s"]
+        served[label].append({"rps": snap["throughput_rps"],
+                              "stage_busy_s": busy,
+                              "p50_ms": snap["latency"]["p50_s"] * 1e3,
+                              "p95_ms": snap["latency"]["p95_s"] * 1e3})
+        print(f"self-heal {label} plan served: {len(reqs)} requests, "
+              f"{snap['throughput_rps']:.2f} req/s, stage busy (s) "
+              f"{[round(b, 5) for b in busy]}, balance (mean/max) "
+              f"{stage_balance_metrics(busy)['balance']:.3f}; served vs "
+              f"direct max_abs_err {err:.3e} (must be 0)")
+        if err != 0:
+            raise SystemExit(f"self-heal {label} plan: served outputs "
+                             f"differ from the direct forward by {err:.3e}")
+    return {"cuts": list(cand.cuts), "canary_cold_ms": cold,
+            "canary_warm_ms": warm, "served": served}
+
+
+def run_fleet_phase(members, dev, windows=FLEET_WINDOWS):
+    """A FleetSpec of the members (name, model ref, model, weights, share,
+    p95 SLO ms) over FT_BUDGET devices, each served by ``cnn_stage_fns``: share-
+    proportional traffic for ``windows`` windows, then the first member's
+    load tripled, the autoscaler ticked after every window (as
+    ``serve.run_fleet``).  Prints the pool split before and after, the
+    autoscaler's events, attainment and the audit; requires 0 lost and 0
+    misordered and every output equal to its member's direct forward."""
+    fspec = FleetSpec(members=tuple(
+        FleetMemberSpec(name, DeploymentSpec(model=ref, strategy="balanced",
+                                             slo_p95_ms=slo), share=share)
+        for name, ref, _, _, share, slo in members), device_budget=FT_BUDGET)
+    models = {name: (model, params) for name, _, model, params, *_ in members}
+    pools, direct = {}, {}
+    for name, (model, params) in models.items():
+        pools[name] = serve.cnn_requests(model, FLEET_POOL, dev, seed=4)
+        direct[name] = [model.apply(params, r[model.INPUT])
+                        for r in pools[name]]
+    _build.reset_launches()
+    fleet = deploy_fleet(
+        fspec, graphs={n: mp[0].to_layer_graph() for n, mp in models.items()},
+        stage_fn_builders={
+            n: (lambda p, mp=mp: serve.cnn_stage_fns(mp[0], mp[1], p, dev))
+            for n, mp in models.items()})
+    counts0 = fleet.device_counts()
+    for name, dep in fleet.deployments.items():
+        print(f"fleet member {name}: {dep.plan.describe()}")
+    print(f"fleet pool split: {counts0} (mode={fleet.placement.mode}, "
+          f"worst modeled norm {fleet.placement.worst_norm:.3f})")
+    base = {m.name: max(1, round(2 * m.share)) for m in fspec.members}
+    shifted = dict(base)
+    first = fspec.members[0].name
+    shifted[first] = 3 * base[first]
+    stats = {n: {"submitted": 0, "completed": 0, "failed": 0, "lost": 0,
+                 "within_slo": 0, "lat": [], "exit": [], "err": 0.0}
+             for n in models}
+    lock = threading.Lock()
+
+    def tap(name, i):
+        def on_done(req):
+            if req.error is None:
+                with lock:
+                    stats[name]["exit"].append(i)
+        return on_done
+
+    with fleet:
+        for n in models:                        # warm-up, not counted
+            req = fleet.submit(n, pools[n][0])
+            if not req.event.wait(120) or req.error is not None:
+                raise SystemExit(f"fleet: warm-up of {n} failed")
+        for rates in (base, shifted):
+            for _ in range(windows):
+                window = []
+                for name, rate in rates.items():
+                    for _ in range(rate):
+                        st = stats[name]
+                        i = st["submitted"]
+                        st["submitted"] += 1
+                        window.append((name, i, fleet.submit(
+                            name, pools[name][i % FLEET_POOL],
+                            on_done=tap(name, i))))
+                for name, i, req in window:
+                    st = stats[name]
+                    if not req.event.wait(120):
+                        st["lost"] += 1
+                        continue
+                    if req.error is not None:
+                        st["failed"] += 1
+                        continue
+                    model = models[name][0]
+                    st["completed"] += 1
+                    st["err"] = max(st["err"], (
+                        req.result[model.output]
+                        - direct[name][i % FLEET_POOL]).abs().max().item())
+                    lat = req.t_done - req.t_submit
+                    st["lat"].append(lat)
+                    slo = fspec.member(name).spec.slo_p95_ms
+                    st["within_slo"] += lat <= slo / 1e3
+                if fleet.autoscaler is not None:
+                    fleet.autoscaler.tick()
+        counts1 = fleet.device_counts()
+        events = ([] if fleet.autoscaler is None
+                  else list(fleet.autoscaler.events))
+    counts = read_counts()
+    audit = {}
+    for name, st in stats.items():
+        lat = sorted(st["lat"])
+        ex = st["exit"]
+        audit[name] = {
+            "submitted": st["submitted"], "completed": st["completed"],
+            "failed": st["failed"], "lost": st["lost"],
+            "misordered": sum(1 for a, b in zip(ex, ex[1:]) if b < a),
+            "attainment": st["within_slo"] / max(1, st["submitted"]),
+            "p50_ms": lat[len(lat) // 2] * 1e3 if lat else 0.0,
+            "p95_ms": (lat[min(len(lat) - 1, int(0.95 * len(lat)))] * 1e3
+                       if lat else 0.0),
+            "served_vs_direct": st["err"]}
+    print(f"fleet pool split {counts0} -> {counts1}; autoscaler events "
+          f"{events}")
+    print(f"fleet audit: {audit}")
+    check_counts("fleet serving", counts, {})
+    if not all(a["lost"] == 0 and a["misordered"] == 0
+               and a["served_vs_direct"] == 0 for a in audit.values()):
+        raise SystemExit(f"fleet: lost, misordered or wrong outputs: "
+                         f"{audit}")
+    return {"split_before": counts0, "split_after": counts1,
+            "events": events, "audit": audit}
 
 
 def to_card(tree):
@@ -1579,6 +2088,9 @@ def main() -> int:
     check_counts(f"{ARCH} prefill serving", counts,
                  {"flash_attention": cfg.n_layers * forwards})
 
+    # the fault-tolerant prefill phase hedges after a few bottleneck-stage
+    # times of this stream
+    ft_hedge_ms = FT_HEDGE_X * max(busy) / len(res["outs"]) * 1e3
     direct_ms = direct_forward_ms(cfg, res["params"], res["requests"][0])
     print(f"direct forward of one {SEQ}-token request: {direct_ms:.3f} ms; "
           f"{cfg.n_layers} flash_attention calls at {record['ms']:.4f} ms = "
@@ -1599,9 +2111,28 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     zoo_worst = check_cnn_zoo()
-    cnn_res = run_cnn_path()
+    cnn_res, ctx = run_cnn_path()
     qi8_record["launches"] = run_int8_head()
     print(json.dumps({"cnn": {"zoo_worst_rel_err": zoo_worst, **cnn_res}}))
+
+    # the fault-tolerance, self-healing and fleet tiers
+    dev = torch.device("cuda")
+    m, params = ctx["model"], ctx["params"]
+    busy = cnn_res["plans"]["analytic"]["served"][0]["stage_busy_s"]
+    ft = {"chaos": run_chaos_phase(m, params, ctx["reqs"], dev,
+                                   FT_HEDGE_X * max(busy) / CNN_REQUESTS)}
+    ft["prefill"] = run_ft_prefill(ARCH, ft_hedge_ms)
+    record["launches_ft_prefill"] = ft["prefill"]["flash_attention"]
+    torch.cuda.empty_cache()
+    ft["self_heal"] = run_selfheal_phase(m, params, ctx["trace"], dev)
+    members = []
+    for name, model_name, share, slo in FLEET:
+        fm = m if model_name == CNN else cnn.REAL_CNNS[model_name]()
+        fp = (params if fm is m
+              else fm.init(dev, torch.Generator(dev).manual_seed(0)))
+        members.append((name, f"cnn:{model_name}", fm, fp, share, slo))
+    ft["fleet"] = run_fleet_phase(members, dev)
+    print(json.dumps({"ft": ft}, default=str))
 
     kernels = [record, decode_record, rwkv_record, rglru_record, qi8_record]
     for rec in kernels:

@@ -14,7 +14,8 @@ A copy of the reference package's front door, with the decode tier's
 ``"trace:<path>"`` (measured per-depth times of a
 :class:`~repro_torch.profiling.ProfileTrace`) or ``"calibrated:<path>"``
 (the analytic model fitted to such a trace), as in the reference.  The
-fleet tier is not ported.
+fleet tier's names (``Fleet``, ``FleetSpec``, ``deploy_fleet``, ...) are
+re-exported lazily from :mod:`repro_torch.fleet`.
 """
 from .spec import DeploymentSpec, resolve_model_graph
 from .report import PlanReport
@@ -29,10 +30,23 @@ from ..decode.placement import _register as _register_decode
 _register_decode()
 del _register_decode
 
+# fleet-tier names re-exported lazily (PEP 562): repro_torch.fleet imports
+# from this package's submodules, so an eager import here would cycle
+_FLEET_EXPORTS = ("Fleet", "FleetSpec", "FleetMemberSpec", "deploy_fleet",
+                  "plan_fleet")
+
 __all__ = [
     "DeploymentSpec", "resolve_model_graph",
     "PlanReport",
     "PlanContext", "PlanStrategy", "register_strategy", "get_strategy",
     "available_strategies",
     "plan", "deploy", "Deployment",
+    *_FLEET_EXPORTS,
 ]
+
+
+def __getattr__(name):
+    if name in _FLEET_EXPORTS:
+        from .. import fleet
+        return getattr(fleet, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -302,13 +302,34 @@ class Deployment:
             srv.start()
         return srv
 
-    def self_heal(self, *args: Any, **kwargs: Any):
-        """The self-healing controller (runtime/selfheal.py) is not
-        ported yet."""
-        raise NotImplementedError(
-            "self_heal: the self-healing loop (runtime/selfheal.py, "
-            "profiling/live.py) is not ported to repro_torch yet; it is "
-            "the self-healing slice")
+    def self_heal(self, canary_payloads: Sequence[Any], *,
+                  policy=None, poll_interval_s: float = 0.25):
+        """A :class:`~repro_torch.runtime.selfheal.SelfHealingController`
+        wired to this deployment's live server: live telemetry -> rolling
+        trace -> drift detection -> guarded (canary + rollback) replans
+        through the front-door registry.  Needs a live :meth:`serve`
+        server and a ``stage_fn_builder`` (replans change the stage
+        shapes).  The spec's ``drift_threshold``/``canary_requests`` seed
+        the policy unless an explicit ``policy`` is given.  Caller owns
+        the controller's lifecycle (use as a context manager)."""
+        self._check_open("self_heal()")
+        srv = self._live_server()
+        if srv is None:
+            raise RuntimeError("self_heal needs a live server; call "
+                               "serve() first")
+        if self._builder is None:
+            raise ValueError("self_heal needs stage_fn_builder (guarded "
+                             "replans rebuild the stage functions)")
+        from ..runtime.selfheal import DriftPolicy, SelfHealingController
+        if policy is None:
+            policy = DriftPolicy(
+                drift_threshold=self.spec.drift_threshold or 0.5,
+                canary_requests=self.spec.canary_requests)
+        return SelfHealingController(
+            srv, self.spec, self.graph, self._builder,
+            policy=policy, canary_payloads=canary_payloads,
+            poll_interval_s=poll_interval_s,
+            tpu_model=self._tpu_model, base_spec=self._base_spec)
 
     def reconfigure(self, spec: Optional[DeploymentSpec] = None, *,
                     stages: Optional[int] = None,

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -78,15 +79,51 @@ def stage_block_counts(plan: PlacementPlan, n_blocks: int) -> List[int]:
     return counts
 
 
+def thread_streams(device: torch.device
+                   ) -> Callable[[], Optional[torch.cuda.Stream]]:
+    """A getter of the calling thread's own CUDA stream on ``device``,
+    made at the thread's first call (``None`` off CUDA).  The workers of a
+    replicated stage all call one stage function: on one shared stream
+    each worker's ``synchronize()`` would wait for the others' queued
+    work, so the replicas would run one after the other and each busy
+    time would count the others' work.  On its own stream a worker waits
+    for its own work only."""
+    if device.type != "cuda":
+        return lambda: None
+    local = threading.local()
+
+    def get() -> torch.cuda.Stream:
+        stream = getattr(local, "stream", None)
+        if stream is None:
+            stream = local.stream = torch.cuda.Stream(device)
+        return stream
+    return get
+
+
+def _record_inputs(stream: Optional[torch.cuda.Stream],
+                   tensors: Sequence[torch.Tensor]) -> None:
+    """Tell the caching allocator that ``tensors``, made on another
+    thread's stream, are used on ``stream`` too, so their memory is not
+    handed out again before ``stream``'s work on them is done."""
+    if stream is None:
+        return
+    for t in tensors:
+        if t.is_cuda:
+            t.record_stream(stream)
+
+
 def _stage_fn(cfg: lm.LMConfig, params: lm.Params, blocks: Sequence,
               first: bool, last: bool,
-              stream: Optional[torch.cuda.Stream]) -> Callable:
+              streams: Callable[[], Optional[torch.cuda.Stream]]
+              ) -> Callable:
     def run(x_or_tokens: torch.Tensor) -> torch.Tensor:
         # the executor times this host call as the stage's busy time, and
         # the next stage reads the result on its own thread and stream:
-        # finishing the stream's work before returning makes the busy
+        # finishing this worker's stream before returning makes the busy
         # time device time and hands on a finished tensor
+        stream = streams()
         with torch.cuda.stream(stream):
+            _record_inputs(stream, [x_or_tokens])
             x = (lm.embed_tokens(cfg, params, x_or_tokens) if first
                  else x_or_tokens)
             positions = lm.positions_for(x)
@@ -105,24 +142,25 @@ def make_stage_fns(cfg: lm.LMConfig, params: lm.Params,
                    device: torch.device) -> List[Callable]:
     """Per-stage callables applying a contiguous block range (+ embed on
     stage 0, final norm and last-token unembedding on the last stage),
-    each on its own CUDA stream when ``device`` is a CUDA device."""
+    each calling thread on its own CUDA stream when ``device`` is a CUDA
+    device (:func:`thread_streams`)."""
+    device = torch.device(device)
     offsets = [0, *itertools.accumulate(counts)]
-    fns = []
-    for i in range(len(counts)):
-        stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                  else None)
-        fns.append(_stage_fn(cfg, params,
-                             params["blocks"][offsets[i]:offsets[i + 1]],
-                             i == 0, i == len(counts) - 1, stream))
-    return fns
+    return [_stage_fn(cfg, params,
+                      params["blocks"][offsets[i]:offsets[i + 1]],
+                      i == 0, i == len(counts) - 1, thread_streams(device))
+            for i in range(len(counts))]
 
 
 def _cnn_stage_fn(model, params, layers: Sequence[str],
-                  stream: Optional[torch.cuda.Stream]) -> Callable:
+                  streams: Callable[[], Optional[torch.cuda.Stream]]
+                  ) -> Callable:
     def run(boundary: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         # as _stage_fn: the stage's busy time is device time, and the next
         # stage gets finished tensors
+        stream = streams()
         with torch.cuda.stream(stream):
+            _record_inputs(stream, list(boundary.values()))
             out = model.apply_subset(params, boundary, layers)
             if stream is not None:
                 stream.synchronize()
@@ -134,15 +172,14 @@ def cnn_stage_fns(model, params, plan: PlacementPlan,
                   device) -> List[Callable]:
     """Per-stage callables of a CNN ``GraphModel`` (``models/cnn.py``):
     stage i runs ``model.apply_subset(params, boundary, layers)`` over the
-    plan's i-th layer range, on its own CUDA stream when ``device`` is a
-    CUDA device.  A request is ``{GraphModel.INPUT: x}`` with x (B, H, W,
-    C) on ``device``; the last stage returns ``{model.output: y}``.  Pass
+    plan's i-th layer range, each calling thread (a replicated stage has
+    one a replica) on its own CUDA stream when ``device`` is a CUDA
+    device.  A request is ``{GraphModel.INPUT: x}`` with x (B, H, W, C)
+    on ``device``; the last stage returns ``{model.output: y}``.  Pass
     ``lambda p: cnn_stage_fns(model, params, p, device)`` to
     ``deploy(..., stage_fn_builder=)``."""
     device = torch.device(device)
-    return [_cnn_stage_fn(model, params, layers,
-                          torch.cuda.Stream(device)
-                          if device.type == "cuda" else None)
+    return [_cnn_stage_fn(model, params, layers, thread_streams(device))
             for layers in plan.stage_layers]
 
 
@@ -168,20 +205,38 @@ def cnn_requests(model, n: int, device, seed: int = 0
 
 
 def spec_from_args(args: argparse.Namespace) -> DeploymentSpec:
-    """CLI flags -> declarative DeploymentSpec (the front door)."""
-    common = dict(model=f"lm:{args.arch}:seq={args.seq}",
-                  stages=args.stages, microbatch=args.microbatch,
-                  microbatch_wait_s=args.microbatch_wait_ms / 1e3,
-                  max_batch=args.requests, max_wait_s=0.005)
+    """CLI flags -> declarative DeploymentSpec (the front door).
+
+    ``--device-budget`` switches to the joint cuts+replicas placement
+    strategy over that many devices; otherwise ``--stages`` identical
+    devices, one per stage, with the requested split strategy."""
+    common = dict(
+        model=f"lm:{args.arch}:seq={args.seq}",
+        microbatch=args.microbatch,
+        microbatch_wait_s=args.microbatch_wait_ms / 1e3,
+        max_batch=args.requests, max_wait_s=0.005,
+        cost_source=args.cost_source,
+        hedge_after=args.hedge_after_ms / 1e3 or None,
+        stage_loss_retries=args.stage_loss_retries,
+        deadline_ms=args.deadline_ms or None,
+        shed_policy=args.shed_policy,
+        drift_threshold=args.drift_threshold,
+        canary_requests=args.canary_requests)
     if args.workload == "decode":
         # decode plans at the (concurrency, max_context) operating point
         # with the per-token cost regime; see repro_torch.decode
         return DeploymentSpec(strategy="decode_placement",
-                              workload="decode",
+                              stages=args.stages, workload="decode",
                               max_context=args.max_context,
                               decode_concurrency=args.decode_concurrency,
                               **common)
-    return DeploymentSpec(strategy=args.strategy, **common)
+    if args.device_budget:
+        # joint cuts+replicas search: a bottleneck stage may get k devices
+        # (round-robin fan-out in the executor, order-restoring fan-in)
+        return DeploymentSpec(strategy="placement",
+                              device_budget=args.device_budget, **common)
+    return DeploymentSpec(strategy=args.strategy, stages=args.stages,
+                          **common)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -206,6 +261,57 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "into one call; 1 = off)")
     ap.add_argument("--microbatch-wait-ms", type=float, default=2.0,
                     help="max hold time for a micro-batch bucket to fill")
+    ap.add_argument("--device-budget", type=int, default=0,
+                    help="plan over this many devices with replicated "
+                         "bottleneck stages (the 'placement' strategy; "
+                         "0 = off, use --stages identical devices, one "
+                         "per stage)")
+    ap.add_argument("--hedge-after-ms", type=float, default=0.0,
+                    help="speculatively re-dispatch an item stuck on a "
+                         "replicated stage for this long to another "
+                         "replica (first result wins; 0 = off)")
+    ap.add_argument("--stage-loss-retries", type=int, default=0,
+                    help="re-admit a request that crossed a dead stage "
+                         "this many times (survives degraded-mode "
+                         "replans; 0 = fail fast)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request latency budget: a request past it "
+                         "completes with DeadlineExceeded at admission or "
+                         "merge exit instead of waiting unbounded (0 = "
+                         "off)")
+    ap.add_argument("--shed-policy", default="none",
+                    choices=["none", "deadline"],
+                    help="'deadline': shed requests at admission when the "
+                         "queue-delay estimate (in_flight x service pace) "
+                         "would outlive their deadline budget; callers "
+                         "get Overloaded + a jittered retry_after_s hint")
+    ap.add_argument("--drift-threshold", type=float, default=0.0,
+                    help="relative modeled-vs-observed per-stage drift "
+                         "past which the self-healing controller replans "
+                         "from live telemetry (0 = loop off)")
+    ap.add_argument("--canary-requests", type=int, default=4,
+                    help="held-aside requests validating a candidate "
+                         "executor before a guarded reconfigure commits")
+    ap.add_argument("--cost-source", default="analytic",
+                    help="where the planner's per-depth costs come from: "
+                         "'analytic' (closed-form device model), "
+                         "'trace:<path>' (a repro_torch.profiling "
+                         "ProfileTrace artifact), or 'calibrated:<path>' "
+                         "(analytic model least-squares-fit to that "
+                         "trace)")
+    ap.add_argument("--fleet", default="",
+                    help="path to a FleetSpec JSON document: serve N "
+                         "models on one shared device pool (SLO-driven "
+                         "pool split, weighted-fair admission, "
+                         "autoscaling) and drive the synthetic traffic "
+                         "scenario against it (sleep-based stages: the "
+                         "card is not used); ignores the single-model "
+                         "flags")
+    ap.add_argument("--fleet-windows", type=int, default=10,
+                    help="traffic windows per fleet scenario phase")
+    ap.add_argument("--fleet-service-ms", type=float, default=6.0,
+                    help="synthetic whole-model service time per fleet "
+                         "member (sleep-based stage fns)")
     ap.add_argument("--workload", default="batch",
                     choices=["batch", "decode"],
                     help="'batch': prefill request/response serving "
@@ -250,12 +356,21 @@ def setup(args: argparse.Namespace):
     return cfg, params, dep, reqs
 
 
-def serve_stream(dep, reqs: Sequence[torch.Tensor]):
+def serve_stream(dep, reqs: Sequence[torch.Tensor],
+                 canaries: Optional[Sequence[Any]] = None):
     """Serve one warm-up request, then stream ``reqs`` (no barrier).
-    Returns (outputs in request order, snapshot of the stream, seconds)."""
+    With ``canaries``, a self-healing controller
+    (:meth:`~repro_torch.api.Deployment.self_heal` over those held-aside
+    payloads) watches the stream on its own thread, as the reference's
+    ``--drift-threshold`` does; its windows, commits, rollbacks, state and
+    events land in the snapshot under ``"self_heal"``, and the executor's
+    ``health_snapshot()`` under ``"health"``.  Returns (outputs in request
+    order, snapshot of the stream, seconds)."""
     with dep.serve() as server:
         server.serve_batch(reqs[:1])           # warm-up
         server.start()                          # admission loop
+        healer = (dep.self_heal(canaries).start() if canaries is not None
+                  else None)
         server.snapshot()                       # reset the delta window
         t0 = time.perf_counter()
         pending = [server.submit(r) for r in reqs]
@@ -264,6 +379,15 @@ def serve_stream(dep, reqs: Sequence[torch.Tensor]):
                 raise TimeoutError(f"request {req.rid} timed out")
         seconds = time.perf_counter() - t0
         snap = server.snapshot()
+        # cumulative over the warm-up and the stream: hedged duplicates,
+        # failover re-dispatches and live replicas per stage
+        snap["health"] = server.executor.health_snapshot()
+        if healer is not None:
+            healer.stop()
+            snap["self_heal"] = {
+                "windows": healer.windows, "commits": healer.commits,
+                "rollbacks": healer.rollbacks, "state": healer.state,
+                "events": list(healer.events)}
     errors = [r.error for r in pending if r.error is not None]
     if errors:
         raise RuntimeError(f"{len(errors)} requests failed") from errors[0]
@@ -272,17 +396,22 @@ def serve_stream(dep, reqs: Sequence[torch.Tensor]):
 
 def run(args: argparse.Namespace) -> Dict[str, Any]:
     """Plan, serve one warm-up request and then ``args.requests`` streamed
-    ones, and check the first against the direct forward.  Runs
-    ``args.requests + 2`` whole-model forwards (warm-up, requests, direct
-    reference).  Returns the config, weights, plan, requests, outputs,
-    snapshot, wall time and the pipeline-vs-direct error."""
+    ones (under the self-healing controller when ``--drift-threshold`` is
+    set, its canaries the first ``--canary-requests`` requests), and
+    check the first against the direct forward.  Runs ``args.requests +
+    2`` whole-model forwards (warm-up, requests, direct reference), plus
+    any hedged duplicates and canary runs.  Returns the config, weights,
+    plan, requests, outputs, snapshot, wall time and the pipeline-vs-direct
+    error."""
     cfg, params, dep, reqs = setup(args)
-    outs, snap, seconds = serve_stream(dep, reqs)
+    canaries = (reqs[:args.canary_requests] if args.drift_threshold > 0
+                else None)
+    outs, snap, seconds = serve_stream(dep, reqs, canaries)
     ref = lm.forward(cfg, params, {"tokens": reqs[0]}, last_token_only=True)
     err = float((outs[0] - ref).abs().max())
-    return {"cfg": cfg, "params": params, "plan": dep.plan, "requests": reqs,
-            "outs": outs, "snapshot": snap, "seconds": seconds,
-            "max_err": err}
+    return {"cfg": cfg, "params": params, "plan": dep.plan,
+            "requests": reqs, "outs": outs, "snapshot": snap,
+            "seconds": seconds, "max_err": err}
 
 
 def setup_decode(args: argparse.Namespace):
@@ -392,8 +521,68 @@ def main_decode(args: argparse.Namespace) -> Dict[str, Any]:
     return res
 
 
+def run_fleet(args: argparse.Namespace) -> Dict[str, Any]:
+    """``--fleet fleet.json``: bring up a multi-tenant fleet from a spec
+    document and drive the reference's synthetic traffic scenario against
+    it -- weighted-fair routing, per-member SLOs, and a mid-run traffic
+    shift the autoscaler chases.  The stages sleep their members' service
+    times (``fleet.scenario``): the card is not used, as in the
+    reference.  Returns the spec, device splits, metrics, attainment,
+    audit and autoscaler events; raises unless every member lost and
+    misordered nothing."""
+    from repro_torch.fleet import FleetSpec
+    from repro_torch.fleet.scenario import (FleetScenario, TrafficPhase,
+                                            summarize_member)
+
+    with open(args.fleet) as f:
+        fspec = FleetSpec.from_json(f.read())
+    names = list(fspec.member_names)
+    print(f"fleet: {len(names)} members over "
+          f"{fspec.pool().n_devices} devices: {names}")
+
+    svc = args.fleet_service_ms / 1e3
+    sc = FleetScenario(fspec, {n: svc for n in names})
+    fleet = sc.deploy()
+    counts0 = fleet.device_counts()
+    print(f"pool split: {counts0} (mode={fleet.placement.mode}, "
+          f"worst modeled norm {fleet.placement.worst_norm:.2f})")
+
+    # phase 1: share-proportional traffic; phase 2: the first member's
+    # load triples (the shift the autoscaler must chase)
+    base = {m.name: max(1, round(2 * m.share)) for m in fspec.members}
+    shifted = dict(base)
+    shifted[names[0]] = 3 * base[names[0]]
+    with fleet:
+        metrics = sc.drive(fleet, [
+            TrafficPhase(windows=args.fleet_windows, rates=base),
+            TrafficPhase(windows=args.fleet_windows, rates=shifted),
+        ])
+        counts1 = fleet.device_counts()
+        events = ([] if fleet.autoscaler is None
+                  else list(fleet.autoscaler.events))
+    att = sc.attainment(metrics)
+    for n in names:
+        print(f"  {n}: {summarize_member(metrics[n])} "
+              f"attainment={att[n]:.2f}")
+    audit = sc.audit()
+    moves = [e for e in events if e["event"] in ("commit", "rollback")]
+    print(f"audit: {audit}")
+    print(f"device split {counts0} -> {counts1}; "
+          f"{sum(1 for e in moves if e['event'] == 'commit')} committed "
+          f"moves, {sum(1 for e in moves if e['event'] == 'rollback')} "
+          f"rollbacks")
+    if not all(a["lost"] == 0 and a["misordered"] == 0
+               for a in audit.values()):
+        raise SystemExit(f"fleet lost or misordered requests: {audit}")
+    return {"spec": fspec, "counts_before": counts0,
+            "counts_after": counts1, "metrics": metrics,
+            "attainment": att, "audit": audit, "events": events}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
+    if args.fleet:
+        return run_fleet(args)
     if configs.get(args.arch).config().family not in SERVED_FAMILIES:
         return plan_only(args)
     if args.workload == "decode":
@@ -411,6 +600,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
           f"{lat['p95_s'] * 1e3:.1f} / {lat['p99_s'] * 1e3:.1f}")
     print(f"stage busy (s): {[round(b, 4) for b in busy]}")
     print(f"balance (mean/max): {stage_balance_metrics(busy)['balance']:.3f}")
+    if "self_heal" in snap:
+        heal = snap["self_heal"]
+        print(f"self-heal: {heal['windows']} windows, {heal['commits']} "
+              f"commits, {heal['rollbacks']} rollbacks "
+              f"(state={heal['state']})")
     print(f"pipeline vs direct max err: {res['max_err']:.2e}")
     if not res["max_err"] < 2e-2:
         raise SystemExit(f"pipeline output differs from the direct forward "

@@ -82,8 +82,21 @@ class GraphModel:
         self.nodes: Dict[str, OpNode] = {}
         self._order: List[str] = []
         self.output: Optional[str] = None
+        self._depths: Dict[str, int] = {}
 
     INPUT = "__input__"
+
+    def depths(self) -> Dict[str, int]:
+        """Depth of each node, as ``LayerGraph.depths`` counts it: 0 for a
+        node that reads only the input, else 1 + its deepest input's."""
+        if len(self._depths) != len(self._order):     # nodes were added
+            depths: Dict[str, int] = {}
+            for name in self._order:
+                ins = [depths[i] for i in self.nodes[name].inputs
+                       if i != self.INPUT]
+                depths[name] = 1 + max(ins) if ins else 0
+            self._depths = depths
+        return self._depths
 
     def add(self, node: OpNode) -> str:
         if node.name in self.nodes or node.name == self.INPUT:
@@ -138,7 +151,9 @@ class GraphModel:
                      layer_names: Sequence[str]) -> Dict[str, torch.Tensor]:
         """Execute only `layer_names` (a contiguous depth range), reading
         cut-crossing inputs from `boundary`; returns activations needed by
-        later layers (plus the model output if produced)."""
+        later layers (plus the model output if produced).  A boundary
+        activation that a layer past the range still reads (a skip
+        connection over the whole stage) is passed on too."""
         subset = set(layer_names)
         acts: Dict[str, torch.Tensor] = dict(boundary)
         for name in self._order:
@@ -148,12 +163,14 @@ class GraphModel:
             xs = [acts[i] for i in node.inputs]
             acts[name] = node.apply(params.get(name, {}), xs)
         # outputs = activations consumed outside the subset, or final output
+        depth = self.depths()
+        last = max(depth[n] for n in subset)
         needed: Dict[str, torch.Tensor] = {}
         for name in self._order:
             if name in subset:
                 continue
             for i in self.nodes[name].inputs:
-                if i in subset:
+                if i in subset or (i in boundary and depth[name] > last):
                     needed[i] = acts[i]
         if self.output in subset:
             needed[self.output] = acts[self.output]

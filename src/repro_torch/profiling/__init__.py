@@ -15,29 +15,22 @@ balanced cuts.  This package provides that loop on the card:
   through, selected per-deployment via ``DeploymentSpec.cost_source``
   (``"analytic"`` / ``"trace:<path>"`` / ``"calibrated:<path>"``);
 * :func:`fit_trace` — least-squares calibration of the analytic model's
-  per-device coefficients against a trace.
+  per-device coefficients against a trace;
+* :class:`LiveTraceBuilder` — the online variant: fold serving telemetry
+  (observed per-stage per-item times) into a rolling partial trace and a
+  continuously-refit calibrated source, the feedback half of the
+  self-healing loop (:mod:`repro_torch.runtime.selfheal`).
 
-``trace.py``, ``calibrate.py`` and ``sources.py`` are copies of the
-reference's jax-free modules.  The online variant (``live.py``'s
-``LiveTraceBuilder``, the feedback half of the self-healing loop) is not
-ported yet.
+``trace.py``, ``calibrate.py``, ``sources.py`` and ``live.py`` are copies
+of the reference's jax-free modules.
 """
 from .calibrate import CalibrationFit, cliff_bytes_per_depth, fit_trace
+from .live import LiveTraceBuilder
 from .profiler import profile_model, trimmed_mean
 from .sources import (AnalyticCostSource, CalibratedCostSource, CostSource,
                       DepthCosts, TraceCostSource, parse_cost_source,
                       resolve_cost_source)
 from .trace import TRACE_FORMAT, DepthSample, ProfileTrace
-
-
-def __getattr__(name):
-    if name == "LiveTraceBuilder":
-        raise NotImplementedError(
-            "LiveTraceBuilder: the live trace source (profiling/live.py, "
-            "the feedback half of the self-healing loop) is not ported to "
-            "repro_torch yet; it is the self-healing slice")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
 
 __all__ = [
     "ProfileTrace", "DepthSample", "TRACE_FORMAT",
@@ -45,4 +38,5 @@ __all__ = [
     "CostSource", "DepthCosts", "AnalyticCostSource", "TraceCostSource",
     "CalibratedCostSource", "parse_cost_source", "resolve_cost_source",
     "CalibrationFit", "fit_trace", "cliff_bytes_per_depth",
+    "LiveTraceBuilder",
 ]

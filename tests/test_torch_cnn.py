@@ -318,6 +318,34 @@ def test_deployed_cnn_serves_the_direct_forward():
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("stages", [4, 6])
+def test_skip_connection_over_a_whole_stage(stages):
+    """MobileNetV2's balanced plans put a whole stage inside one residual
+    (4 stages: stage 1 is depth 126 alone; ``bn_70`` feeds an add in
+    stage 2).  The port's ``apply_subset`` passes such a boundary
+    activation on, so the stage chain equals the reference's direct
+    forward (2e-4, the whole-model tolerance); the reference's own chain
+    drops it and raises ``KeyError``."""
+    jm, tm = jcnn.REAL_CNNS["MobileNetV2"](), tcnn.REAL_CNNS["MobileNetV2"]()
+    assert tm.depths() == tm.to_layer_graph().depths()
+    tree, tparams = _weights(jm)
+    x = np.random.default_rng(1).normal(
+        size=(1,) + tuple(jm.input_shape)).astype(np.float32)
+    expect = np.asarray(jm.apply(jax.tree.map(jnp.asarray, tree),
+                                 jnp.asarray(x)))
+    pl = tapi.plan(tapi.DeploymentSpec(stages=stages, strategy="balanced"),
+                   graph=tm.to_layer_graph())
+    boundary = {tm.INPUT: torch.from_numpy(x)}
+    for layers in pl.stage_layers:
+        boundary = tm.apply_subset(tparams, boundary, layers)
+    np.testing.assert_allclose(boundary[tm.output].numpy(), expect,
+                               rtol=2e-4, atol=2e-4)
+    jb = {jm.INPUT: jnp.asarray(x)}
+    with pytest.raises(KeyError):
+        for layers in pl.stage_layers:
+            jb = jm.apply_subset(jax.tree.map(jnp.asarray, tree), jb, layers)
+
+
 # ---------------------------------------------------------------------------
 # recurrentgemma: windowed prefill above the window
 # ---------------------------------------------------------------------------

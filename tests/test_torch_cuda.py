@@ -15,6 +15,8 @@ bf16, the tolerances of the reference's own kernel tests.  matmul_qi8 and
 the int8 API: exact.  The CNN forward: 1e-4 of max |y| against the CPU
 (fp32, TF32 off; convolution algorithms sum in other orders).
 """
+import time
+
 import numpy as np
 import pytest
 
@@ -497,3 +499,47 @@ def test_cnn_served_on_card_equals_direct(sm90):
     assert snap["requests"] == 4
     for x, out in zip(xs, outs):
         assert torch.equal(out[m.output], m.apply(params, x))
+
+
+class _SleepStage:
+    """A stand-in for a CNN ``GraphModel``: its one stage spins the card
+    for ``cycles`` cycles, then returns 2 x + 1, noting the stream it ran
+    on."""
+
+    def __init__(self, cycles):
+        self.cycles = cycles
+        self.streams = set()
+
+    def apply_subset(self, params, boundary, layers):
+        self.streams.add(torch.cuda.current_stream().cuda_stream)
+        torch.cuda._sleep(self.cycles)
+        return {"y": boundary["x"] * 2 + 1}
+
+
+def test_replica_workers_overlap_on_their_own_streams(sm90):
+    """One stage replicated twice: both workers call the one function of
+    ``cnn_stage_fns``, each on its own thread's stream, so two calls in
+    flight overlap on the card (two take less than 1.5x one; on a shared
+    stream each ``synchronize()`` would wait for the other's work) and
+    each returns its own input's result."""
+    from repro_torch.core.pipeline import PipelineExecutor
+
+    class OneStage:
+        stage_layers = [["y"]]
+
+    model = _SleepStage(cycles=200_000_000)     # ~0.1 s at the card's clock
+    fns = serve.cnn_stage_fns(model, {}, OneStage(), sm90)
+    xs = [torch.full((4,), float(i), device=sm90) for i in range(3)]
+    with PipelineExecutor(fns, replicas=[2]) as ex:
+        ex.submit({"x": xs[2]}).result(60)       # warm-up
+        t0 = time.perf_counter()
+        ex.submit({"x": xs[2]}).result(60)
+        one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        futs = [ex.submit({"x": x}) for x in xs[:2]]
+        outs = [f.result(60) for f in futs]
+        two = time.perf_counter() - t0
+    assert len(model.streams) == 2
+    for x, out in zip(xs, outs):
+        assert torch.equal(out["y"], x * 2 + 1)
+    assert two < 1.5 * one, (one, two)

@@ -58,6 +58,20 @@ def test_decode_engine_import_loads_neither_jax_nor_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", ["repro_torch.runtime",
+                                    "repro_torch.fleet",
+                                    "repro_torch.checkpoint"])
+def test_fault_tolerance_tiers_load_neither_jax_nor_repro(module):
+    code = (f"import sys, {module}; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("call", ["scaled_dot_product_attention", "_int_mm",
                                   "torch.compile"])
 def test_no_source_calls_a_library_kernel(call):

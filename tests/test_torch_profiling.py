@@ -147,8 +147,17 @@ def test_malformed_cost_sources_raise_at_construction():
 
 
 def test_live_trace_builder_is_not_ported():
-    with pytest.raises(NotImplementedError, match="repro_torch"):
-        tprof.LiveTraceBuilder
+    """Pinned the raise while ``profiling/live.py`` was unported; it is
+    ported now (held against the reference in
+    ``tests/test_torch_selfheal.py``): the package exports the port's own
+    class, not the reference's, and an unknown name raises
+    ``AttributeError`` instead of the old ``NotImplementedError``."""
+    from repro.profiling import LiveTraceBuilder as JLive
+    from repro_torch.profiling.live import LiveTraceBuilder
+    assert tprof.LiveTraceBuilder is LiveTraceBuilder is not JLive
+    assert "LiveTraceBuilder" in tprof.__all__
+    with pytest.raises(AttributeError):
+        tprof.NoSuchSource
 
 
 def test_memory_refinement_decides_the_cuts_on_the_edge_tpu(tmp_path):

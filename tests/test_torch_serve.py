@@ -22,8 +22,9 @@ from repro.launch.pipeline_spmd import stage_block_counts as j_counts
 from repro.models import api as jmodels
 from repro_torch import api as tapi
 from repro_torch import configs as tconfigs
-from repro_torch import profiling as tprofiling
 from repro_torch.launch import serve as tserve
+from repro_torch.models import api as tmodels
+from repro_torch.models import lm as tlm
 from repro_torch.models.convert import params_from_numpy
 
 ARCH = "qwen3-1.7b"
@@ -138,7 +139,9 @@ def test_serve_entry_point_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("call", [
     lambda dep: dep.executor(backend="spmd"),
-    lambda dep: dep.self_heal([]),
+    # the encoder-decoder family (whisper) is not ported
+    lambda dep: tmodels.forward(dataclasses.replace(
+        tconfigs.get(ARCH).smoke_config(), family="encdec"), {}, {}),
     # decode serves the dense family; the MoE/VLM decode path is not
     # ported yet
     lambda dep: tapi.Deployment(
@@ -150,10 +153,35 @@ def test_serve_entry_point_raises_without_cuda(monkeypatch):
     lambda dep: tapi.deploy(tapi.DeploymentSpec(model="cnn:ResNet50",
                                                 stages=2, backend="spmd"),
                             stage_fns=[None, None]).executor(),
-    # trace: and calibrated: plan; the live (serving-fed) trace source is
-    # the self-healing slice
-    lambda dep: tprofiling.LiveTraceBuilder,
-], ids=["spmd", "self_heal", "decode", "cnn", "trace_cost_source"])
+    # the dense variants with relu^2 MLPs (minitron) are not ported
+    lambda dep: tlm.require_ported(dataclasses.replace(
+        tconfigs.get(ARCH).smoke_config(), mlp_kind="relu2")),
+], ids=["spmd", "encdec_family", "decode", "cnn", "relu2_mlp"])
 def test_unported_paths_raise(served, call):
     with pytest.raises(NotImplementedError, match="repro_torch"):
         call(served["tdep"])
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--device-budget", "6"],
+    ["--hedge-after-ms", "12.5", "--device-budget", "5"],
+    ["--stage-loss-retries", "2"],
+    ["--deadline-ms", "250", "--shed-policy", "deadline"],
+    ["--cost-source", "trace:build/profile/ResNet50.json"],
+    ["--cost-source", "calibrated:trace.json", "--stages", "3"],
+    ["--drift-threshold", "0.3", "--canary-requests", "2"],
+    ["--microbatch", "4", "--microbatch-wait-ms", "1.5", "--requests", "9"],
+    ["--workload", "decode", "--max-context", "256",
+     "--decode-concurrency", "8", "--hedge-after-ms", "3"],
+], ids=["defaults", "device_budget", "hedge", "stage_loss_retries",
+        "deadline_shed", "trace_source", "calibrated_source",
+        "drift_threshold", "microbatch", "decode"])
+def test_spec_from_args_matches_reference(argv):
+    """The port's flags give the reference's ``DeploymentSpec`` field by
+    field (the reference parses inside ``main``, so its builder gets the
+    port's parsed namespace)."""
+    args = tserve.parse_args(["--seq", "32", *argv])
+    got = tserve.spec_from_args(args).to_dict()
+    want = jserve.spec_from_args(args).to_dict()
+    assert got == want
