@@ -17,10 +17,14 @@ With no arguments:
    registers and spills of each kernel (failing if flash_decode,
    rwkv6_scan or rglru_scan spills) and the tensor-core instructions in
    the SASS of bf16 flash_attention and flash_decode (HMMA) and
-   matmul_qi8 (IMMA), failing if any of their instantiations has none;
+   matmul_qi8 (IMMA), failing if any of their instantiations has none
+   (the head dim 96 ones named; flash_attention's D 96 instantiations
+   must not spill either);
 3. holds each kernel against its plain PyTorch version at the shapes the
    model paths give it (the flash kernels also at recurrentgemma's head dim
-   256 with 16 q heads per kv head; flash_attention with recurrentgemma's
+   256 with 16 q heads per kv head and at phi3-mini's head dim 96 with 32
+   q and kv heads, bf16 and fp32, ragged S, decode lengths ending inside
+   a split; flash_attention with recurrentgemma's
    window of 2048 at S = T = 4096; matmul_qi8 exactly at 512^3, ResNet50's
    head, a 1x1 conv and a ragged K; flash_decode with lengths ending
    inside a split, rwkv6_scan with decays of 1e-30 and 1; rglru_scan at
@@ -31,20 +35,26 @@ With no arguments:
    and times kernel, plain version and, where one exists, one library
    call (the yardstick; the port never calls it; no single PyTorch call
    computes either recurrence), with flash_attention's achieved TFLOP/s
-   beside SDPA's, flash_decode also at recurrentgemma's full window and
-   beside one torch.sum over as many bytes, rwkv6_scan also at S = 1,
+   beside SDPA's (both flash kernels also at D 96), flash_decode also at
+   recurrentgemma's full window and beside one torch.sum over as many
+   bytes, rwkv6_scan also at S = 1,
    rglru_scan in fp32 and bf16 and at S = 1 (B 2 and 16) beside one
    torch.add over as many bytes;
 4. holds the full model on the card against the same model on the CPU at
-   the smoke configs of qwen3-1.7b, rwkv6-1.6b and recurrentgemma-9b (the
-   CPU runs the plain versions), for a prefill forward and for a greedy
-   decode loop through the KV cache or the recurrent state;
+   the smoke configs of qwen3-1.7b, rwkv6-1.6b, recurrentgemma-9b and the
+   six archs of the LM-families slice (qwen2.5-14b, minitron-4b,
+   phi3-mini-3.8b at its head dim 96, granite-moe-1b-a400m,
+   phi3.5-moe-42b-a6.6b, qwen2-vl-72b; the CPU runs the plain versions),
+   for a prefill forward and for a greedy decode loop through the KV cache
+   or the recurrent state;
 5. drives the prefill serving path -- the balanced 4-stage plan of
    full-width qwen3-1.7b with random weights from a seed, 8 streamed
    requests of 1024 tokens -- with every kernel's launch count set to 0
    just before and read just after, checks the output against the direct
    forward, and checks that every layer of every forward went through the
-   kernel;
+   kernel; then the same for full-width granite-moe-1b-a400m (at its
+   config's MoE capacity) and phi3-mini-3.8b (head dim 96), each after
+   the decode run of the arch before it;
 6. drives the decode serving path the same way -- the decode_placement
    4-stage plan of full-width qwen3-1.7b at concurrency 8 and context 2048
    (planned for a device with a quarter of the card's memory per stage),
@@ -54,7 +64,10 @@ With no arguments:
    token of the first streams against the full forward of its stream
    (teacher forcing through the prefill kernel), within the bf16 noise
    measured against an fp32 evaluation; then the same decode path at full
-   width in fp32 against its fp32 teacher, within 2e-2;
+   width in fp32 against its fp32 teacher, within 2e-2; and the same for
+   granite-moe-1b-a400m and phi3-mini-3.8b, the MoE served and
+   teacher-forced at capacity_factor n_experts / top_k, which drops no
+   token (its teacher routes its whole sequence as one group);
 7. drives rwkv6-1.6b at full width through the model API (random bf16
    weights from seed 0, after printing its 4-stage balanced plan): 4
    prompts of 1024 tokens prefilled into the recurrent state, then 64
@@ -68,6 +81,15 @@ With no arguments:
    decode loop of 16 rows, a 32-token prompt fed token by token plus 32
    greedy tokens at max_len 64 (26 rglru_scan and 12 flash_decode launches
    a step), teacher-forced and repeated in fp32 as in 7;
+   then qwen2.5-14b (qkv bias), minitron-4b (relu^2, 256k vocab),
+   phi3.5-moe-42b-a6.6b cut to 16 of its 32 layers and qwen2-vl-72b cut
+   to 20 of its 80 layers (the cut printed), each at full width through
+   the model API and freed before the next: one forward of a (1, 1024)
+   batch (qwen2-vl: after 1024 stub patch embeddings from a numpy seed,
+   patches on a 32 x 32 M-RoPE grid, text at its index), then
+   ``api.prefill`` of it and 16 greedy decode steps, each with exact
+   launch counts, the served tokens teacher-forced in bf16 and the loop
+   repeated in fp32 with the weights upcast a layer at a time;
 9. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
    synthetic_cnn(64) at their published input sizes, one forward each on
    the card against the CPU; ResNet50 planned by the analytic Edge TPU
@@ -270,6 +292,24 @@ FLEET_POOL = 16         # distinct images a member's requests cycle over
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12}
 HBM_BYTES_PER_S = 3.35e12
+# the LM-families slice: phi3-mini (head dim 96) and granite-moe served at
+# full width as qwen3; their smoke configs and those of the other new archs
+# card vs CPU; four archs through the model API, two cut in depth to fit
+# the card in bf16 (phi3.5-moe 83.7 GB, qwen2-vl 145.4 GB at full depth)
+D96_ARCH = "phi3-mini-3.8b"
+MOE_ARCH = "granite-moe-1b-a400m"
+FAMILY_SMOKE = ("qwen2.5-14b", "minitron-4b", "phi3-mini-3.8b",
+                "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b",
+                "qwen2-vl-72b")
+API_RUNS = (("qwen2.5-14b", None), ("minitron-4b", None),
+            ("phi3.5-moe-42b-a6.6b", 16), ("qwen2-vl-72b", 20))
+API_PROMPT = 1024       # tokens of the forward (vlm: after its patches)
+API_STEPS = 16          # greedy decode steps after the prefill's token
+API_MIN_DECISIVE = 4    # of the 17 served tokens (one row; the rule of
+                        # TEACHER_MIN_DECISIVE)
+VLM_GRID = 32           # qwen2-vl's 1024 stub patches on a 32 x 32 grid
+CARD = "cuda"
+D96_TAG = "ILi96E"      # a mangled template argument of 96 (the head dim)
 
 
 def cuda_ms(fns, reps=20, backlog=True):
@@ -306,6 +346,19 @@ def tensor_core_ops(path, op, kernel):
     return {fn.split("\n", 1)[0].strip(): len(re.findall(rf"\s{op}\.", fn))
             for fn in sass.split("Function : ")[1:]
             if kernel in fn.split("\n", 1)[0]}
+
+
+def ptxas_spills(log):
+    """Spill store bytes of each entry function in a ``-Xptxas -v`` log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn is not None:
+            out[fn] = int(m.group(1))
+    return out
 
 
 def attention_flops(q, k, causal, window=None):
@@ -353,25 +406,29 @@ def tflops(q, k, ms, window=None):
     return attention_flops(q, k, True, window) / (ms * 1e-3) / 1e12
 
 
-def time_attention(q, k, v):
-    """Kernel, plain version and SDPA (ms), and the bound, on one input."""
+def time_attention(q, k, v, library=True):
+    """Kernel, plain version and (``library``) SDPA (ms), and the bound, on
+    one input.  SDPA is timed in bf16 only: in fp32 it computes in TF32 or
+    through a math path, neither this function's arithmetic."""
     ms = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=True)])
     plain_ms = cuda_ms([lambda: flash_attention_ref(q, k, v, True)])
     library_ms = cuda_ms([
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)])
+            q, k, v, is_causal=True, enable_gqa=True)]) if library else None
     bound_ms, bound_by = attention_bound(q, k, causal=True)
     return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "tflops": tflops(q, k, ms),
-            "library_tflops": tflops(q, k, library_ms)}
+            "library_tflops": (tflops(q, k, library_ms) if library_ms
+                               else None)}
 
 
 def check_flash_attention():
     """Kernel vs plain version at the prefill path's widths (Hq 16, Hkv 8,
-    D 128) and at recurrentgemma's (Hq 16, Hkv 1, D 256).  Returns the
-    record of the qwen3 shape, with the D 256 shape's times under
-    ``d256``."""
+    D 128), at recurrentgemma's (Hq 16, Hkv 1, D 256) and at phi3-mini's
+    (Hq = Hkv = 32, D 96).  Returns the record of the qwen3 shape, with
+    the D 256 shape's times under ``d256`` and the D 96 shape's under
+    ``d96`` (bf16) and ``d96_fp32``."""
     cases = [  # name, b, hq, hkv, s, t, d, dtype, model layout, tol
         ("bf16 causal S=T=1024, model layout", 1, 16, 8, 1024, 1024, 128,
          torch.bfloat16, True, 2e-2),
@@ -385,6 +442,15 @@ def check_flash_attention():
          1024, 1024, 256, torch.bfloat16, True, 2e-2),
         ("fp32 D=256 MQA 16:1 causal ragged S=T=520", 1, 16, 1, 520, 520,
          256, torch.float32, False, 1e-4),
+        # phi3-mini's prefill: MHA 32 heads, head dim 96
+        ("bf16 D=96 MHA 32:32 causal S=T=1024, model layout", 1, 32, 32,
+         1024, 1024, 96, torch.bfloat16, True, 2e-2),
+        ("bf16 D=96 MHA 32:32 causal ragged S=T=1000", 1, 32, 32, 1000,
+         1000, 96, torch.bfloat16, False, 2e-2),
+        ("fp32 D=96 MHA 32:32 causal S=T=1024, model layout", 1, 32, 32,
+         1024, 1024, 96, torch.float32, True, 1e-4),
+        ("fp32 D=96 MHA 32:32 causal ragged S=T=777", 1, 32, 32, 777, 777,
+         96, torch.float32, False, 1e-4),
     ]
     record = None
     for name, b, hq, hkv, s, t, d, dtype, layout, tol in cases:
@@ -401,13 +467,15 @@ def check_flash_attention():
                              f"version on {name}: {err:.3e} > {tol:g}")
         shape = {"b": b, "hq": hq, "hkv": hkv, "s": s, "t": t, "d": d,
                  "dtype": str(dtype), "causal": True}
-        if record is None or (d == 256 and layout):
-            times = time_attention(q, k, v)
+        if record is None or (d in (96, 256) and layout):
+            times = (time_attention(q, k, v) if dtype == torch.bfloat16
+                     else time_attention(q, k, v, library=False))
+            sdpa = ("not timed (fp32)" if times["library_ms"] is None else
+                    f"{times['library_ms']:.4f} ms "
+                    f"({times['library_tflops']:.1f} TFLOP/s)")
             print(f"flash_attention timing at {name}: kernel "
                   f"{times['ms']:.4f} ms ({times['tflops']:.1f} TFLOP/s), "
-                  f"plain {times['plain_ms']:.4f} ms, sdpa "
-                  f"{times['library_ms']:.4f} ms "
-                  f"({times['library_tflops']:.1f} TFLOP/s), bound "
+                  f"plain {times['plain_ms']:.4f} ms, sdpa {sdpa}, bound "
                   f"{times['bound_ms']:.4f} ms ({times['bound_by']})")
             if record is None:
                 record = {"name": "flash_attention", "route": "cuda",
@@ -417,8 +485,8 @@ def check_flash_attention():
                                       "flash_attention.py:74",
                           "max_abs_err": err, **times, "shape": shape}
             else:
-                record["d256"] = {"max_abs_err": err, **times,
-                                  "shape": shape}
+                key = f"d{d}" + ("_fp32" if dtype == torch.float32 else "")
+                record[key] = {"max_abs_err": err, **times, "shape": shape}
         elif dtype == torch.float32 and d == 128:
             # the CUDA-core route, beside the bf16 route's times
             ms = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=True)])
@@ -523,6 +591,17 @@ def check_flash_decode():
         ("bf16 D=256 group 16, B=16 T=2048, model layout, lengths 2048 and "
          "inside a split", 16, 16, 1, 2048, 256, torch.bfloat16, True,
          [2048] * 8 + [0, 1, 100, 127, 129, 1000, 2047, 2048], 2e-2),
+        # phi3-mini's decode point: MHA (group 1), head dim 96
+        ("bf16 D=96 MHA 32:32, B=8 T=2048, model layout, per-slot lengths",
+         8, 32, 32, 2048, 96, torch.bfloat16, True, DECODE_LENS, 2e-2),
+        ("bf16 D=96 MHA 32:32, B=8 T=2048, model layout, lengths ending "
+         "inside a split", 8, 32, 32, 2048, 96, torch.bfloat16, True,
+         [0, 200, 223, 225, 500, 1056, 1057, 1999], 2e-2),
+        ("fp32 D=96 MHA 32:32, B=8 T=2048, model layout, lengths ending "
+         "inside a split", 8, 32, 32, 2048, 96, torch.float32, True,
+         [0, 200, 223, 225, 500, 1056, 1057, 1999], 1e-5),
+        ("fp32 D=96 group 8, B=2 T=300, per-slot lengths", 2, 16, 2, 300,
+         96, torch.float32, False, [300, 17], 1e-5),
     ]
     record = None
     for name, b, hq, hkv, t, d, dtype, layout, lens, tol in cases:
@@ -553,6 +632,7 @@ def check_flash_decode():
         **times["qwen3"]})
     record["d256"] = times["d256"]
     record["d256_full"] = times["d256_full"]
+    record["d96"] = times["d96"]
     return record
 
 
@@ -560,13 +640,16 @@ DECODE_POINTS = {  # b, hq, hkv, t, d, timed length
     "qwen3": (8, 16, 8, DECODE_CONTEXT, 128, DECODE_TIMED_LEN),
     "d256": (GEMMA_ROWS, 16, 1, GEMMA_MAX_LEN, 256, GEMMA_MAX_LEN),
     # recurrentgemma's window when full
-    "d256_full": (GEMMA_ROWS, 16, 1, 2048, 256, 2048)}
+    "d256_full": (GEMMA_ROWS, 16, 1, 2048, 256, 2048),
+    # phi3-mini's decode run: 8 slots mid-stream, MHA, head dim 96
+    "d96": (DECODE_SLOTS, 32, 32, DECODE_CONTEXT, 96, DECODE_TIMED_LEN)}
 
 
 def time_decode_points():
     """Kernel, plain version and SDPA at the qwen3 decode path's point, at
     recurrentgemma's decode loop's (T 64) and at its full window (T 2048),
-    bf16 in the model layout, rotating over cache sets."""
+    and at phi3-mini's (D 96), bf16 in the model layout, rotating over
+    cache sets."""
     out = {}
     for key, (b, hq, hkv, t, d, n) in DECODE_POINTS.items():
         lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
@@ -1626,13 +1709,14 @@ def greedy_decode(cfg, params, prompts, n_new, max_len, token_by_token):
 
 
 def check_family_on_card(arch, seq, prompt_len, n_new, max_len,
-                         token_by_token):
-    """The arch's smoke config (fp32) on the card against the same weights
-    on the CPU, where the kernels' plain versions run: the forward of a
-    (2, seq) batch, and a greedy decode loop of 2 rows through the KV cache
-    or the recurrent state; logits at every step within 1e-4 (summation
-    order over a few layers) and equal greedy tokens."""
-    cfg = configs.get(arch).smoke_config()
+                         token_by_token, **over):
+    """The arch's smoke config (fp32; ``over``: fields replaced) on the
+    card against the same weights on the CPU, where the kernels' plain
+    versions run: the forward of a (2, seq) batch (vlm: patch embeddings
+    and text), and a greedy decode loop of 2 rows through the KV cache or
+    the recurrent state; logits at every step within 1e-4 (summation order
+    over a few layers) and equal greedy tokens."""
+    cfg = dataclasses.replace(configs.get(arch).smoke_config(), **over)
     cpu = torch.device("cpu")
     params = api.init(cfg, cpu, torch.Generator(cpu).manual_seed(0))
     card = to_card(params)
@@ -1643,7 +1727,7 @@ def check_family_on_card(arch, seq, prompt_len, n_new, max_len,
     runs = []
     for dev, p in ((cpu, params), (torch.device("cuda"), card)):
         cache = api.init_cache(cfg, 2, max_len, dev)
-        steps = ([prompt[:, i:i + 1] for i in range(prompt_len)]
+        steps = ([prompt[:, i:i + 1] for i in range(prompt.shape[1])]
                  if token_by_token else [prompt])
         seen, toks = [], []
         for i in range(len(steps) + n_new):
@@ -1654,7 +1738,8 @@ def check_family_on_card(arch, seq, prompt_len, n_new, max_len,
         runs.append((torch.cat(seen, 1), torch.cat(toks, 1)))
     dec_err = (runs[0][0] - runs[1][0]).abs().max().item()
     same = torch.equal(runs[0][1], runs[1][1])
-    print(f"{arch} smoke, card vs CPU (plain versions): forward max_abs_err "
+    label = arch + "".join(f" {k}={v}" for k, v in over.items())
+    print(f"{label} smoke, card vs CPU (plain versions): forward max_abs_err "
           f"{err:.3e}, decode loop ({'token by token' if token_by_token else 'prefilled'} "
           f"{prompt_len}-token prompt + {n_new} steps, max_len {max_len}) "
           f"max_abs_err {dec_err:.3e} (tol 1e-4), greedy tokens equal={same}")
@@ -1693,23 +1778,17 @@ def teacher_rows(cfg, params, prompts, outs):
     return logits[:, p - 1:p - 1 + outs.shape[1]]
 
 
-def teacher_forced(cfg, params, prompts, outs, n_new, max_len,
-                   token_by_token):
-    """The served bf16 tokens against the full forward of prompt + tokens
-    (the method of :func:`check_served_tokens`): each served token's gap to its position's largest
-    logit within twice the bf16 forward's largest deviation from the fp32
-    evaluation of the same weights.  At least TEACHER_AGREE of the served
-    tokens must be the teacher's argmax at the positions where bf16 can
-    resolve the argmax: the teacher's top-2 margin exceeds twice that
+def check_teacher(name, rows, rows32, outs, min_decisive):
+    """Served bf16 tokens ``outs`` (B, n) against the teacher's logits at
+    the positions that predicted them, ``rows`` (B, n, V) in bf16 and
+    ``rows32`` in fp32 (the same weights): each served token's gap to its
+    position's largest logit within twice the bf16 forward's largest
+    deviation from the fp32 evaluation.  At least TEACHER_AGREE of the
+    served tokens must be the teacher's argmax at the positions where bf16
+    can resolve the argmax: the teacher's top-2 margin exceeds twice that
     position's largest bf16-vs-fp32 deviation (elsewhere two bf16
     evaluations may rank a near-tie either way; the gap bound still holds
-    there), and there must be at least TEACHER_MIN_DECISIVE such
-    positions.  Then the same decode loop in fp32 at full width: every token
-    within TEACHER_TOL of its fp32 teacher's largest logit."""
-    cfg32, p32 = dataclasses.replace(cfg, dtype=torch.float32), \
-        to_fp32(params)
-    rows = teacher_rows(cfg, params, prompts, outs)
-    rows32 = teacher_rows(cfg32, p32, prompts, outs)
+    there), and there must be at least ``min_decisive`` such positions."""
     dev = (rows - rows32).abs().amax(-1)                # per position
     noise = dev.max().item()
     tk = outs.to(rows.device)[..., None]
@@ -1719,34 +1798,53 @@ def teacher_forced(cfg, params, prompts, outs, n_new, max_len,
     hit = rows.argmax(-1).cpu() == outs
     agree, total = int(hit.sum()), outs.numel()
     agree_dec, n_dec = int(hit[decisive].sum()), int(decisive.sum())
-    print(f"{cfg.name} teacher-forced (bf16): largest gap {worst:.4e} "
+    print(f"{name} teacher-forced (bf16): largest gap {worst:.4e} "
           f"(bound 2 x {noise:.4e}, the bf16 forward's largest deviation "
           f"from fp32 on these positions; {TEACHER_TOL:g} "
           f"{'met' if worst <= TEACHER_TOL else 'not met'}); served token "
           f"= teacher argmax {agree}/{total} overall, {agree_dec}/{n_dec} "
           f"where the top-2 margin exceeds twice the position's deviation "
-          f"(at least {TEACHER_MIN_DECISIVE} such positions required)")
-    if not (worst <= 2 * noise and n_dec >= TEACHER_MIN_DECISIVE
+          f"(at least {min_decisive} such positions required)")
+    if not (worst <= 2 * noise and n_dec >= min_decisive
             and agree_dec >= TEACHER_AGREE * n_dec):
-        raise SystemExit(f"{cfg.name}: served tokens fail the teacher-forced "
+        raise SystemExit(f"{name}: served tokens fail the teacher-forced "
                          f"check: gap {worst:.3e} > {2 * noise:.3e} or "
                          f"argmax agreement {agree_dec}/{n_dec} (fewer than "
-                         f"{TEACHER_MIN_DECISIVE} decisive positions, or "
+                         f"{min_decisive} decisive positions, or "
                          f"below {TEACHER_AGREE:.0%})")
-    del rows, rows32
-    outs32, _, _, _ = greedy_decode(cfg32, p32, prompts, n_new, max_len,
-                                    token_by_token)
-    rows32 = teacher_rows(cfg32, p32, prompts, outs32)
+
+
+def check_fp32_loop(name, rows32, outs32, outs, how="at full width"):
+    """The decode loop repeated in fp32: every token ``outs32`` (B, n)
+    within TEACHER_TOL of its position's largest logit in the fp32
+    teacher's ``rows32``; ``outs``: the bf16 tokens, for the count."""
     tk = outs32.to(rows32.device)[..., None]
     worst32 = (rows32.max(-1).values
                - rows32.gather(-1, tk)[..., 0]).max().item()
-    print(f"{cfg.name} decode loop in fp32 at full width: largest "
-          f"teacher-forced gap {worst32:.4e} over {outs32.numel()} tokens "
-          f"(tol {TEACHER_TOL:g}); fp32 tokens = bf16 tokens "
-          f"{int((outs32 == outs).sum())}/{total}")
+    print(f"{name} decode loop in fp32 {how}: largest teacher-forced gap "
+          f"{worst32:.4e} over {outs32.numel()} tokens (tol "
+          f"{TEACHER_TOL:g}); fp32 tokens = bf16 tokens "
+          f"{int((outs32 == outs).sum())}/{outs.numel()}")
     if not worst32 <= TEACHER_TOL:
-        raise SystemExit(f"{cfg.name}: fp32 decode loop fails the "
+        raise SystemExit(f"{name}: fp32 decode loop fails the "
                          f"teacher-forced check: {worst32:.3e}")
+
+
+def teacher_forced(cfg, params, prompts, outs, n_new, max_len,
+                   token_by_token):
+    """The served bf16 tokens against the full forward of prompt + tokens
+    (:func:`check_teacher`, at least TEACHER_MIN_DECISIVE decisive
+    positions), then the same decode loop in fp32 at full width
+    (:func:`check_fp32_loop`)."""
+    cfg32, p32 = dataclasses.replace(cfg, dtype=torch.float32), \
+        to_fp32(params)
+    check_teacher(cfg.name, teacher_rows(cfg, params, prompts, outs),
+                  teacher_rows(cfg32, p32, prompts, outs), outs,
+                  TEACHER_MIN_DECISIVE)
+    outs32, _, _, _ = greedy_decode(cfg32, p32, prompts, n_new, max_len,
+                                    token_by_token)
+    check_fp32_loop(cfg.name, teacher_rows(cfg32, p32, prompts, outs32),
+                    outs32, outs)
 
 
 def run_rwkv6_path():
@@ -1820,19 +1918,74 @@ def run_gemma_path():
     return fwd_counts, dec_counts
 
 
-def run_decode_path():
-    """The decode serving run with both kernels' counts set to 0 just
-    before and read just after; checks counts, stream lengths and the
-    teacher-forced correctness of the served tokens, then the same path
-    in fp32.  Returns the flash_decode launch count."""
+def run_prefill_path(arch):
+    """The prefill serving run of ``arch`` at full width (the balanced
+    4-stage plan, REQUESTS streamed requests of SEQ tokens, the config's
+    own MoE capacity) with every kernel's count set to 0 just before and
+    read just after: the first output against the direct forward, and
+    flash_attention's launches = layers x forwards.  Returns serve.run's
+    results and the flash_attention count."""
+    args = serve.parse_args(["--arch", arch, "--stages", str(STAGES),
+                             "--requests", str(REQUESTS), "--seq", str(SEQ),
+                             "--strategy", "balanced", "--device", CARD])
+    _build.reset_launches()
+    res = serve.run(args)
+    counts = read_counts()
+    launches = counts["flash_attention"]
+
+    cfg, pl, snap = res["cfg"], res["plan"], res["snapshot"]
+    print(f"{arch} plan:", pl.describe())
+    print(f"{arch} blocks per stage:",
+          serve.stage_block_counts(pl, cfg.n_layers))
+    busy = snap["stage_busy_s"]
+    lat = snap["latency"]
+    print(f"{arch}: served {len(res['outs'])} requests of {SEQ} tokens in "
+          f"{res['seconds'] * 1e3:.2f} ms: "
+          f"{snap['throughput_rps']:.2f} req/s, "
+          f"{snap['throughput_rps'] * SEQ:.0f} tokens/s")
+    print(f"{arch} latency p50/p95 (ms): {lat['p50_s'] * 1e3:.2f} / "
+          f"{lat['p95_s'] * 1e3:.2f}")
+    print(f"{arch} stage busy (s): {[round(b, 5) for b in busy]}, balance "
+          f"(mean/max) {stage_balance_metrics(busy)['balance']:.3f}")
+    print(f"{arch} pipeline vs direct max err: {res['max_err']:.2e}")
+    forwards = args.requests + 2        # warm-up, requests, direct reference
+    print(f"{arch} flash_attention launches: {launches} "
+          f"({cfg.n_layers} layers x {forwards} forwards)")
+    outs = res["outs"]
+    if not all(o.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(o).all())
+               for o in outs):
+        raise SystemExit(f"{arch}: served logits are not finite (1, 1, "
+                         f"vocab)")
+    if not res["max_err"] < 2e-2:
+        raise SystemExit(f"{arch}: pipeline vs direct {res['max_err']:.2e} "
+                         f">= 2e-2")
+    check_counts(f"{arch} prefill serving", counts,
+                 {"flash_attention": cfg.n_layers * forwards})
+    return res, launches
+
+
+def run_decode_path(arch):
+    """The decode serving run of ``arch`` with both kernels' counts set to
+    0 just before and read just after; checks counts, stream lengths and
+    the teacher-forced correctness of the served tokens, then the same
+    path in fp32.  A moe arch is served at the capacity that drops no
+    token (:func:`no_drop`).  Returns the flash_decode and flash_attention
+    launch counts."""
     per_stage = torch.cuda.get_device_properties(0).total_memory // STAGES
-    args = serve.parse_args([
-        "--arch", ARCH, "--workload", "decode", "--stages", str(STAGES),
-        "--decode-concurrency", str(DECODE_SLOTS),
-        "--max-context", str(DECODE_CONTEXT), "--prompt-len", str(SEQ),
-        "--max-new-tokens", str(DECODE_NEW),
-        "--requests", str(DECODE_STREAMS),
-        "--plan-device-bytes", str(per_stage), "--device", "cuda"])
+    argv = ["--arch", arch, "--workload", "decode", "--stages", str(STAGES),
+            "--decode-concurrency", str(DECODE_SLOTS),
+            "--max-context", str(DECODE_CONTEXT), "--prompt-len", str(SEQ),
+            "--max-new-tokens", str(DECODE_NEW),
+            "--requests", str(DECODE_STREAMS),
+            "--plan-device-bytes", str(per_stage), "--device", CARD]
+    full = configs.get(arch).config()
+    if full.family == "moe":
+        cf = no_drop(full).capacity_factor
+        argv += ["--moe-capacity-factor", str(cf)]
+        print(f"{arch} decode serving and its teacher at capacity_factor "
+              f"{cf:g} (n_experts / top_k: no token dropped; the config's "
+              f"{full.capacity_factor:g} is checked on the prefill path)")
+    args = serve.parse_args(argv)
     _build.reset_launches()
     res = serve.run_decode(args)
     counts = read_counts()
@@ -1842,44 +1995,57 @@ def run_decode_path():
                            res["warmup"])
     rep = pl.report
     outs = res["outs"]
-    print("decode plan:", pl.describe())
-    print("decode blocks per stage:",
+    print(f"{arch} decode plan:", pl.describe())
+    print(f"{arch} decode blocks per stage:",
           serve.stage_block_counts(pl, cfg.n_layers))
-    print(f"planning device: {per_stage} bytes per stage (card memory / "
+    print(f"{arch} planning device: {per_stage} bytes per stage (card memory / "
           f"{STAGES}); stage_kv_bytes {list(rep.stage_kv_bytes)}, "
           f"kv_headroom_pct {rep.kv_headroom_pct:.3f}")
     steps = warm["steps"] + snap["steps"]
     prefills = warm["admitted"] + snap["admitted"]
     gaps = snap["tokens"] - len(outs)
     busy = res["stage_busy_s"]
-    print(f"decode: {len(outs)} streams x {DECODE_NEW} tokens of "
+    print(f"{arch} decode: {len(outs)} streams x {DECODE_NEW} tokens of "
           f"{SEQ}-token prompts in {res['seconds'] * 1e3:.2f} ms: "
           f"{snap['tokens'] / res['seconds']:.2f} tokens/s over the stream")
-    print(f"decode inter-token p50/p95 (ms): "
+    print(f"{arch} decode inter-token p50/p95 (ms): "
           f"{snap['inter_token_p50_s'] * 1e3:.3f} / "
           f"{snap['inter_token_p95_s'] * 1e3:.3f} ({gaps} gaps)")
-    print(f"decode steps: {snap['steps']} in the stream, {steps} with the "
+    print(f"{arch} decode steps: {snap['steps']} in the stream, {steps} with the "
           f"warm-up; prefills {prefills}")
-    print(f"decode stage busy (s): {[round(b, 5) for b in busy]}, balance "
+    print(f"{arch} decode stage busy (s): {[round(b, 5) for b in busy]}, balance "
           f"(mean/max) {stage_balance_metrics(busy)['balance']:.3f}")
-    print(f"decode modeled: {rep.decode_tokens_per_s:.2f} tokens/s, KV "
+    print(f"{arch} decode modeled: {rep.decode_tokens_per_s:.2f} tokens/s, KV "
           f"headroom {rep.kv_headroom_pct:.3f}%")
-    print(f"decode launches: flash_decode {fd_launches} ({cfg.n_layers} "
+    print(f"{arch} decode launches: flash_decode {fd_launches} ({cfg.n_layers} "
           f"layers x {steps} steps), flash_attention {fa_launches} "
           f"({cfg.n_layers} layers x {prefills} prefills)")
 
     if not all(len(o) == DECODE_NEW for o in outs):
-        raise SystemExit(f"decode streams returned {[len(o) for o in outs]} "
+        raise SystemExit(f"{arch}: decode streams returned {[len(o) for o in outs]} "
                          f"tokens, expected {DECODE_NEW} each")
     if steps == 0:
-        raise SystemExit("the decode run took no step")
-    check_counts(f"{ARCH} decode serving", counts,
+        raise SystemExit(f"{arch}: the decode run took no step")
+    check_counts(f"{arch} decode serving", counts,
                  {"flash_decode": cfg.n_layers * steps,
                   "flash_attention": cfg.n_layers * prefills})
 
     check_served_tokens(res)
     check_fp32_decode_path(res)
-    return fd_launches
+    return fd_launches, fa_launches
+
+
+def no_drop(cfg, seq=None):
+    """A moe config at the capacity that drops no token (capacity_factor
+    n_experts / top_k: an expert's capacity is the whole group) and, with
+    ``seq``, one routing group of ``seq`` tokens (a group must divide the
+    length; with no drops the grouping changes no token's output).  Other
+    families: ``cfg``."""
+    if cfg.family != "moe":
+        return cfg
+    cfg = dataclasses.replace(cfg,
+                              capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg if seq is None else dataclasses.replace(cfg, moe_group=seq)
 
 
 def teacher_logits(cfg, params, prompt, toks):
@@ -1887,6 +2053,7 @@ def teacher_logits(cfg, params, prompt, toks):
     flash_attention) at the positions that predicted each token."""
     seq = torch.from_numpy(np.concatenate([prompt, toks]).astype(
         np.int64))[None]
+    cfg = no_drop(cfg, seq.shape[1])
     logits = api.forward(cfg, params, {"tokens": seq})[0]
     return logits[len(prompt) - 1:len(prompt) - 1 + len(toks)]
 
@@ -1927,7 +2094,7 @@ def check_served_tokens(res):
         worst = max(worst, token_gaps(rows, toks).max().item())
         agree += int((rows.argmax(-1).cpu() == torch.as_tensor(toks)).sum())
         total += len(toks)
-    print(f"decode teacher-forced (bf16): largest gap between a served "
+    print(f"{cfg.name} decode teacher-forced (bf16): largest gap between a served "
           f"token's logit and its position's largest logit {worst:.4e} "
           f"(bound 2 x {noise:.4e}, the bf16 forward's largest deviation "
           f"from fp32 on these positions; {TEACHER_TOL:g} "
@@ -1963,12 +2130,157 @@ def check_fp32_decode_path(res, n_new=16):
             ctx = [c + 1 for c in ctx]
     worst = max(token_gaps(teacher_logits(cfg32, p32, p, o), o).max().item()
                 for p, o in zip(prompts, outs))
-    print(f"decode path in fp32 at full width: largest teacher-forced gap "
+    print(f"{cfg.name} decode path in fp32 at full width: largest teacher-forced gap "
           f"{worst:.4e} over 2 streams x {n_new} tokens (tol "
           f"{TEACHER_TOL:g})")
     if not worst <= TEACHER_TOL:
         raise SystemExit(f"fp32 decode path fails the teacher-forced "
                          f"check: {worst:.3e} > {TEACHER_TOL:g}")
+
+
+class Fp32Blocks:
+    """A block list read as fp32 copies made one layer at a time, so a
+    model evaluates in fp32 with one fp32 layer on the card beside its
+    bf16 weights (the depth-cut archs' fp32 weights would not fit)."""
+
+    def __init__(self, blocks):
+        self.blocks = blocks
+
+    def __len__(self):
+        return len(self.blocks)
+
+    def __iter__(self):
+        return (to_fp32(bp) for bp in self.blocks)
+
+
+def fp32_view(params):
+    return {k: Fp32Blocks(v) if k == "blocks" else to_fp32(v)
+            for k, v in params.items()}
+
+
+def vlm_positions(n_patches, n_text):
+    """qwen2-vl's M-RoPE streams (3, 1, P + n_text): the stub patches on a
+    (1, VLM_GRID, VLM_GRID) (t, h, w) grid, then text at its index on all
+    three streams, which is where the reference's decode step puts the
+    next token (its cache length)."""
+    i = torch.arange(n_patches)
+    text = torch.arange(n_patches, n_patches + n_text)
+    streams = [torch.zeros_like(i), i // VLM_GRID, i % VLM_GRID]
+    return torch.stack([torch.cat([x, text]) for x in streams])[:, None]
+
+
+def api_decode(cfg, params, batch, n_new, max_len):
+    """``api.prefill`` of a (1, P) batch into the cache, then greedy
+    decode steps through ``api.decode``: (tokens (1, n_new) on the CPU,
+    decode calls)."""
+    dev = torch.device(CARD)
+    cache = api.init_cache(cfg, 1, max_len, dev)
+    logits, cache = api.prefill(cfg, params, batch, cache,
+                                last_token_only=True)
+    toks = [logits[:, -1].argmax(-1, keepdim=True)]
+    while len(toks) < n_new:
+        logits, cache = api.decode(cfg, params, toks[-1], cache)
+        toks.append(logits[:, -1].argmax(-1, keepdim=True))
+    torch.cuda.synchronize()
+    return torch.cat(toks, 1).cpu(), n_new - 1
+
+
+def api_teacher_rows(cfg, params, batch, outs):
+    """Logits of the forward of the batch + the served tokens (vlm: its
+    positions extended at the text's index) at the positions that
+    predicted each served token: (1, n, V)."""
+    n_new = outs.shape[1]
+    full = dict(batch, tokens=torch.cat([batch["tokens"], outs], 1))
+    if "positions" in batch:
+        p = batch["positions"].shape[-1]
+        full["positions"] = vlm_positions(cfg.n_patches,
+                                          p - cfg.n_patches + n_new)
+    n = full["tokens"].shape[1] + (cfg.n_patches if "embeds" in batch else 0)
+    logits = api.forward(no_drop(cfg, n), params, full)
+    p = n - n_new
+    return logits[:, p - 1:p - 1 + n_new]
+
+
+def run_api_model(arch, layers):
+    """``arch`` at full width (``layers``: cut to its first that many
+    layers, printed) with random bf16 weights from seed 0 through the
+    model API: one forward of a (1, API_PROMPT) batch at the config's own
+    MoE capacity (vlm: after its n_patches stub patch embeddings from a
+    numpy seed, on the M-RoPE grid of :func:`vlm_positions`), then
+    ``api.prefill`` of the same batch and API_STEPS greedy decode steps
+    (moe at :func:`no_drop`'s capacity), each with launch counts, the
+    served tokens teacher-forced in bf16 and the loop repeated in fp32
+    (weights upcast a layer at a time).  Returns the flash_attention and
+    flash_decode counts."""
+    full = configs.get(arch).config()
+    cfg = full if layers is None else dataclasses.replace(
+        full, n_layers=layers)
+    cut = ("" if layers is None else
+           f"; cut in depth to {layers} of {full.n_layers} layers (the "
+           f"full {full.n_layers} layers need "
+           f"{api.param_count(full) * 2 / 1e9:.1f} GB in bf16)")
+    params = api.init(cfg, CARD, torch.Generator(CARD).manual_seed(0))
+    print(f"{arch}: {api.param_count(cfg) * 2 / 1e9:.1f} GB of bf16 weights "
+          f"on the card ({api.active_param_count(cfg) / 1e9:.2f} B "
+          f"parameters active a token){cut}")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (1, API_PROMPT), dtype=np.int64))}
+    if cfg.family == "vlm":
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (1, cfg.n_patches, cfg.d_model), dtype=np.float32)).to(
+                device=CARD, dtype=cfg.dtype)
+        batch["positions"] = vlm_positions(cfg.n_patches, API_PROMPT)
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits = api.forward(cfg, params, batch, last_token_only=True)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd = read_counts()
+    check_counts(f"{arch} forward", fwd, {"flash_attention": cfg.n_layers})
+    if not (logits.shape == (1, 1, cfg.vocab)
+            and bool(torch.isfinite(logits).all())):
+        raise SystemExit(f"{arch}: forward logits not finite "
+                         f"{tuple(logits.shape)}")
+    n_in = API_PROMPT + (cfg.n_patches if cfg.family == "vlm" else 0)
+    print(f"{arch}: forward of a (1, {n_in}) batch in {fwd_s * 1e3:.1f} ms "
+          f"(first call; last-token logits finite)")
+
+    dcfg = no_drop(cfg)
+    if dcfg is not cfg:
+        print(f"{arch} decode loop and its teacher at capacity_factor "
+              f"{dcfg.capacity_factor:g} (n_experts / top_k: no token "
+              f"dropped; the forward above ran at the config's "
+              f"{cfg.capacity_factor:g})")
+    max_len = n_in + API_STEPS + 1
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs, steps = api_decode(dcfg, params, batch, API_STEPS + 1, max_len)
+    loop_s = time.perf_counter() - t0
+    dec = read_counts()
+    print(f"{arch}: prefill + {steps} greedy decode steps in "
+          f"{loop_s * 1e3:.1f} ms")
+    check_counts(f"{arch} prefill + decode", dec,
+                 {"flash_attention": cfg.n_layers,
+                  "flash_decode": cfg.n_layers * steps})
+
+    # teacher forcing: bf16 against the fp32 evaluation of the same
+    # weights.  A MoE's bf16 and fp32 evaluations may route a token to
+    # different experts (top-k choices within rounding of each other), so
+    # they deviate by whole experts' outputs and few positions are
+    # decisive: no minimum there; its fp32 loop is the firm check
+    p32 = fp32_view(params)
+    cfg32 = dataclasses.replace(dcfg, dtype=torch.float32)
+    check_teacher(arch, api_teacher_rows(dcfg, params, batch, outs),
+                  api_teacher_rows(cfg32, p32, batch, outs), outs,
+                  0 if cfg.family == "moe" else API_MIN_DECISIVE)
+    outs32, _ = api_decode(cfg32, p32, {
+        k: v.float() if k == "embeds" else v for k, v in batch.items()},
+        API_STEPS + 1, max_len)
+    check_fp32_loop(arch, api_teacher_rows(cfg32, p32, batch, outs32),
+                    outs32, outs, "(weights upcast a layer at a time)")
+    return fwd["flash_attention"], dec["flash_decode"]
 
 
 def device_line():
@@ -2015,12 +2327,20 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  {name} ptxas: {line.strip()}")
-    # the three latest redesigns must not spill
+    # the three latest redesigns must not spill, nor flash_attention's
+    # head dim 96 instantiations
     for name in TIMED:
         log = libs[name].with_suffix(".log").read_text()
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
         if not spills or max(spills) > 0:
             raise SystemExit(f"{name}: ptxas reports spills {spills}")
+    d96_spills = {fn: n for fn, n in ptxas_spills(
+        libs["flash_attention"].with_suffix(".log").read_text()).items()
+        if D96_TAG in fn}
+    print(f"flash_attention D 96 instantiations, spill bytes: "
+          f"{sorted(d96_spills.values())}")
+    if not d96_spills or max(d96_spills.values()) > 0:
+        raise SystemExit(f"flash_attention D 96 spills: {d96_spills}")
     # the tensor-core kernels: every bf16 flash_attention and
     # flash_decode and every matmul_qi8 instantiation holds mma.sync
     tensor_ops = {}
@@ -2035,10 +2355,20 @@ def main() -> int:
                              f"found): {counts}")
         tensor_ops[name] = {"op": op, "instantiations": len(counts),
                             "count": sum(counts.values())}
+        if op == "HMMA":                # the head dim 96 instantiation
+            d96 = [n for fn, n in counts.items() if D96_TAG in fn]
+            print(f"{name} SASS: {op} in the D 96 bf16 instantiation {d96}")
+            if len(d96) != 1 or d96[0] == 0:
+                raise SystemExit(f"{name}: no D 96 bf16 kernel with {op}: "
+                                 f"{d96}")
+            tensor_ops[name]["d96"] = d96[0]
 
+    t0 = time.perf_counter()
     record = check_flash_attention()
     record["windowed"] = check_windowed_flash_attention()
     decode_record = check_flash_decode()
+    print(f"flash kernel checks and timings (D 96 included): "
+          f"{time.perf_counter() - t0:.1f} s")
     rwkv_record = check_rwkv6_scan()
     rglru_record = check_rglru_scan()
     qi8_record = check_matmul_qi8()
@@ -2051,43 +2381,18 @@ def main() -> int:
     # max_len 24 over the smoke window 16: the ring cache wraps
     check_family_on_card(GEMMA_ARCH, seq=16, prompt_len=8, n_new=16,
                          max_len=24, token_by_token=True)
+    t0 = time.perf_counter()
+    for arch in FAMILY_SMOKE:
+        # phi3-mini's smoke config at its own head dim 96
+        over = {"head_dim": 96} if arch == D96_ARCH else {}
+        check_family_on_card(arch, seq=200, prompt_len=40, n_new=8,
+                             max_len=300, token_by_token=True, **over)
+    print(f"the LM families' smoke configs card vs CPU: "
+          f"{time.perf_counter() - t0:.1f} s")
 
-    args = serve.parse_args(["--arch", ARCH, "--stages", str(STAGES),
-                             "--requests", str(REQUESTS), "--seq", str(SEQ),
-                             "--strategy", "balanced", "--device", "cuda"])
-    _build.reset_launches()
-    res = serve.run(args)
-    counts = read_counts()
-    launches = counts["flash_attention"]
+    res, launches = run_prefill_path(ARCH)
     record["launches"] = launches
-
-    cfg, pl, snap = res["cfg"], res["plan"], res["snapshot"]
-    print("plan:", pl.describe())
-    print("blocks per stage:", serve.stage_block_counts(pl, cfg.n_layers))
-    busy = snap["stage_busy_s"]
-    lat = snap["latency"]
-    print(f"served {len(res['outs'])} requests of {SEQ} tokens in "
-          f"{res['seconds'] * 1e3:.2f} ms: "
-          f"{snap['throughput_rps']:.2f} req/s, "
-          f"{snap['throughput_rps'] * SEQ:.0f} tokens/s")
-    print(f"latency p50/p95 (ms): {lat['p50_s'] * 1e3:.2f} / "
-          f"{lat['p95_s'] * 1e3:.2f}")
-    print(f"stage busy (s): {[round(b, 5) for b in busy]}, balance "
-          f"(mean/max) {stage_balance_metrics(busy)['balance']:.3f}")
-    print(f"pipeline vs direct max err: {res['max_err']:.2e}")
-    forwards = args.requests + 2        # warm-up, requests, direct reference
-    print(f"flash_attention launches: {launches} "
-          f"({cfg.n_layers} layers x {forwards} forwards)")
-
-    outs = res["outs"]
-    if not all(o.shape == (1, 1, cfg.vocab) and bool(torch.isfinite(o).all())
-               for o in outs):
-        raise SystemExit("served logits are not finite (1, 1, vocab)")
-    if not res["max_err"] < 2e-2:
-        raise SystemExit(f"pipeline vs direct {res['max_err']:.2e} >= 2e-2")
-    check_counts(f"{ARCH} prefill serving", counts,
-                 {"flash_attention": cfg.n_layers * forwards})
-
+    cfg, busy = res["cfg"], res["snapshot"]["stage_busy_s"]
     # the fault-tolerant prefill phase hedges after a few bottleneck-stage
     # times of this stream
     ft_hedge_ms = FT_HEDGE_X * max(busy) / len(res["outs"]) * 1e3
@@ -2097,8 +2402,20 @@ def main() -> int:
           f"{cfg.n_layers * record['ms'] / direct_ms:.1%} of it")
     del res
 
-    decode_record["launches"] = run_decode_path()
+    decode_record["launches"] = run_decode_path(ARCH)[0]
     torch.cuda.empty_cache()
+    # the LM-families slice: MoE and head dim 96 served at full width
+    for arch in (MOE_ARCH, D96_ARCH):
+        t0 = time.perf_counter()
+        res, launches = run_prefill_path(arch)
+        del res
+        torch.cuda.empty_cache()
+        record[f"launches_{arch}"] = launches
+        fd_n, fa_n = run_decode_path(arch)
+        decode_record[f"launches_{arch}"] = fd_n
+        record[f"launches_{arch}_decode_prefills"] = fa_n
+        torch.cuda.empty_cache()
+        print(f"{arch} served phases: {time.perf_counter() - t0:.1f} s")
     rwkv_record["launches"] = run_rwkv6_path()
     torch.cuda.empty_cache()
     fwd_counts, dec_counts = run_gemma_path()
@@ -2109,6 +2426,14 @@ def main() -> int:
     record["launches_recurrentgemma"] = fwd_counts["flash_attention"]
     decode_record["launches_recurrentgemma"] = dec_counts["flash_decode"]
     torch.cuda.empty_cache()
+    # the rest of the LM families at full width through the model API
+    for arch, layers in API_RUNS:
+        t0 = time.perf_counter()
+        fa_n, fd_n = run_api_model(arch, layers)
+        record[f"launches_{arch}"] = fa_n
+        decode_record[f"launches_{arch}"] = fd_n
+        torch.cuda.empty_cache()
+        print(f"{arch} model-API phase: {time.perf_counter() - t0:.1f} s")
 
     zoo_worst = check_cnn_zoo()
     cnn_res, ctx = run_cnn_path()

@@ -1,18 +1,23 @@
 """Architecture registry: ``get(arch_id)`` -> config module.
 
 Each module exposes ``config()`` (the exact assigned configuration) and
-``smoke_config()`` (reduced same-family variant for CPU tests).  Only the
-architectures whose family is ported are registered.
+``smoke_config()`` (reduced same-family variant for CPU tests).  Every
+reference architecture but whisper-tiny (the encoder-decoder slice) is
+registered.
 """
 from __future__ import annotations
 
 from types import ModuleType
 from typing import Dict, List
 
-from . import qwen3_1_7b, recurrentgemma_9b, rwkv6_1_6b
+from . import (granite_moe_1b, minitron_4b, phi3_5_moe_42b, phi3_mini_3_8b,
+               qwen2_5_14b, qwen2_vl_72b, qwen3_1_7b, recurrentgemma_9b,
+               rwkv6_1_6b)
 from .common import concrete_batch, shrink
 
-_MODULES = (qwen3_1_7b, recurrentgemma_9b, rwkv6_1_6b)
+_MODULES = (qwen2_5_14b, qwen3_1_7b, phi3_mini_3_8b, minitron_4b,
+            qwen2_vl_72b, granite_moe_1b, phi3_5_moe_42b, recurrentgemma_9b,
+            rwkv6_1_6b)
 
 ARCHS: Dict[str, ModuleType] = {m.ARCH_ID: m for m in _MODULES}
 

@@ -15,11 +15,21 @@ def concrete_batch(cfg: LMConfig, seq_len: int, batch: int,
                    rng: Optional[np.random.Generator] = None,
                    kind: str = "train") -> Dict[str, torch.Tensor]:
     """Materialized (small) batch of CPU int64 tokens, drawn from ``rng``
-    (a fresh ``default_rng(0)`` when None); ``kind="train"`` adds labels."""
+    (a fresh ``default_rng(0)`` when None); ``kind="train"`` adds labels.
+    vlm: ``seq_len - n_patches`` tokens after ``(batch, n_patches,
+    d_model)`` standard-normal patch embeddings in the model dtype, and
+    the ``(3, batch, seq_len)`` default positions."""
     require_ported(cfg)
     rng = rng if rng is not None else np.random.default_rng(0)
+    n_tok = seq_len - cfg.n_patches if cfg.family == "vlm" else seq_len
     out = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab, (batch, seq_len), dtype=np.int64))}
+        rng.integers(0, cfg.vocab, (batch, n_tok), dtype=np.int64))}
+    if cfg.family == "vlm":
+        out["embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_patches, cfg.d_model), dtype=np.float32)
+        ).to(cfg.dtype)
+        out["positions"] = torch.arange(seq_len)[None, None].expand(
+            3, batch, seq_len).contiguous()
     if kind == "train":
         out["labels"] = torch.from_numpy(
             rng.integers(0, cfg.vocab, (batch, seq_len), dtype=np.int64))
@@ -40,6 +50,12 @@ def shrink(cfg: LMConfig, **over) -> LMConfig:
         remat=False,
         dtype=torch.float32,
     )
+    if cfg.family == "moe":
+        # capacity_factor high enough that smoke runs never drop tokens
+        # (decode-vs-forward equivalence relies on no-drop routing)
+        d.update(n_experts=4, top_k=min(cfg.top_k, 2), capacity_factor=8.0)
+    if cfg.family == "vlm":
+        d.update(mrope_sections=(4, 2, 2), n_patches=4)
     if cfg.family == "hybrid":
         d.update(n_layers=5, local_window=16, head_dim=16, n_kv_heads=1)
     if cfg.family == "ssm":

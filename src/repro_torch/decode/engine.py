@@ -1,4 +1,5 @@
-"""Pipelined decode-batch execution for the dense LM family, in PyTorch.
+"""Pipelined decode-batch execution for the attention LM families (dense,
+moe, vlm), in PyTorch.
 
 :class:`PipelineDecodeEngine` runs the continuous decode batch through the
 paper's host-threaded :class:`~repro_torch.core.pipeline.PipelineExecutor`,
@@ -15,7 +16,8 @@ Two payload ops travel the stream:
   ``[0, n)`` of slot ``i`` of every block cache, in place, and returns the
   first greedy token from the last position;
 * ``step`` -- one decode step of *all* slots at once with a per-slot
-  context vector: RoPE positions ``ctx-1``; the new K/V rows written in
+  context vector: RoPE positions ``ctx-1`` (for vlm on all three M-RoPE
+  streams, as the reference engine's); the new K/V rows written in
   place at ``ctx-1`` of the active slots only (``ctx=0`` slots stay
   untouched; the reference's one-hot write over the whole cache would move
   the whole cache every step); attention through the flash-decode kernel,
@@ -50,7 +52,7 @@ from .scheduler import DecodeScheduler
 
 
 class PipelineDecodeEngine:
-    """The running decode batch over a staged dense LM.  ``params`` live on
+    """The running decode batch over a staged attention LM.  ``params`` live on
     the device the engine runs on (their ``embed`` tensor's)."""
 
     def __init__(self, cfg: lm.LMConfig, params: Dict[str, Any], *,
@@ -111,10 +113,11 @@ class PipelineDecodeEngine:
 
         def prefill(slot: int, x):
             h = lm.embed_tokens(cfg, params, tokens_in(x)) if first else x
-            pos = lm.positions_for(h)
+            pos = lm.positions_for(cfg, h)
             for i, bp in enumerate(blocks):
-                h = lm.block(cfg, bp, h, pos, cache_rows=(kc[i, slot],
-                                                          vc[i, slot]))
+                h = lm.block(cfg, bp, h, pos,
+                             cache_rows=(kc[i, slot:slot + 1],
+                                         vc[i, slot:slot + 1]))
             if last:
                 logits = lm.unembed(cfg, params, h[:, -1:])
                 return ("token", int(logits[0, -1].argmax()))
@@ -128,6 +131,8 @@ class PipelineDecodeEngine:
                 [ctx, np.maximum(ctx - 1, 0), act, ctx[act] - 1]
             ).astype(np.int32)).to(dev)
             lens, pos = idx[:n], idx[n:2 * n, None]
+            if cfg.family == "vlm":             # every M-RoPE stream
+                pos = pos[None].expand(3, n, 1)
             write = (idx[2 * n:2 * n + act.size], idx[2 * n + act.size:])
             h = lm.embed_tokens(cfg, params, tokens_in(x)) if first else x
             for i, bp in enumerate(blocks):

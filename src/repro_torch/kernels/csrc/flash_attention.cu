@@ -6,7 +6,7 @@
 //   q (B, Hq, S, D), k/v (B, Hkv, T, D) -> o (B, Hq, S, D) in q's dtype,
 //   element strides for the batch, head and sequence axes (the head dim
 //   contiguous), so the model's (B, S, H, D) projections are read and
-//   written in place with no transpose; head dims 16, 32, 64, 128, 256;
+//   written in place with no transpose; head dims 16, 32, 64, 96, 128, 256;
 //   scores, running max, running denominator and accumulator in fp32;
 //   q-head h reads kv-head h / (Hq / Hkv); queries are right-aligned
 //   (query i sits at key position T - S + i); causal KV tiles past a query
@@ -52,8 +52,12 @@
 // reference does not make is P to bf16 before P V.  At D 256 the key tile
 // is 32, which keeps the accumulators (128 fp32 a thread) and the score
 // fragments within 255 registers without spilling and the ring at 101 KB
-// of shared memory (two blocks an SM).  wgmma + TMA with warp
-// specialisation (FlashAttention-3) is the next step.
+// of shared memory (two blocks an SM).  At D 96 (phi3-mini) a row is 12
+// 16-byte chunks, which do not divide the block's 128 threads, so the tile
+// copies walk the tile's chunks with a stride of the block; the padded row
+// of 104 elements is 13 chunks, still odd, and the 6 k-steps and 12 output
+// column blocks pair up for ldmatrix.x4 as at the other widths.  wgmma +
+// TMA with warp specialisation (FlashAttention-3) is the next step.
 //
 // fp32: CUDA cores (tensor cores would mean TF32, a different function).
 // One block of 256 threads per 64-row q tile loops over 64-key tiles: K
@@ -258,27 +262,40 @@ using bf16 = __nv_bfloat16;
 
 // rows [r0, r0 + ROWS) of a (rows, D) bf16 matrix with row stride `ld`
 // (elements) -> shared (ROWS, D + 8) by 16-byte cp.async; rows at or past
-// `n` are zero-filled.  Thread t copies 16-byte chunk t % (D / 8) of every
-// (THREADS / (D / 8))-th row from row t / (D / 8) on, so consecutive
-// threads read consecutive bytes and its source address only steps.
+// `n` are zero-filled.  Where a row's D / 8 chunks divide THREADS, thread t
+// copies chunk t % (D / 8) of every (THREADS / (D / 8))-th row from row
+// t / (D / 8) on, so consecutive threads read consecutive bytes and its
+// source address only steps; else (D 96: 12 chunks) thread t copies chunks
+// t, t + THREADS, ... of the tile, in row-major order.
 template <int D, int ROWS, int THREADS>
 __device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src,
                                         long long ld, int r0, int n) {
   constexpr int kChunks = D / 8;      // 16-byte chunks a row
   constexpr int kLd = D + 8;
-  constexpr int kStep = THREADS / kChunks;
-  static_assert(THREADS % kChunks == 0, "whole rows a pass");
-  const int c = threadIdx.x % kChunks;
-  const int r = threadIdx.x / kChunks;
-  const bf16* from = src + (r0 + r) * ld + c * 8;
-  bf16* to = dst + r * kLd + c * 8;
-  const int left = n - r0 - r;        // rows of this thread still inside
+  if constexpr (THREADS % kChunks == 0) {
+    constexpr int kStep = THREADS / kChunks;
+    const int c = threadIdx.x % kChunks;
+    const int r = threadIdx.x / kChunks;
+    const bf16* from = src + (r0 + r) * ld + c * 8;
+    bf16* to = dst + r * kLd + c * 8;
+    const int left = n - r0 - r;      // rows of this thread still inside
 #pragma unroll
-  for (int j = 0; j < (ROWS + kStep - 1) / kStep; ++j) {
-    if (ROWS % kStep != 0 && r + j * kStep >= ROWS) break;
-    const bool ok = j * kStep < left;
-    cp_async16(to + j * kStep * kLd, ok ? from : src, ok ? 16 : 0);
-    from += kStep * ld;
+    for (int j = 0; j < (ROWS + kStep - 1) / kStep; ++j) {
+      if (ROWS % kStep != 0 && r + j * kStep >= ROWS) break;
+      const bool ok = j * kStep < left;
+      cp_async16(to + j * kStep * kLd, ok ? from : src, ok ? 16 : 0);
+      from += kStep * ld;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < (ROWS * kChunks + THREADS - 1) / THREADS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if ((ROWS * kChunks) % THREADS != 0 && i >= ROWS * kChunks) break;
+      const int r = i / kChunks, c = i % kChunks;
+      const bool ok = r0 + r < n;
+      cp_async16(dst + r * kLd + c * 8,
+                 ok ? src + (r0 + r) * ld + c * 8 : src, ok ? 16 : 0);
+    }
   }
 }
 
@@ -497,6 +514,7 @@ cudaError_t dispatch_bf16(const Args& a, int b, int hq, int d,
     case 16: return launch_bf16<16>(a, b, hq, stream);
     case 32: return launch_bf16<32>(a, b, hq, stream);
     case 64: return launch_bf16<64>(a, b, hq, stream);
+    case 96: return launch_bf16<96>(a, b, hq, stream);
     case 128: return launch_bf16<128>(a, b, hq, stream);
     case 256: return launch_bf16<256>(a, b, hq, stream);
     default: return cudaErrorInvalidValue;
@@ -509,6 +527,7 @@ cudaError_t dispatch_f32(const Args& a, int b, int hq, int d,
     case 16: return launch_f32<16>(a, b, hq, stream);
     case 32: return launch_f32<32>(a, b, hq, stream);
     case 64: return launch_f32<64>(a, b, hq, stream);
+    case 96: return launch_f32<96>(a, b, hq, stream);
     case 128: return launch_f32<128>(a, b, hq, stream);
     case 256: return launch_f32<256>(a, b, hq, stream);
     default: return cudaErrorInvalidValue;

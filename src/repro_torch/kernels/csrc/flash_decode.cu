@@ -54,12 +54,20 @@
 // whose B fragments come by ldmatrix.trans: flash_attention's fragment
 // scheme.  No per-row shuffle chain remains.  At the end the 4 warps'
 // states merge through shared memory (the ring's space).  The one
-// rounding the reference does not make is P to bf16 before P V.
+// rounding the reference does not make is P to bf16 before P V.  At D 96
+// (phi3-mini) a row is 12 16-byte chunks and the padded row 104 elements
+// (13 chunks, odd, as at the other widths); a block takes 83 KB, so two
+// fit an SM.  phi3-mini is MHA (group 1): 15 of the 16 rows of the mma's
+// M are padding, which costs tensor-core work the byte-bound kernel has
+// to spare, not bytes.
 //
 // fp32: CUDA cores (tensor cores would mean TF32, a different function).
-// One block of 4 warps per (split, kv head, chunk of <= 8 q heads, row):
-// each lane owns a 16-byte slice of a cache row (LPR lanes per row), loads
-// kUnroll rows ahead, reduces a row's scores across its LPR lanes by
+// One block of 4 warps per (split, kv head, chunk of <= 8 q heads (4 at
+// D 96, for registers), row):
+// each lane owns 16-byte slices of a cache row (LPR lanes per row, the
+// largest power of two up to 32 that divides the row's D / 4 slices: 8 at
+// D 96, with 3 slices a lane), loads kUnroll rows ahead (2 at D 96 and
+// 256), reduces a row's scores across its LPR lanes by
 // shuffles and keeps the online-softmax state of the rows it reads; the
 // row groups of a warp merge by shuffles, the warps through shared memory.
 #include <cuda_bf16.h>
@@ -122,10 +130,14 @@ __device__ __forceinline__ int split_length(const Args& a, int len) {
 template <typename T, int D, int KG>
 __global__ void __launch_bounds__(kThreads) flash_decode_split_kernel(Args a) {
   constexpr int kVec = 16 / sizeof(T);    // elements per 16-byte load
-  constexpr int kLpr = D / kVec < 32 ? D / kVec : 32;   // lanes per row
+  constexpr int kSlices = D / kVec;       // 16-byte slices of a row
+  // lanes per row: the largest power of two up to 32 dividing kSlices
+  constexpr int kLpr = (kSlices & -kSlices) < 32 ? (kSlices & -kSlices) : 32;
   constexpr int kSl = D / (kVec * kLpr);  // 16-byte slices a lane loads a row
   constexpr int kEl = kSl * kVec;         // elements of a row a lane owns
-  constexpr int kUn = D >= 256 ? 2 : kUnroll;   // rows a lane loads ahead
+  // rows a lane loads ahead: fewer where a lane owns more than 8
+  // elements of a row (D 96) or the rows are long (D 256)
+  constexpr int kUn = D >= 256 || kEl > 8 ? 2 : kUnroll;
   constexpr int kRpw = 32 / kLpr;         // rows per warp load
   constexpr int kKpw = kRpw * kUn;        // rows per warp per iteration
   static_assert(D % (kVec * kLpr) == 0 && kLpr >= 2 && 32 % kLpr == 0,
@@ -609,6 +621,7 @@ cudaError_t dispatch_bf16(const Args& a, int b, int hkv, int d,
     case 16: return launch_bf16<16>(a, b, hkv, stream);
     case 32: return launch_bf16<32>(a, b, hkv, stream);
     case 64: return launch_bf16<64>(a, b, hkv, stream);
+    case 96: return launch_bf16<96>(a, b, hkv, stream);
     case 128: return launch_bf16<128>(a, b, hkv, stream);
     case 256: return launch_bf16<256>(a, b, hkv, stream);
     default: return cudaErrorInvalidValue;
@@ -617,17 +630,23 @@ cudaError_t dispatch_bf16(const Args& a, int b, int hkv, int d,
 
 // ----------------------------------------------------------- fp32 launch --
 
+// q heads an fp32 block serves: 8, or 4 at D 96, where a lane owns 12
+// elements of a row and 8 heads' q and accumulators (192 floats) would
+// spill out of the register file
+constexpr int f32_heads(int d) { return d == 96 ? 4 : 8; }
+
 template <typename T, int D>
 cudaError_t launch(const Args& a, int b, int hkv, cudaStream_t stream) {
+  constexpr int kMaxKG = f32_heads(D);
   const dim3 grid(a.nsplit, hkv * a.gchunks, b);
   if (a.group <= 1)
     flash_decode_split_kernel<T, D, 1><<<grid, kThreads, 0, stream>>>(a);
   else if (a.group <= 2)
     flash_decode_split_kernel<T, D, 2><<<grid, kThreads, 0, stream>>>(a);
-  else if (a.group <= 4)
+  else if (a.group <= 4 || kMaxKG == 4)
     flash_decode_split_kernel<T, D, 4><<<grid, kThreads, 0, stream>>>(a);
   else
-    flash_decode_split_kernel<T, D, 8><<<grid, kThreads, 0, stream>>>(a);
+    flash_decode_split_kernel<T, D, kMaxKG><<<grid, kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.nsplit == 1) return err;
   flash_decode_combine_kernel<T><<<dim3(a.hq, b), D, 0, stream>>>(a, D);
@@ -641,6 +660,7 @@ cudaError_t dispatch_d(const Args& a, int b, int hkv, int d,
     case 16: return launch<T, 16>(a, b, hkv, stream);
     case 32: return launch<T, 32>(a, b, hkv, stream);
     case 64: return launch<T, 64>(a, b, hkv, stream);
+    case 96: return launch<T, 96>(a, b, hkv, stream);
     case 128: return launch<T, 128>(a, b, hkv, stream);
     case 256: return launch<T, 256>(a, b, hkv, stream);
     default: return cudaErrorInvalidValue;
@@ -675,8 +695,9 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   a.t = t;
   a.hq = hq;
   a.group = hq / hkv;
-  // q heads a block serves: 16 on the bf16 route, 8 on the fp32 one
-  const int heads = dtype == 1 ? kHeadsB : 8;
+  // q heads a block serves: 16 on the bf16 route, 8 (4 at D 96) on the
+  // fp32 one
+  const int heads = dtype == 1 ? kHeadsB : f32_heads(d);
   a.gchunks = (a.group + heads - 1) / heads;
   a.nsplit = nsplit;
   a.scale = scale;

@@ -32,7 +32,7 @@ import torch
 from . import _build
 from .ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ALIGN = 16             # bytes of one cp.async
 

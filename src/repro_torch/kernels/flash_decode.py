@@ -14,7 +14,7 @@ the caches may be ``(B, Hkv, T, D)`` views of the decode engine's
 ``(slots, T, Hkv, D)`` layer caches, read in place; the head dim must be
 contiguous and every cache row 16-byte aligned (it is loaded 16 bytes a
 lane).  bf16 runs on the tensor cores, one block serving up to 16 q heads
-of one kv head; fp32 on CUDA cores, up to 8.  A ``(B,)`` length tensor is
+of one kv head; fp32 on CUDA cores, up to 8 (4 at head dim 96).  A ``(B,)`` length tensor is
 read by the kernel from device memory, so nothing on the host waits for
 it.
 
@@ -33,7 +33,7 @@ import torch
 from . import _build
 from .ref import decode_lengths, flash_decode_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 KEY_TILE = 16                 # keys a warp's tile; splits are multiples
 WARPS = 4                     # warps a block, each on its own tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

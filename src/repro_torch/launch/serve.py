@@ -33,7 +33,13 @@ served, as in the reference: both workloads print the plan, the report and
 the reference's note, and return (:func:`plan_only`).  Their runnable
 surface is :mod:`repro_torch.models.api`.
 
-Full width is the default; ``--smoke`` serves the reduced config.
+Both workloads serve the attention families: dense (qwen3-1.7b,
+qwen2.5-14b, minitron-4b, phi3-mini-3.8b), moe (granite-moe-1b-a400m,
+phi3.5-moe-42b-a6.6b) and vlm (qwen2-vl-72b, whose requests are text: the
+stages get its default (3, B, S) M-RoPE positions).  Full width is the
+default; ``--smoke`` serves the reduced config.  ``--moe-capacity-factor``
+overrides a moe config's routing capacity (``n_experts / top_k`` drops no
+token, so the grouping of a forward changes no token's output).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --stages 4 --requests 15
@@ -47,6 +53,7 @@ Full width is the default; ``--smoke`` serves the reduced config.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import threading
 import time
@@ -126,7 +133,9 @@ def _stage_fn(cfg: lm.LMConfig, params: lm.Params, blocks: Sequence,
             _record_inputs(stream, [x_or_tokens])
             x = (lm.embed_tokens(cfg, params, x_or_tokens) if first
                  else x_or_tokens)
-            positions = lm.positions_for(x)
+            # vlm: the (3, B, S) default, which the reference's stage
+            # reaches by indexing (1, S) positions past their first axis
+            positions = lm.positions_for(cfg, x)
             for bp in blocks:
                 x = lm.block(cfg, bp, x, positions)
             if last:
@@ -332,15 +341,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="decode planning: memory per stage of the device "
                          "the plan is priced for (0: the reference's 8 MiB "
                          "Edge TPU)")
+    ap.add_argument("--moe-capacity-factor", type=float, default=0.0,
+                    help="moe archs: the routing capacity factor (0: the "
+                         "config's; n_experts / top_k drops no token)")
     return ap.parse_args(argv)
+
+
+def config_from_args(args: argparse.Namespace) -> lm.LMConfig:
+    """The arch's full-width (or ``--smoke``) config, with
+    ``--moe-capacity-factor`` applied to a moe config."""
+    mod = configs.get(args.arch)
+    cfg = mod.smoke_config() if args.smoke else mod.config()
+    if args.moe_capacity_factor and cfg.family == "moe":
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=args.moe_capacity_factor)
+    return cfg
 
 
 def setup(args: argparse.Namespace):
     """Random weights from ``args.seed``, the plan through the front door,
     and the request tokens: (cfg, params, deployment, requests)."""
     device = resolve_device(args.device)
-    mod = configs.get(args.arch)
-    cfg = mod.smoke_config() if args.smoke else mod.config()
+    cfg = config_from_args(args)
     gen = torch.Generator(device).manual_seed(args.seed)
     params = lm.init_params(cfg, device, generator=gen)
     g = lm_graph.lm_layer_graph(cfg, seq_len=args.seq)
@@ -419,8 +441,7 @@ def setup_decode(args: argparse.Namespace):
     door (the config and a ``--plan-device-bytes`` planning device beside
     the graph), and the prompts: (cfg, params, deployment, prompts)."""
     device = resolve_device(args.device)
-    mod = configs.get(args.arch)
-    cfg = mod.smoke_config() if args.smoke else mod.config()
+    cfg = config_from_args(args)
     params = lm.init_params(cfg, device,
                             torch.Generator(device).manual_seed(args.seed))
     g = lm_graph.lm_layer_graph(cfg, seq_len=args.seq)
@@ -470,8 +491,7 @@ def plan_only(args: argparse.Namespace) -> Dict[str, Any]:
     for ``--workload decode``), print the plan, the report and the note.
     Returns the config, the plan and the note."""
     resolve_device(args.device)
-    mod = configs.get(args.arch)
-    cfg = mod.smoke_config() if args.smoke else mod.config()
+    cfg = config_from_args(args)
     g = lm_graph.lm_layer_graph(cfg, seq_len=args.seq)
     if args.workload == "decode":
         base = (EdgeTPUSpec(onchip_bytes=args.plan_device_bytes)

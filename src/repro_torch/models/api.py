@@ -1,15 +1,19 @@
 """Family-dispatch API, as ``repro/models/api.py``: one surface for the
-ported families (dense, ssm = rwkv6, hybrid = recurrentgemma).
+ported families (dense, moe and vlm = ``lm``, ssm = rwkv6, hybrid =
+recurrentgemma).
 
     init(cfg, device, generator)               -> params
     forward(cfg, params, batch)                -> fp32 logits (prefill)
     forward_hidden / unembed                   -> hidden states / logits
     init_cache(cfg, batch, max_len, device)    -> decode cache
     decode(cfg, params, tokens, cache)         -> (logits, cache)
-    param_count(cfg)                           -> exact parameter count
+    prefill(cfg, params, batch, cache)         -> (logits, cache)
+    param_count(cfg), active_param_count(cfg)  -> exact parameter counts
 
-The moe and vlm families (the LM-families slice) and encdec (the
-encoder-decoder slice) raise :class:`NotImplementedError`.
+``prefill`` (the attention families; not in the reference, whose decode
+takes one token a step) puts a prompt batch into an empty KV cache in one
+forward.  The encdec family (the encoder-decoder slice) raises
+:class:`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from .lm import LMConfig
 
 Params = Dict[str, Any]
 
-_MODULES = {"dense": lm, "ssm": rwkv6, "hybrid": rglru}
+_MODULES = {"dense": lm, "moe": lm, "vlm": lm, "ssm": rwkv6,
+            "hybrid": rglru}
 
 
 def _module(cfg: LMConfig):
@@ -67,6 +72,20 @@ def decode(cfg: LMConfig, params: Params, tokens: torch.Tensor,
     return _module(cfg).forward_decode(cfg, params, tokens, cache)
 
 
+def prefill(cfg: LMConfig, params: Params, batch: Dict[str, torch.Tensor],
+            cache: Params, last_token_only: bool = False
+            ) -> Tuple[torch.Tensor, Params]:
+    """A prompt batch (as :func:`forward`'s, vlm embeds and positions
+    included) into an empty cache of the attention families
+    (:func:`repro_torch.models.lm.prefill`); decode steps continue after
+    it.  The ssm family takes a prompt through :func:`decode`."""
+    if _module(cfg) is not lm:
+        raise ValueError(f"{cfg.name}: prefill fills the KV cache of the "
+                         f"attention families {lm.ATTN_FAMILIES}, not "
+                         f"family {cfg.family!r}")
+    return lm.prefill(cfg, params, batch, cache, last_token_only)
+
+
 def tree_size(tree) -> int:
     """Elements in a parameter tree of dicts, lists and tensors."""
     if isinstance(tree, dict):
@@ -80,3 +99,13 @@ def param_count(cfg: LMConfig) -> int:
     """Exact parameter count from the initializer on the ``meta`` device
     (no allocation)."""
     return tree_size(init(cfg, torch.device("meta")))
+
+
+def active_param_count(cfg: LMConfig) -> int:
+    """Parameters a token uses (moe: only top_k of the experts count)."""
+    total = param_count(cfg)
+    if cfg.family != "moe":
+        return total
+    expert_params = 3 * cfg.d_model * cfg.d_ff
+    inactive = cfg.n_layers * (cfg.n_experts - cfg.top_k) * expert_params
+    return total - inactive

@@ -55,6 +55,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections,
+                theta: float = 10000.0) -> torch.Tensor:
+    """M-RoPE (qwen2-vl): the D/2 frequency slots split into ``sections``
+    (temporal, height, width), each rotating with its own position stream;
+    positions3: (3, ..., S).  The half-split rotation and fp32 angles of
+    :func:`apply_rope`."""
+    d = x.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
+    parts, off = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(positions3[i][..., None].float() * freqs[off:off + sec])
+        off += sec
+    ang = torch.cat(parts, dim=-1)[..., None, :]              # (..., S, 1, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool = True, q_offset: int = 0,
                    window: Optional[int] = None) -> torch.Tensor:

@@ -1,15 +1,17 @@
-"""The LM config and the dense decoder family, in PyTorch.
+"""The LM config and the attention decoder families, in PyTorch.
 
 Ported from ``repro/models/lm.py``: the same :class:`LMConfig` (``dtype`` is
-a :class:`torch.dtype`) and the dense forward (embed, RMS norm, q/k/v
-projections with qk-norm, half-split RoPE, GQA attention, swiglu or geglu
-MLP, final norm, tied or untied unembedding).  The attention and MLP
-blocks also serve the hybrid family's local-attention layers
-(:mod:`repro_torch.models.rglru`); the ssm family is
-:mod:`repro_torch.models.rwkv6`.  Parameters are a plain dict
-mirroring the JAX tree, except that ``blocks`` is a list with one dict per
-layer (the JAX tree stacks them along a leading axis); weights are laid out
-``(in, out)`` as there.
+a :class:`torch.dtype`) and the forward of the dense, moe and vlm families
+(embed, RMS or layer norm, q/k/v projections with optional bias and
+qk-norm, half-split RoPE or qwen2-vl's M-RoPE, GQA attention, a swiglu,
+geglu, relu^2 or gelu MLP or the grouped GShard mixture of experts, final
+norm, tied or untied unembedding; vlm prepends patch embeddings).  The
+attention and MLP blocks also serve the hybrid family's local-attention
+layers (:mod:`repro_torch.models.rglru`); the ssm family is
+:mod:`repro_torch.models.rwkv6`.  Parameters are a plain dict mirroring the
+JAX tree, except that ``blocks`` is a list with one dict per layer (the JAX
+tree stacks them along a leading axis); weights are laid out ``(in, out)``
+as there.
 
 Every layer's attention is a CUDA kernel: over a sequence the flash kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`) in
@@ -18,8 +20,9 @@ transposed views, which the kernel reads through their strides; for one
 decode token against a KV cache the flash-decode kernel
 (:func:`repro_torch.kernels.flash_decode.flash_decode`), the ``(B, T, Hkv,
 D)`` caches passed the same way.  Caches are written in place (the JAX
-module returns updated copies).  The moe, vlm and encdec families, QKV
-bias, layer norm and the ungated MLPs are not ported and raise.
+module returns updated copies).  The mixture of experts is plain
+``torch.einsum`` products, as the reference's are outside any kernel.
+The encdec family is not ported and raises.
 """
 from __future__ import annotations
 
@@ -100,27 +103,25 @@ class LMConfig:
         return self
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+# the families of this module (the reference's ``_ATTN_FAMILIES``)
+ATTN_FAMILIES = ("dense", "moe", "vlm")
+PORTED_FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid")
 
 
-def require_ported(cfg: LMConfig, family: Optional[str] = None) -> None:
-    """Raise for the parts of the LM families this package does not run;
-    ``family``: also raise unless ``cfg`` is of that family."""
+def require_ported(cfg: LMConfig, families=None) -> None:
+    """Raise for the LM families this package does not run; ``families``
+    (a family or a tuple of them): also raise unless ``cfg`` is of one."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (the {'/'.join(PORTED_FAMILIES)} families are); moe/vlm "
-            f"are the LM-families slice, encdec the encoder-decoder slice")
-    if family is not None and cfg.family != family:
+            f"yet (the {'/'.join(PORTED_FAMILIES)} families are); encdec is "
+            f"the encoder-decoder slice")
+    if isinstance(families, str):
+        families = (families,)
+    if families is not None and cfg.family not in families:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} runs through "
-                         f"repro_torch.models.api, not the {family!r} "
-                         f"module")
-    if cfg.family != "ssm" and (cfg.qkv_bias or cfg.norm != "rms" or
-                                cfg.mlp_kind not in ("swiglu", "geglu")):
-        raise NotImplementedError(
-            f"{cfg.name}: qkv_bias={cfg.qkv_bias}, mlp_kind={cfg.mlp_kind!r}, "
-            f"norm={cfg.norm!r}: only the swiglu/geglu, rms, no-bias "
-            f"attention blocks are ported to repro_torch")
+                         f"repro_torch.models.api, not the module of "
+                         f"{'/'.join(families)}")
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +141,10 @@ def attn_params(cfg: LMConfig, dtype, device, generator) -> Params:
             "wk": _dense_init((d, kvd), dtype, device, generator),
             "wv": _dense_init((d, kvd), dtype, device, generator),
             "wo": _dense_init((qd, d), dtype, device, generator)}
+    if cfg.qkv_bias:
+        attn["bq"] = torch.zeros(qd, dtype=dtype, device=device)
+        attn["bk"] = torch.zeros(kvd, dtype=dtype, device=device)
+        attn["bv"] = torch.zeros(kvd, dtype=dtype, device=device)
     if cfg.qk_norm:
         attn["q_norm"] = torch.zeros(cfg.hd, dtype=dtype, device=device)
         attn["k_norm"] = torch.zeros(cfg.hd, dtype=dtype, device=device)
@@ -147,18 +152,37 @@ def attn_params(cfg: LMConfig, dtype, device, generator) -> Params:
 
 
 def mlp_params(cfg: LMConfig, dtype, device, generator) -> Params:
+    """The moe family's fp32 router and (E, d, f) / (E, f, d) expert
+    stacks; else a gated MLP's wg, wu, wd or an ungated one's wu, wd."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"wg": _dense_init((d, f), dtype, device, generator),
-            "wu": _dense_init((d, f), dtype, device, generator),
+    if cfg.family == "moe":
+        e = cfg.n_experts
+        return {"router": _dense_init((d, e), torch.float32, device,
+                                      generator),
+                "wg": _dense_init((e, d, f), dtype, device, generator),
+                "wu": _dense_init((e, d, f), dtype, device, generator),
+                "wd": _dense_init((e, f, d), dtype, device, generator)}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        return {"wg": _dense_init((d, f), dtype, device, generator),
+                "wu": _dense_init((d, f), dtype, device, generator),
+                "wd": _dense_init((f, d), dtype, device, generator)}
+    return {"wu": _dense_init((d, f), dtype, device, generator),
             "wd": _dense_init((f, d), dtype, device, generator)}
 
 
-def block_params(cfg: LMConfig, dtype, device, generator) -> Params:
-    """One attention + MLP block (RMS-normed)."""
+def norm_params(cfg: LMConfig, dtype, device) -> Params:
     d = cfg.d_model
-    return {"ln1": {"scale": torch.zeros(d, dtype=dtype, device=device)},
+    if cfg.norm == "layer":
+        return {"scale": torch.ones(d, dtype=dtype, device=device),
+                "bias": torch.zeros(d, dtype=dtype, device=device)}
+    return {"scale": torch.zeros(d, dtype=dtype, device=device)}
+
+
+def block_params(cfg: LMConfig, dtype, device, generator) -> Params:
+    """One attention + MLP block."""
+    return {"ln1": norm_params(cfg, dtype, device),
             "attn": attn_params(cfg, dtype, device, generator),
-            "ln2": {"scale": torch.zeros(d, dtype=dtype, device=device)},
+            "ln2": norm_params(cfg, dtype, device),
             "mlp": mlp_params(cfg, dtype, device, generator)}
 
 
@@ -167,15 +191,14 @@ def init_params(cfg: LMConfig, device: torch.device,
     """Random parameters with the reference's shapes, dtypes and init
     scales (not its numbers: the generators differ).  ``generator`` must
     live on ``device``; ``device="meta"`` gives shapes without storage."""
-    require_ported(cfg, "dense")
+    require_ported(cfg, ATTN_FAMILIES)
     dtype = cfg.dtype
     params: Params = {
         "embed": _dense_init((cfg.vocab, cfg.d_model), dtype, device,
                              generator, scale=0.02),
         "blocks": [block_params(cfg, dtype, device, generator)
                    for _ in range(cfg.n_layers)],
-        "final_norm": {"scale": torch.zeros(cfg.d_model, dtype=dtype,
-                                            device=device)},
+        "final_norm": norm_params(cfg, dtype, device),
     }
     if not cfg.tie_embeddings:
         params["head"] = _dense_init((cfg.d_model, cfg.vocab), dtype, device,
@@ -186,15 +209,36 @@ def init_params(cfg: LMConfig, device: torch.device,
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
+def _norm(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layer":
+        return A.layer_norm(x, p["scale"], p["bias"])
+    return A.rms_norm(x, p["scale"])
+
+
 def _qkv(cfg: LMConfig, p: Params, x: torch.Tensor):
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
     if cfg.qk_norm:
         q = A.rms_norm(q, p["q_norm"])
         k = A.rms_norm(k, p["k_norm"])
     return q, k, v
+
+
+def _rope_qk(cfg: LMConfig, q: torch.Tensor, k: torch.Tensor,
+             positions: torch.Tensor):
+    """RoPE, or for vlm M-RoPE over (3, ..., S) positions."""
+    if cfg.family == "vlm":
+        return (A.apply_mrope(q, positions, cfg.mrope_sections,
+                              cfg.rope_theta),
+                A.apply_mrope(k, positions, cfg.mrope_sections,
+                              cfg.rope_theta))
+    return (A.apply_rope(q, positions, cfg.rope_theta),
+            A.apply_rope(k, positions, cfg.rope_theta))
 
 
 def attn_block(cfg: LMConfig, p: Params, x: torch.Tensor,
@@ -205,17 +249,17 @@ def attn_block(cfg: LMConfig, p: Params, x: torch.Tensor,
     both of the reference's branches (``s <= q_chunk``: full attention,
     else query-chunked): they compute the same function.
 
-    ``cache_rows`` (one sequence, B = 1): a decode slot's ``(T, Hkv, D)``
-    K and V caches, whose first S rows take the post-RoPE k/v in place.
+    ``cache_rows``: ``(B, T, Hkv, D)`` K and V caches (a decode slot's
+    ``(1, T, Hkv, D)``), whose first S rows take the post-RoPE k/v in
+    place.
     ``window`` (a local-attention layer): the kernel masks keys at or
     before ``qpos - window``, the reference's ``full_attention`` mask."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
-    q = A.apply_rope(q, positions, cfg.rope_theta)
-    k = A.apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rope_qk(cfg, q, k, positions)
     if cache_rows is not None:
-        cache_rows[0][:s].copy_(k[0])
-        cache_rows[1][:s].copy_(v[0])
+        cache_rows[0][:, :s].copy_(k)
+        cache_rows[1][:, :s].copy_(v)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=True, window=window)
     return out.transpose(1, 2).reshape(b, s, cfg.q_dim) @ p["wo"]
@@ -233,7 +277,8 @@ def attn_block_decode(cfg: LMConfig, p: Params, x: torch.Tensor,
     (``(slice(None), n - 1)`` for a whole batch at one position, or
     ``(rows, positions)`` index tensors for the decode engine's active
     slots).  ``cache_len``: an int or a (B,) int32 tensor on the caches'
-    device; ``positions``: (B, 1) or (1, 1) RoPE positions.
+    device; ``positions``: (B, 1) or (1, 1) RoPE positions ((3, B, 1) or
+    (3, 1, 1) for vlm).
 
     ``window`` (a local-attention layer; ``cache_len`` an int, ``write``
     unused): the reference's ring cache of T = min(max_len, window) rows.
@@ -254,8 +299,7 @@ def attn_block_decode(cfg: LMConfig, p: Params, x: torch.Tensor,
             lo = min(max(cache_len - window, 0), t)
         cache_len = min(cache_len, t) - lo
     q, k, v = _qkv(cfg, p, x)                       # S == 1
-    q = A.apply_rope(q, positions, cfg.rope_theta)
-    k = A.apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rope_qk(cfg, q, k, positions)
     k_cache[write] = k[write[0], 0]
     v_cache[write] = v[write[0], 0]
     out = flash_decode(q[:, 0], k_cache[:, lo:].transpose(1, 2),
@@ -264,31 +308,76 @@ def attn_block_decode(cfg: LMConfig, p: Params, x: torch.Tensor,
 
 
 def mlp_block(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Gated MLP: swiglu, or geglu with JAX's default tanh-approximate
-    GELU."""
-    if cfg.mlp_kind == "geglu":
-        h = F.gelu(x @ p["wg"], approximate="tanh")
+    """The moe family's :func:`moe_block`; else swiglu, geglu, relu^2
+    (``square(relu(x wu))``) or gelu, the GELUs JAX's default
+    tanh-approximate one."""
+    if cfg.family == "moe":
+        return moe_block(cfg, p, x)
+    kind = cfg.mlp_kind
+    if kind == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
+    elif kind == "geglu":
+        h = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])
+    elif kind == "relu2":
+        h = torch.square(F.relu(x @ p["wu"]))
     else:
-        h = F.silu(x @ p["wg"])
-    return (h * (x @ p["wu"])) @ p["wd"]
+        h = F.gelu(x @ p["wu"], approximate="tanh")
+    return h @ p["wd"]
+
+
+def moe_block(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The reference's grouped GShard dense dispatch: tokens route within
+    contiguous groups of ``moe_group`` tokens (S a multiple of the group),
+    each expert taking at most ``cap`` tokens of a group in order; a token
+    past an expert's capacity is dropped there.  Router, softmax, top-k,
+    the gate renormalisation and the dispatch product in fp32; the expert
+    products in the model dtype."""
+    bb, ss, d = x.shape
+    g = min(cfg.moe_group, ss)
+    assert ss % g == 0, (ss, g)
+    x = x.reshape(bb * (ss // g), g, d)
+    s = x.shape[1]
+    e, k = cfg.n_experts, cfg.top_k
+    cap = min(int(cfg.capacity_factor * s * k / e) + 1, s)
+
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)   # (B,S,E)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)       # (B,S,k)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+
+    # one-hot dispatch with capacity: position of each token within its
+    # expert, the top-k choices folded into one (B,S,E) weight
+    onehot = F.one_hot(gate_idx, e).float()                  # (B,S,k,E)
+    combine_w = torch.einsum("bske,bsk->bse", onehot, gate_vals)
+    assign = onehot.amax(dim=2)                              # (B,S,E) 0/1
+    pos_in_expert = torch.cumsum(assign, dim=1) * assign - 1
+    keep = (pos_in_expert >= 0) & (pos_in_expert < cap)
+    slot = pos_in_expert.clamp(0, cap - 1).long()
+    dispatch = F.one_hot(slot, cap).float() * keep[..., None]   # (B,S,E,C)
+    combine = dispatch * combine_w[..., None]
+
+    xt = torch.einsum("bsec,bsd->ebcd", dispatch, x.float()).to(x.dtype)
+    h = F.silu(torch.einsum("ebcd,edf->ebcf", xt, p["wg"])) * \
+        torch.einsum("ebcd,edf->ebcf", xt, p["wu"])
+    y = torch.einsum("ebcf,efd->ebcd", h, p["wd"])            # (E,B,C,D)
+    out = torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), y)
+    return out.reshape(bb, ss, d)
 
 
 def block(cfg: LMConfig, bp: Params, x: torch.Tensor,
           positions: torch.Tensor,
           cache_rows: Optional[KVRows] = None) -> torch.Tensor:
-    x = x + attn_block(cfg, bp["attn"], A.rms_norm(x, bp["ln1"]["scale"]),
+    x = x + attn_block(cfg, bp["attn"], _norm(cfg, bp["ln1"], x),
                        positions, cache_rows)
-    return x + mlp_block(cfg, bp["mlp"], A.rms_norm(x, bp["ln2"]["scale"]))
+    return x + mlp_block(cfg, bp["mlp"], _norm(cfg, bp["ln2"], x))
 
 
 def block_decode(cfg: LMConfig, bp: Params, x: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len,
                  positions: torch.Tensor, write: Tuple) -> torch.Tensor:
     """One decoder block of one decode step; see :func:`attn_block_decode`."""
-    x = x + attn_block_decode(cfg, bp["attn"],
-                              A.rms_norm(x, bp["ln1"]["scale"]), k_cache,
-                              v_cache, cache_len, positions, write)
-    return x + mlp_block(cfg, bp["mlp"], A.rms_norm(x, bp["ln2"]["scale"]))
+    x = x + attn_block_decode(cfg, bp["attn"], _norm(cfg, bp["ln1"], x),
+                              k_cache, v_cache, cache_len, positions, write)
+    return x + mlp_block(cfg, bp["mlp"], _norm(cfg, bp["ln2"], x))
 
 
 def embed_tokens(cfg: LMConfig, params: Params,
@@ -298,25 +387,38 @@ def embed_tokens(cfg: LMConfig, params: Params,
 
 
 def unembed(cfg: LMConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = A.rms_norm(x, params["final_norm"]["scale"])
+    x = _norm(cfg, params["final_norm"], x)
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return (x @ w).float()
 
 
-def positions_for(x: torch.Tensor) -> torch.Tensor:
-    """Default positions (1, S) of a (B, S, D) activation."""
-    return torch.arange(x.shape[1], device=x.device)[None, :]
+def positions_for(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """Default positions of a (B, S, D) activation: (1, S), or for vlm
+    the (3, B, S) broadcast of the same (every stream the index)."""
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    if cfg.family == "vlm":
+        return pos[None].expand(3, x.shape[0], x.shape[1])
+    return pos
 
 
 def forward_hidden(cfg: LMConfig, params: Params,
-                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                   batch: Dict[str, torch.Tensor],
+                   cache: Optional[Params] = None) -> torch.Tensor:
     """Post-block hidden states (B, S, d_model): pair with
-    :func:`unembed`."""
-    require_ported(cfg, "dense")
+    :func:`unembed`.  vlm: ``batch["embeds"]`` (B, P, d_model), when
+    given, goes before the token embeddings; ``batch["positions"]``, when
+    given, replaces :func:`positions_for`.  ``cache`` (:func:`init_cache`'s,
+    of B rows): every layer's post-RoPE K/V go into its rows [0, S), in
+    place."""
+    require_ported(cfg, ATTN_FAMILIES)
     x = embed_tokens(cfg, params, batch["tokens"])
-    positions = positions_for(x)
-    for bp in params["blocks"]:
-        x = block(cfg, bp, x, positions)
+    if cfg.family == "vlm" and "embeds" in batch:
+        x = torch.cat([batch["embeds"].to(x.device, x.dtype), x], dim=1)
+    positions = (batch["positions"].to(x.device) if "positions" in batch
+                 else positions_for(cfg, x))
+    for i, bp in enumerate(params["blocks"]):
+        rows = None if cache is None else (cache["k"][i], cache["v"][i])
+        x = block(cfg, bp, x, positions, rows)
     return x
 
 
@@ -325,7 +427,8 @@ def forward(cfg: LMConfig, params: Params, batch: Dict[str, torch.Tensor],
     """Full-sequence forward -> fp32 logits (B, S, V), or (B, 1, V) with
     ``last_token_only`` (the prefill serving path).
 
-    batch["tokens"]: (B, S) integer tokens."""
+    batch["tokens"]: (B, S) integer tokens; for vlm batch["embeds"] (B, P,
+    d_model) is prepended and positions are (3, B, P + S)."""
     x = forward_hidden(cfg, params, batch)
     if last_token_only:
         x = x[:, -1:]
@@ -339,21 +442,42 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
                device: torch.device) -> Params:
     """Zero K/V caches (n_layers, B, T, Hkv, D) in the model dtype, and the
     valid length 0."""
-    require_ported(cfg, "dense")
+    require_ported(cfg, ATTN_FAMILIES)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "len": 0}
 
 
+def prefill(cfg: LMConfig, params: Params, batch: Dict[str, torch.Tensor],
+            cache: Params, last_token_only: bool = False
+            ) -> Tuple[torch.Tensor, Params]:
+    """A prompt batch (as :func:`forward`'s) into an empty cache: the
+    forward's fp32 logits, and the cache with the prompt's K/V in its rows
+    [0, S) of every layer (in place) and its length S.  Decode steps then
+    continue at position S."""
+    if cache["len"] != 0:
+        raise ValueError(f"prefill fills an empty cache; this one holds "
+                         f"{cache['len']} positions")
+    x = forward_hidden(cfg, params, batch, cache)
+    n = x.shape[1]
+    if last_token_only:
+        x = x[:, -1:]
+    return unembed(cfg, params, x), {**cache, "len": n}
+
+
 def forward_decode(cfg: LMConfig, params: Params, tokens: torch.Tensor,
                    cache: Params) -> Tuple[torch.Tensor, Params]:
     """One decode step: tokens (B, 1) -> fp32 logits (B, 1, V) and the cache
-    with its length advanced; the K/V tensors are updated in place."""
-    require_ported(cfg, "dense")
+    with its length advanced; the K/V tensors are updated in place.  The
+    new token's position is the cache length (for vlm on all three M-RoPE
+    streams, as the reference's)."""
+    require_ported(cfg, ATTN_FAMILIES)
     x = embed_tokens(cfg, params, tokens)
     n = cache["len"] + 1
     pos = torch.full((1, 1), n - 1, device=x.device)
+    if cfg.family == "vlm":
+        pos = pos[None].expand(3, 1, 1)
     write = (slice(None), n - 1)
     for i, bp in enumerate(params["blocks"]):
         x = block_decode(cfg, bp, x, cache["k"][i], cache["v"][i], n, pos,

@@ -169,7 +169,7 @@ def forward_hidden(cfg: LMConfig, params: Params,
     """Post-block hidden states (B, S, D): pair with :func:`unembed`."""
     require_ported(cfg, "hybrid")
     x = lm.embed_tokens(cfg, params, batch["tokens"])
-    positions = lm.positions_for(x)
+    positions = lm.positions_for(cfg, x)
     zero = _zero_rec_state(cfg, x.shape[0], x.device)
     for sb in params["super"]:
         x, _ = rec_layer(cfg, sb["rec1"], x, zero)

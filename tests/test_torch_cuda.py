@@ -92,6 +92,12 @@ def _attention_inputs(g, dev, b, hq, hkv, s, t, d, dtype, layout=False):
     (1, 16, 1, 1, 1000, 256, True, "bfloat16", False),
     (1, 16, 1, 1000, 1000, 256, True, "bfloat16", True),
     (2, 2, 1, 200, 72, 256, False, "bfloat16", False),
+    # head dim 96 (phi3-mini: MHA, 32 heads): 12 16-byte chunks a row
+    (1, 32, 32, 1024, 1024, 96, True, "bfloat16", True),
+    (1, 32, 32, 1000, 1000, 96, True, "bfloat16", False),
+    (1, 4, 2, 100, 17, 96, False, "bfloat16", False),
+    (1, 32, 32, 257, 257, 96, True, "float32", True),
+    (2, 4, 1, 72, 200, 96, True, "float32", False),
 ])
 def test_kernel_matches_plain(sm90, b, hq, hkv, s, t, d, causal, dtype,
                               layout):
@@ -176,6 +182,14 @@ def test_serve_smoke_on_card(sm90):
     (8, 16, 8, 2048, 128, [0, 200, 223, 225, 500, 1056, 1057, 1999],
      "bfloat16"),
     (2, 40, 2, 300, 64, [300, 17], "bfloat16"),     # group 20: two blocks
+    # head dim 96 (phi3-mini's decode point, group 1), lengths ending
+    # inside a split; fp32 at 8 lanes a row, 3 slices a lane
+    (8, 32, 32, 2048, 96, [0, 1, 127, 128, 1000, 1056, 2047, 2048],
+     "bfloat16"),
+    (8, 32, 32, 2048, 96, [0, 200, 223, 225, 500, 1056, 1057, 1999],
+     "float32"),
+    (2, 8, 2, 300, 96, [300, 17], "bfloat16"),      # group 4
+    (2, 16, 2, 300, 96, [300, 17], "float32"),      # two blocks of 4 heads
 ])
 def test_flash_decode_matches_plain(sm90, b, hq, hkv, t, d, lens, dtype):
     g = torch.Generator(sm90).manual_seed(0)
@@ -196,6 +210,42 @@ def test_flash_decode_matches_plain(sm90, b, hq, hkv, t, d, lens, dtype):
                                rtol=tol, atol=tol)
     live = torch.as_tensor(lens, device=sm90).expand(b) > 0
     assert not got[~live].any()
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "minitron-4b",
+                                  "phi3-mini-3.8b", "granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b", "qwen2-vl-72b"])
+def test_family_smoke_forward_and_decode_match_cpu(sm90, arch):
+    """The LM families' smoke configs (fp32) on the card against the CPU:
+    the forward of a (2, 40) batch (vlm: after its patches) and 8 decode
+    steps after a prefill of it, within 1e-4."""
+    import dataclasses
+    cfg = configs.get(arch).smoke_config()
+    if arch == "phi3-mini-3.8b":
+        cfg = dataclasses.replace(cfg, head_dim=96)   # the D 96 kernels
+    cpu = torch.device("cpu")
+    params = api.init(cfg, cpu, torch.Generator(cpu).manual_seed(0))
+    card = _to(params, sm90)
+    batch = concrete_batch(cfg, 40 + cfg.n_patches, 2, kind="prefill")
+    out = []
+    for dev, p in ((cpu, params), (sm90, card)):
+        cache = api.init_cache(cfg, 2, 64 + cfg.n_patches, dev)
+        logits, cache = api.prefill(cfg, p, _to(batch, dev), cache)
+        rows = [logits]
+        for _ in range(8):
+            tok = rows[-1][:, -1:].argmax(-1)
+            step, cache = api.decode(cfg, p, tok, cache)
+            rows.append(step)
+        out.append(torch.cat(rows, 1).cpu())
+    torch.testing.assert_close(out[1], out[0], rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 def test_flash_decode_rejects_unaligned_rows(sm90):

@@ -147,11 +147,11 @@ def test_full_logits_match_reference():
 
 
 def test_unported_configs_raise():
-    cfg = tconfigs.get(ARCH).smoke_config()
-    for over in ({"family": "moe", "n_experts": 4, "top_k": 2},
-                 {"qkv_bias": True}, {"mlp_kind": "gelu"}):
-        with pytest.raises(NotImplementedError):
-            tlm.init_params(dataclasses.replace(cfg, **over), CPU)
+    # every family but the encoder-decoder one (whisper) is ported
+    cfg = dataclasses.replace(tconfigs.get(ARCH).smoke_config(),
+                              family="encdec", n_enc_layers=2)
+    with pytest.raises(NotImplementedError, match="encdec"):
+        tlm.init_params(cfg, CPU)
 
 
 def test_meta_init_allocates_nothing():

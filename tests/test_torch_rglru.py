@@ -575,5 +575,5 @@ def test_dense_module_refuses_the_hybrid_config(weights):
     with pytest.raises(ValueError, match="repro_torch.models.api"):
         tlm.init_params(tcfg, CPU)
     with pytest.raises(NotImplementedError):
-        tapi.init(dataclasses.replace(tcfg, family="moe", n_experts=4,
-                                      top_k=2), "cpu")
+        tapi.init(dataclasses.replace(tcfg, family="encdec",
+                                      n_enc_layers=2), "cpu")

@@ -142,21 +142,17 @@ def test_serve_entry_point_raises_without_cuda(monkeypatch):
     # the encoder-decoder family (whisper) is not ported
     lambda dep: tmodels.forward(dataclasses.replace(
         tconfigs.get(ARCH).smoke_config(), family="encdec"), {}, {}),
-    # decode serves the dense family; the MoE/VLM decode path is not
-    # ported yet
-    lambda dep: tapi.Deployment(
-        tapi.DeploymentSpec(**{**SPEC, "workload": "decode"}), dep.plan,
-        cfg=dataclasses.replace(tconfigs.get(ARCH).smoke_config(),
-                                family="moe", n_experts=4, top_k=2)
-    ).serve(params={}),
+    # the encoder-decoder family's decode step
+    lambda dep: tmodels.decode(dataclasses.replace(
+        tconfigs.get(ARCH).smoke_config(), family="encdec"), {}, None, {}),
     # a CNN plans and serves on the host tier; its SPMD tier is not ported
     lambda dep: tapi.deploy(tapi.DeploymentSpec(model="cnn:ResNet50",
                                                 stages=2, backend="spmd"),
                             stage_fns=[None, None]).executor(),
-    # the dense variants with relu^2 MLPs (minitron) are not ported
-    lambda dep: tlm.require_ported(dataclasses.replace(
-        tconfigs.get(ARCH).smoke_config(), mlp_kind="relu2")),
-], ids=["spmd", "encdec_family", "decode", "cnn", "relu2_mlp"])
+    # the encoder-decoder family's cache
+    lambda dep: tmodels.init_cache(dataclasses.replace(
+        tconfigs.get(ARCH).smoke_config(), family="encdec"), 1, 8, CPU),
+], ids=["spmd", "encdec_family", "decode", "cnn", "encdec_init_cache"])
 def test_unported_paths_raise(served, call):
     with pytest.raises(NotImplementedError, match="repro_torch"):
         call(served["tdep"])
