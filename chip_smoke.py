@@ -90,7 +90,30 @@ With no arguments:
    ``api.prefill`` of it and 16 greedy decode steps, each with exact
    launch counts, the served tokens teacher-forced in bf16 and the loop
    repeated in fp32 with the weights upcast a layer at a time;
-9. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
+9. the encoder-decoder slice: both flash kernels at whisper-tiny's
+   shapes (16 clips, 6/6 heads, D 64: the encoder's non-causal S = T =
+   1500, the prefill's cross-attention of 448 tokens against 1500 frames,
+   the decoder's causal 448; flash_decode over the memory's 1500 rows,
+   full and ragged, and over a 448-row self-attention cache) against
+   their plain versions in bf16 and fp32 and timed beside SDPA and their
+   bounds; whisper's smoke config card vs CPU on a cache built from the
+   encoder's memory; then whisper-tiny at full width (random bf16 weights
+   from seed 0, plan printed): ``api.forward`` of 16 clips x 1500 stub
+   frames (numpy seed) and 448 tokens (12 flash_attention launches),
+   ``encode`` and a cache built from its memory, a 4-token prompt token
+   by token and 64 greedy tokens (flash_decode = 2 x 4 layers a call),
+   each with exact launch counts, the served tokens teacher-forced
+   through ``decode_train`` in bf16 against the fp32 evaluation, and the
+   loop repeated in fp32;
+10. the card's segment memory reporter (``launch/cuda_reporter.py``):
+   qwen3-1.7b at full width (batch 1, 1024 tokens), its balanced 4-stage
+   cuts measured segment by segment on the card, then planned
+   ``balanced`` with the reporter at a budget between the mean and the
+   largest measured segment: the cuts before and after, runs, moves,
+   convergence and each final segment's measured bytes beside its
+   analytic weight bytes (one JSON line); fails unless it moved a cut and
+   converged with every segment within the budget;
+11. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
    synthetic_cnn(64) at their published input sizes, one forward each on
    the card against the CPU; ResNet50 planned by the analytic Edge TPU
    model (balanced, 4 stages) and served through ``cnn_stage_fns`` (64
@@ -101,7 +124,7 @@ With no arguments:
    direct forward;
    then the int8 API on ResNet50's head (``quantized_dense``, 1
    matmul_qi8 launch between a reset and a read of the counts);
-10. the fault-tolerance tier on ResNet50 (the weights of 9): the placement
+12. the fault-tolerance tier on ResNet50 (the weights of 11): the placement
    DP's 4-stage cut with its two slowest modeled stages on a second
    device each (6 devices), served through ``cnn_stage_fns`` with
    stage-loss retries, hedging and a ``HealthMonitor`` while a
@@ -109,13 +132,13 @@ With no arguments:
    the last replica of the second; the monitor replans the survivors
    through ``ElasticPlanner`` and hot-swaps.  64 requests 15 ms apart: 0
    lost, 0 misordered, every output equal to the direct forward;
-11. full-width qwen3-1.7b prefill through ``serve.run`` with
+13. full-width qwen3-1.7b prefill through ``serve.run`` with
    ``--device-budget 6 --stage-loss-retries 1``, hedging after three
    bottleneck-stage times of 5 and a deadline no request reaches: the
    first output within 2e-2 of the direct forward, flash_attention's
    launches equal to layers x forwards plus the layers of every hedged
    stage execution the executor reports;
-12. self-healing on ResNet50: the analytic 4-stage plan served under
+14. self-healing on ResNet50: the analytic 4-stage plan served under
    ``dep.self_heal(canaries)``, a ``tick()`` after each of 12 batches of
    8 requests (deterministic in windows): each window's req/s, per-item
    stage busy, drift and state, the controller's commits, rollbacks and
@@ -123,14 +146,14 @@ With no arguments:
    ``vs trace`` form); then the plan the live trace gives, its canary
    cold and warm and the stream served over it and the incumbent in
    turns; every output equal to the direct forward;
-13. a fleet of ResNet50 (share 3) and MobileNetV2 (share 1) over 6
+15. a fleet of ResNet50 (share 3) and MobileNetV2 (share 1) over 6
    devices, each member served through ``cnn_stage_fns``: 4 windows of
    share-proportional traffic, then 4 with ResNet50's load tripled, the
    autoscaler ticked after each window: the pool split before and after,
    its events, attainment and the audit (0 lost, 0 misordered, every
-   output equal to its member's direct forward); the phases 10 to 13
+   output equal to its member's direct forward); the phases 12 to 15
    launch no hand-written kernel but the prefill's flash_attention;
-14. prints one JSON line of CNN results, one of the fault-tolerance,
+16. prints one JSON line of CNN results, one of the fault-tolerance,
    self-healing and fleet results, one of kernel results, then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
@@ -176,8 +199,12 @@ from repro_torch.kernels import rwkv6_scan as rw  # noqa: E402
 from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      flash_decode_ref, matmul_qi8_ref,
                                      rglru_scan_ref, rwkv6_scan_ref)
+from repro_torch.core.segmentation import segment_ranges  # noqa: E402
 from repro_torch.launch import profile_serve, serve  # noqa: E402
-from repro_torch.models import api, cnn, lm, lm_graph  # noqa: E402
+from repro_torch.launch.cuda_reporter import (  # noqa: E402
+    CudaSegmentReporter)
+from repro_torch.models import (api, cnn, lm, lm_graph,  # noqa: E402
+                                whisper)
 from repro_torch.profiling import profile_model  # noqa: E402
 from repro_torch.runtime import (ChaosEvent, ChaosMonkey,  # noqa: E402
                                  ElasticPlanner, FaultPolicy,
@@ -308,6 +335,21 @@ API_STEPS = 16          # greedy decode steps after the prefill's token
 API_MIN_DECISIVE = 4    # of the 17 served tokens (one row; the rule of
                         # TEACHER_MIN_DECISIVE)
 VLM_GRID = 32           # qwen2-vl's 1024 stub patches on a 32 x 32 grid
+# the encoder-decoder slice: whisper-tiny at full width, 16 clips of its
+# 1500 stub frame embeddings and its published decoder context of 448
+# tokens; a 4-token prompt fed token by token, then 64 greedy tokens
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_CLIPS = 16
+WHISPER_TOKENS = 448
+WHISPER_PROMPT = 4
+WHISPER_NEW = 64
+# its flash_attention calls (name, S, T, causal) and flash_decode calls
+# (name, T, valid length), 16 clips x 6/6 heads x D 64
+WHISPER_FA = (("encoder", 1500, 1500, False), ("cross", 448, 1500, False),
+              ("decoder_self", 448, 448, True))
+WHISPER_FD = (("cross", 1500, 1500), ("self", 448, 448))
+# the segment memory reporter's refine: qwen3-1.7b at full width, batch 1
+REPORTER_SEQ = 1024
 CARD = "cuda"
 D96_TAG = "ILi96E"      # a mangled template argument of 96 (the head dim)
 
@@ -400,27 +442,30 @@ def attention_inputs(b, hq, hkv, s, t, d, dtype, model_layout=False):
     return out
 
 
-def tflops(q, k, ms, window=None):
-    """Achieved TFLOP/s of a causal call that took ``ms``: the bound's
-    operation count over the time."""
-    return attention_flops(q, k, True, window) / (ms * 1e-3) / 1e12
+def tflops(q, k, ms, window=None, causal=True):
+    """Achieved TFLOP/s of a call that took ``ms``: the bound's operation
+    count over the time."""
+    return attention_flops(q, k, causal, window) / (ms * 1e-3) / 1e12
 
 
-def time_attention(q, k, v, library=True):
+def time_attention(q, k, v, library=True, causal=True):
     """Kernel, plain version and (``library``) SDPA (ms), and the bound, on
     one input.  SDPA is timed in bf16 only: in fp32 it computes in TF32 or
-    through a math path, neither this function's arithmetic."""
-    ms = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=True)])
-    plain_ms = cuda_ms([lambda: flash_attention_ref(q, k, v, True)])
+    through a math path, neither this function's arithmetic.  SDPA's
+    causal mask is top-left aligned, so a causal S < T call is timed only
+    at S = T (every causal shape timed here)."""
+    ms = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=causal)])
+    plain_ms = cuda_ms([lambda: flash_attention_ref(q, k, v, causal)])
     library_ms = cuda_ms([
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)]) if library else None
-    bound_ms, bound_by = attention_bound(q, k, causal=True)
+            q, k, v, is_causal=causal, enable_gqa=True)]) if library else None
+    bound_ms, bound_by = attention_bound(q, k, causal=causal)
     return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "tflops": tflops(q, k, ms),
-            "library_tflops": (tflops(q, k, library_ms) if library_ms
-                               else None)}
+            "library_ms": library_ms,
+            "tflops": tflops(q, k, ms, causal=causal),
+            "library_tflops": (tflops(q, k, library_ms, causal=causal)
+                               if library_ms else None)}
 
 
 def check_flash_attention():
@@ -1682,14 +1727,17 @@ def to_card(tree):
     return tree.to("cuda")
 
 
-def greedy_decode(cfg, params, prompts, n_new, max_len, token_by_token):
+def greedy_decode(cfg, params, prompts, n_new, max_len, token_by_token,
+                  cache=None):
     """Greedy decode through ``api.decode`` on the card: ``prompts`` (B, P)
     prefilled into the cache in one call (or fed token by token), then
     ``n_new`` tokens.  Returns (tokens (B, n_new) on the CPU, decode calls,
     prefill seconds, seconds per generated token after the first), on the
-    host clock with the card synchronized."""
+    host clock with the card synchronized.  ``cache``: a prepared one (a
+    whisper cache built from its memory) in place of ``api.init_cache``'s."""
     dev = torch.device("cuda")
-    cache = api.init_cache(cfg, prompts.shape[0], max_len, dev)
+    if cache is None:
+        cache = api.init_cache(cfg, prompts.shape[0], max_len, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steps = [prompts[:, i:i + 1] for i in range(prompts.shape[1])] \
@@ -1713,9 +1761,10 @@ def check_family_on_card(arch, seq, prompt_len, n_new, max_len,
     """The arch's smoke config (fp32; ``over``: fields replaced) on the
     card against the same weights on the CPU, where the kernels' plain
     versions run: the forward of a (2, seq) batch (vlm: patch embeddings
-    and text), and a greedy decode loop of 2 rows through the KV cache or
-    the recurrent state; logits at every step within 1e-4 (summation order
-    over a few layers) and equal greedy tokens."""
+    and text; encdec: frames and tokens), and a greedy decode loop of 2
+    rows through the KV cache (encdec: built from each device's encoder
+    memory) or the recurrent state; logits at every step within 1e-4
+    (summation order over a few layers) and equal greedy tokens."""
     cfg = dataclasses.replace(configs.get(arch).smoke_config(), **over)
     cpu = torch.device("cpu")
     params = api.init(cfg, cpu, torch.Generator(cpu).manual_seed(0))
@@ -1723,10 +1772,13 @@ def check_family_on_card(arch, seq, prompt_len, n_new, max_len,
     batch = concrete_batch(cfg, seq, 2, kind="prefill")
     err = (api.forward(cfg, card, batch).cpu()
            - api.forward(cfg, params, batch)).abs().max().item()
-    prompt = concrete_batch(cfg, prompt_len, 2, kind="prefill")["tokens"]
+    prompt_batch = concrete_batch(cfg, prompt_len, 2, kind="prefill")
+    prompt = prompt_batch["tokens"]
     runs = []
     for dev, p in ((cpu, params), (torch.device("cuda"), card)):
-        cache = api.init_cache(cfg, 2, max_len, dev)
+        cache = (whisper_cache(cfg, p, prompt_batch["frames"], max_len)
+                 if cfg.family == "encdec" else
+                 api.init_cache(cfg, 2, max_len, dev))
         steps = ([prompt[:, i:i + 1] for i in range(prompt.shape[1])]
                  if token_by_token else [prompt])
         seen, toks = [], []
@@ -1761,19 +1813,22 @@ def check_counts(label, counts, expect):
         raise SystemExit(f"{label}: kernel launches {counts} != {want}")
 
 
-def print_plan(cfg):
+def print_plan(cfg, seq=SEQ):
     """The arch's 4-stage balanced plan over its full-width graph."""
     pl = plan(DeploymentSpec(stages=STAGES, strategy="balanced"),
-              graph=lm_graph.lm_layer_graph(cfg, seq_len=SEQ))
+              graph=lm_graph.lm_layer_graph(cfg, seq_len=seq))
     print(f"{cfg.name} plan:", pl.describe())
     print(f"{cfg.name} report:", pl.report.describe())
 
 
-def teacher_rows(cfg, params, prompts, outs):
-    """Logits of the full forward of prompt + served tokens at the
-    positions that predicted each served token: (B, n, V)."""
-    seq = torch.cat([prompts, outs], 1)
-    logits = api.forward(cfg, params, {"tokens": seq})
+def teacher_rows(cfg, params, prompts, outs, frames=None):
+    """Logits of the full forward of prompt + served tokens (whisper:
+    against ``frames``) at the positions that predicted each served
+    token: (B, n, V)."""
+    batch = {"tokens": torch.cat([prompts, outs], 1)}
+    if frames is not None:
+        batch["frames"] = frames
+    logits = api.forward(cfg, params, batch)
     p = prompts.shape[1]
     return logits[:, p - 1:p - 1 + outs.shape[1]]
 
@@ -2283,6 +2338,227 @@ def run_api_model(arch, layers):
     return fwd["flash_attention"], dec["flash_decode"]
 
 
+def check_whisper_kernels():
+    """Both flash kernels at whisper-tiny's shapes (:data:`WHISPER_FA`,
+    :data:`WHISPER_FD`) against their plain versions in bf16 and fp32,
+    flash_decode also at ragged lengths over the memory's 1500 rows; then
+    each timed in bf16 in the model layout beside its plain version, SDPA
+    and its bound.  Returns ({name: flash_attention row}, {name:
+    flash_decode row})."""
+    b, h, d = WHISPER_CLIPS, 6, 64
+    fa_rows, fd_rows = {}, {}
+    for name, s, t, causal in WHISPER_FA:
+        row = {"shape": {"b": b, "hq": h, "hkv": h, "s": s, "t": t, "d": d,
+                         "causal": causal}}
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            q, k, v = attention_inputs(b, h, h, s, t, d, dtype, True)
+            got = fa.flash_attention(q, k, v, causal=causal)
+            expect = flash_attention_ref(q, k, v, causal=causal)
+            err = (got.float() - expect.float()).abs().max().item()
+            ok = bool(torch.isfinite(got).all()) and err <= tol
+            print(f"flash_attention whisper {name} {dtype} B={b} {h}/{h} "
+                  f"D={d} S={s} T={t} causal={causal}: max_abs_err "
+                  f"{err:.3e} (tol {tol:g})")
+            if not ok:
+                raise SystemExit(f"flash_attention disagrees with its plain "
+                                 f"version at whisper's {name} ({dtype}): "
+                                 f"{err:.3e} > {tol:g}")
+            key = "max_abs_err" if dtype == torch.bfloat16 else \
+                "max_abs_err_fp32"
+            row[key] = err
+            del expect
+        q, k, v = attention_inputs(b, h, h, s, t, d, torch.bfloat16, True)
+        row.update(time_attention(q, k, v, causal=causal))
+        print(f"flash_attention whisper {name} timing (bf16): kernel "
+              f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
+              f"({row['library_tflops']:.1f} TFLOP/s), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        fa_rows[name] = row
+        del q, k, v
+    ragged = [0, 1, 15, 16, 17, 500, 749, 750, 751, 1000, 1234, 1488, 1499,
+              1500, 3, 64]
+    for name, t, n in WHISPER_FD:
+        row = {}
+        cases = [("bf16", torch.bfloat16, 2e-2, [n] * b),
+                 ("fp32", torch.float32, 1e-5, [n] * b)]
+        if t == 1500:
+            cases.append(("bf16 ragged", torch.bfloat16, 2e-2, ragged))
+        for label, dtype, tol, lens in cases:
+            q, k, v = decode_inputs(b, h, h, t, d, dtype, True)
+            arg = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            got = fd.flash_decode(q, k, v, arg)
+            expect = flash_decode_ref(q, k, v, arg)
+            live = arg > 0
+            err = (got[live].float() - expect[live].float()).abs().max()\
+                .item()
+            ok = (bool(torch.isfinite(got).all()) and err <= tol
+                  and bool((got[~live] == 0).all()))
+            print(f"flash_decode whisper {name} {label} B={b} {h}/{h} D={d} "
+                  f"T={t}: max_abs_err {err:.3e} (tol {tol:g})")
+            if not ok:
+                raise SystemExit(f"flash_decode disagrees with its plain "
+                                 f"version at whisper's {name} ({label}): "
+                                 f"{err:.3e} > {tol:g}")
+            row["max_abs_err" if label == "bf16" else
+                "max_abs_err_" + label.replace(" ", "_")] = err
+        lens = torch.full((b,), n, dtype=torch.int32, device="cuda")
+        sets = [decode_inputs(b, h, h, t, d, torch.bfloat16, True, seed=i)
+                for i in range(COLD_SETS)]
+        row.update(time_decode(sets, lens))
+        row["shape"] = {"b": b, "hq": h, "hkv": h, "t": t, "d": d,
+                        "lens": n, "cache_sets": COLD_SETS}
+        print(f"flash_decode whisper {name} timing (bf16, {COLD_SETS} cache "
+              f"sets): kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), one "
+              f"torch.sum over as many bytes {row['stream_ms']:.4f} ms")
+        fd_rows[name] = row
+        del sets
+        torch.cuda.empty_cache()
+    return fa_rows, fd_rows
+
+
+def whisper_cache(cfg, params, frames, max_len):
+    """A whisper decode cache built from the encoder's memory of
+    ``frames`` on the parameters' device."""
+    return whisper.init_cache(cfg, frames.shape[0], max_len,
+                              params["embed"].device, params=params,
+                              memory=whisper.encode(cfg, params, frames))
+
+
+def run_whisper_path():
+    """whisper-tiny at full width with random bf16 weights from seed 0
+    (its 4-stage plan printed): ``api.forward`` of 16 clips x 1500 stub
+    frames and 448 tokens (flash_attention = encoder layers + 2 x decoder
+    layers), then ``encode``, a cache built from its memory, a 4-token
+    prompt token by token and 64 greedy tokens (flash_attention = encoder
+    layers, flash_decode = 2 x decoder layers a step), each with every
+    count set to 0 just before and read just after; the served tokens
+    teacher-forced through the forward (``encode`` + ``decode_train``)
+    in bf16 against the fp32 evaluation, and the loop again in fp32.
+    Returns the flash_attention counts of the forward and the loop and
+    the flash_decode count."""
+    cfg = configs.get(WHISPER_ARCH).config()
+    print_plan(cfg, WHISPER_TOKENS)
+    params = api.init(cfg, CARD, torch.Generator(CARD).manual_seed(0))
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (WHISPER_CLIPS, cfg.n_frames, cfg.d_model), dtype=np.float32)).to(
+            device=CARD, dtype=cfg.dtype)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (WHISPER_CLIPS, WHISPER_TOKENS), dtype=np.int64))
+    batch = {"frames": frames, "tokens": tokens}
+    print(f"{WHISPER_ARCH}: {api.param_count(cfg) * 2 / 1e6:.1f} MB of bf16 "
+          f"weights; {WHISPER_CLIPS} clips x {cfg.n_frames} frames, "
+          f"{WHISPER_TOKENS} decoder tokens")
+
+    api.forward(cfg, params, batch, last_token_only=True)      # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits = api.forward(cfg, params, batch, last_token_only=True)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd = read_counts()
+    check_counts(f"{WHISPER_ARCH} forward", fwd,
+                 {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers})
+    if not (logits.shape == (WHISPER_CLIPS, 1, cfg.vocab)
+            and bool(torch.isfinite(logits).all())):
+        raise SystemExit(f"{WHISPER_ARCH}: forward logits not finite "
+                         f"{tuple(logits.shape)}")
+    print(f"{WHISPER_ARCH}: forward (encoder over {WHISPER_CLIPS} x "
+          f"{cfg.n_frames} frames + decoder over {WHISPER_TOKENS} tokens) "
+          f"in {fwd_s * 1e3:.3f} ms (second call, host clock)")
+
+    prompts = tokens[:, :WHISPER_PROMPT]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    outs, calls, _, step_s = greedy_decode(
+        cfg, params, prompts, WHISPER_NEW, WHISPER_TOKENS, True,
+        cache=whisper_cache(cfg, params, frames, WHISPER_TOKENS))
+    loop_s = time.perf_counter() - t0
+    dec = read_counts()
+    print(f"{WHISPER_ARCH}: encode + {calls} decode calls ({WHISPER_PROMPT}"
+          f"-token prompt + {WHISPER_NEW} greedy tokens x {WHISPER_CLIPS} "
+          f"clips) in {loop_s * 1e3:.1f} ms ({loop_s / calls * 1e3:.3f} ms "
+          f"a call; {step_s * 1e3:.3f} ms a generated token after the "
+          f"first)")
+    check_counts(f"{WHISPER_ARCH} encode + decode", dec,
+                 {"flash_attention": cfg.n_enc_layers,
+                  "flash_decode": 2 * cfg.n_layers * calls})
+
+    cfg32, p32 = dataclasses.replace(cfg, dtype=torch.float32), \
+        to_fp32(params)
+    frames32 = frames.float()
+    check_teacher(WHISPER_ARCH,
+                  teacher_rows(cfg, params, prompts, outs, frames),
+                  teacher_rows(cfg32, p32, prompts, outs, frames32),
+                  outs, TEACHER_MIN_DECISIVE)
+    outs32, _, _, _ = greedy_decode(
+        cfg32, p32, prompts, WHISPER_NEW, WHISPER_TOKENS, True,
+        cache=whisper_cache(cfg32, p32, frames32, WHISPER_TOKENS))
+    check_fp32_loop(WHISPER_ARCH,
+                    teacher_rows(cfg32, p32, prompts, outs32, frames32),
+                    outs32, outs)
+    return fwd["flash_attention"], dec["flash_attention"], \
+        dec["flash_decode"]
+
+
+def run_reporter_phase():
+    """The §6.1.3 refine loop on the card: qwen3-1.7b at full width (batch
+    1, REPORTER_SEQ tokens), its balanced 4-stage cuts, each balanced
+    segment measured by :class:`CudaSegmentReporter`, then the balanced
+    plan refined by the reporter at a budget halfway between the mean and
+    the largest measured segment; fails unless it moved a cut and
+    converged with every segment within the budget."""
+    cfg = configs.get(ARCH).config()
+    g = lm_graph.lm_layer_graph(cfg, seq_len=REPORTER_SEQ)
+    n = len(g.levels())
+    before = plan(DeploymentSpec(stages=STAGES, strategy="balanced_norefine"),
+                  graph=g)
+    free = CudaSegmentReporter(cfg, g, 1 << 62, seq=REPORTER_SEQ)
+    sizes = [free.segment_report(lo, hi)[0]
+             for lo, hi in segment_ranges(n, before.cuts)]
+    budget = (max(sizes) + sum(sizes) // len(sizes)) // 2
+    print(f"reporter: {ARCH} balanced cuts {before.cuts}, measured segment "
+          f"bytes {sizes} ({free.compilations} runs); budget {budget}")
+    rep = CudaSegmentReporter(cfg, g, budget, seq=REPORTER_SEQ)
+    t0 = time.perf_counter()
+    pl = plan(DeploymentSpec(stages=STAGES, strategy="balanced"), graph=g,
+              reporter=rep)
+    refine_s = time.perf_counter() - t0
+    ref = pl.refinement
+    final = []
+    for (lo, hi), layers in zip(segment_ranges(n, pl.cuts), pl.stage_layers):
+        used, over = rep.segment_report(lo, hi)
+        weights = sum(g.nodes[name].weight_bytes for name in layers)
+        final.append({"depths": [lo, hi],
+                      "blocks": sum(n.startswith("block_") for n in layers),
+                      "measured_bytes": used, "overflow_bytes": over,
+                      "analytic_weight_bytes": weights})
+    print(f"reporter: refined cuts {pl.cuts} (refinement {ref.cuts}), "
+          f"{rep.compilations} runs on the card, {ref.compilations} "
+          f"reporter calls, {ref.moves} moves, converged={ref.converged}, "
+          f"{refine_s:.1f} s")
+    for i, seg in enumerate(final):
+        print(f"reporter: segment {i} depths {seg['depths']}, "
+              f"{seg['blocks']} blocks: measured {seg['measured_bytes']} bytes "
+              f"(overflow {seg['overflow_bytes']}), analytic weights "
+              f"{seg['analytic_weight_bytes']} bytes")
+    if not (ref.converged and ref.moves >= 1 and pl.cuts == ref.cuts
+            and all(seg["overflow_bytes"] == 0 for seg in final)):
+        raise SystemExit(f"reporter: the refine did not converge within "
+                         f"{budget} bytes after moving a cut: {ref}, "
+                         f"{final}")
+    return {"arch": ARCH, "seq": REPORTER_SEQ, "budget": budget,
+            "cuts_before": list(before.cuts), "balanced_bytes": sizes,
+            "cuts_after": list(pl.cuts), "runs": rep.compilations,
+            "compilations": ref.compilations, "moves": ref.moves,
+            "converged": ref.converged, "segments": final,
+            "seconds": refine_s}
+
+
 def device_line():
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2434,6 +2710,23 @@ def main() -> int:
         decode_record[f"launches_{arch}"] = fd_n
         torch.cuda.empty_cache()
         print(f"{arch} model-API phase: {time.perf_counter() - t0:.1f} s")
+    # the encoder-decoder slice: whisper-tiny's kernel shapes, its smoke
+    # config card vs CPU, and its full-width path through the model API
+    t0 = time.perf_counter()
+    record["whisper"], decode_record["whisper"] = check_whisper_kernels()
+    check_family_on_card(WHISPER_ARCH, seq=40, prompt_len=8, n_new=16,
+                         max_len=24, token_by_token=True)
+    fa_fwd, fa_enc, fd_n = run_whisper_path()
+    record[f"launches_{WHISPER_ARCH}"] = fa_fwd
+    record[f"launches_{WHISPER_ARCH}_encode"] = fa_enc
+    decode_record[f"launches_{WHISPER_ARCH}"] = fd_n
+    torch.cuda.empty_cache()
+    print(f"{WHISPER_ARCH} phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reporter = run_reporter_phase()
+    torch.cuda.empty_cache()
+    print(f"segment memory reporter phase: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"reporter": reporter}))
 
     zoo_worst = check_cnn_zoo()
     cnn_res, ctx = run_cnn_path()

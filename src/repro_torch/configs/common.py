@@ -18,12 +18,19 @@ def concrete_batch(cfg: LMConfig, seq_len: int, batch: int,
     (a fresh ``default_rng(0)`` when None); ``kind="train"`` adds labels.
     vlm: ``seq_len - n_patches`` tokens after ``(batch, n_patches,
     d_model)`` standard-normal patch embeddings in the model dtype, and
-    the ``(3, batch, seq_len)`` default positions."""
+    the ``(3, batch, seq_len)`` default positions.  encdec: ``(batch,
+    n_frames, d_model)`` standard-normal stub frame embeddings in the
+    model dtype, then ``seq_len`` decoder tokens."""
     require_ported(cfg)
     rng = rng if rng is not None else np.random.default_rng(0)
+    out = {}
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_frames, cfg.d_model), dtype=np.float32)
+        ).to(cfg.dtype)
     n_tok = seq_len - cfg.n_patches if cfg.family == "vlm" else seq_len
-    out = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab, (batch, n_tok), dtype=np.int64))}
+    out["tokens"] = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (batch, n_tok), dtype=np.int64))
     if cfg.family == "vlm":
         out["embeds"] = torch.from_numpy(rng.standard_normal(
             (batch, cfg.n_patches, cfg.d_model), dtype=np.float32)
@@ -38,7 +45,7 @@ def concrete_batch(cfg: LMConfig, seq_len: int, batch: int,
 
 def shrink(cfg: LMConfig, **over) -> LMConfig:
     """Reduced same-family config for CPU smoke tests (the reductions of
-    the reference's ``shrink`` for the ported families)."""
+    the reference's ``shrink``)."""
     d = dict(
         name=cfg.name + "-smoke",
         n_layers=min(cfg.n_layers, 4),
@@ -58,6 +65,8 @@ def shrink(cfg: LMConfig, **over) -> LMConfig:
         d.update(mrope_sections=(4, 2, 2), n_patches=4)
     if cfg.family == "hybrid":
         d.update(n_layers=5, local_window=16, head_dim=16, n_kv_heads=1)
+    if cfg.family == "encdec":
+        d.update(n_enc_layers=2, n_layers=2, n_frames=12, n_kv_heads=4)
     if cfg.family == "ssm":
         d.update(rwkv_head_dim=16)
     d.update(over)

@@ -64,7 +64,6 @@ class PipelineDecodeEngine:
                 f"PipelineDecodeEngine supports the scan-block attention "
                 f"families {DECODE_FAMILIES}; {cfg.name} is "
                 f"family={cfg.family!r}")
-        lm.require_ported(cfg)
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         if max_context < 2:

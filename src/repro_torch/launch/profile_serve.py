@@ -21,12 +21,15 @@ stream (a warm-up stream, then ``--requests`` prompts submitted at once
 through the continuous batch), after an unprofiled stream that warms every
 stage.
 
-The recurrent families (``--arch rwkv6-1.6b`` or ``recurrentgemma-9b``),
-which the serving runtimes do not bind, run through the model API: one
-window of ``--forwards`` forwards of a ``(--requests, --seq)`` batch (last
-token's logits), and one of ``--max-new-tokens`` greedy decode steps of
+The recurrent families (``--arch rwkv6-1.6b`` or ``recurrentgemma-9b``)
+and the encoder-decoder one (``whisper-tiny``), which the serving runtimes
+do not bind, run through the model API: one window of ``--forwards``
+forwards of a ``(--requests, --seq)`` batch (last token's logits; whisper:
+after encoding ``--requests`` clips of n_frames stub frame embeddings from
+a numpy seed), and one of ``--max-new-tokens`` greedy decode steps of
 ``--requests`` rows after a ``--prompt-len`` prompt went into the cache
-(rwkv6: in one call; recurrentgemma: token by token).
+(rwkv6: in one call; recurrentgemma and whisper: token by token; whisper's
+cache built from its encoder's memory of the same clips).
 
 A CNN of the paper's zoo (``--model cnn:<Name>`` or
 ``synthetic-cnn:<f>``; fp32, TF32 off as the reference's function): one
@@ -39,6 +42,8 @@ thread and CUDA stream per stage), after an unprofiled round.
         --seq 1024 --requests 8
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --arch rwkv6-1.6b --seq 1024 --requests 4 --prompt-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --arch whisper-tiny --seq 448 --requests 16 --prompt-len 4
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --model cnn:ResNet50 --requests 64
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
@@ -60,7 +65,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import configs
 from repro_torch.api import DeploymentSpec
 from repro_torch.launch import serve
-from repro_torch.models import api, cnn, lm, rglru
+from repro_torch.models import api, cnn, lm, rglru, whisper
 
 KINDS = (("flash_attention", ("flash_attention",)),
          ("flash_decode", ("flash_decode",)),
@@ -160,7 +165,8 @@ def profiled(fn: Callable[[], object]):
 
 
 def profile_model(args: argparse.Namespace, forwards: int) -> None:
-    """The model-API windows of a recurrent family (module docstring)."""
+    """The model-API windows of a recurrent or the encoder-decoder family
+    (module docstring)."""
     batch, decode_steps = args.requests, args.max_new_tokens
     mod = configs.get(args.arch)
     cfg = mod.smoke_config() if args.smoke else mod.config()
@@ -170,11 +176,15 @@ def profile_model(args: argparse.Namespace, forwards: int) -> None:
     tokens, prompt = (torch.from_numpy(rng.integers(
         0, cfg.vocab, (batch, n), dtype=np.int64))
         for n in (args.seq, args.prompt_len))
+    inputs = {"tokens": tokens}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_frames, cfg.d_model), dtype=np.float32)).to(
+                dev, cfg.dtype)
 
     def run_forwards():
         for _ in range(forwards):
-            api.forward(cfg, params, {"tokens": tokens},
-                        last_token_only=True)
+            api.forward(cfg, params, inputs, last_token_only=True)
 
     run_forwards()
     torch.cuda.synchronize()
@@ -182,10 +192,15 @@ def profile_model(args: argparse.Namespace, forwards: int) -> None:
     summarize(prof, wall, f"{cfg.name} forward ({batch}, {args.seq}) "
                           f"x{forwards}")
 
-    cache = api.init_cache(cfg, batch, args.prompt_len + 2 * decode_steps,
-                           dev)
+    max_len = args.prompt_len + 2 * decode_steps
+    if cfg.family == "encdec":
+        cache = whisper.init_cache(
+            cfg, batch, max_len, dev, params=params,
+            memory=whisper.encode(cfg, params, inputs["frames"]))
+    else:
+        cache = api.init_cache(cfg, batch, max_len, dev)
     feed = ([prompt[:, i:i + 1] for i in range(args.prompt_len)]
-            if cfg.family == "hybrid" else [prompt])
+            if cfg.family in ("hybrid", "encdec") else [prompt])
     for tok in feed:
         logits, cache = api.decode(cfg, params, tok.to(dev), cache)
     state = {"cache": cache, "tok": logits[:, -1].argmax(-1, keepdim=True)}

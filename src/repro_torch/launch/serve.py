@@ -28,10 +28,12 @@ CLI (the reference's CLI is LM-only): :func:`cnn_stage_fns` is the stage
 function builder to hand ``deploy(DeploymentSpec(model="cnn:<Name>"),
 stage_fn_builder=...)``.
 
-The recurrent families (rwkv6-1.6b, recurrentgemma-9b) plan but are not
-served, as in the reference: both workloads print the plan, the report and
-the reference's note, and return (:func:`plan_only`).  Their runnable
-surface is :mod:`repro_torch.models.api`.
+The recurrent families (rwkv6-1.6b, recurrentgemma-9b) and the
+encoder-decoder one (whisper-tiny) plan but are not served, as in the
+reference: both workloads print the plan, the report and the reference's
+note, and return (:func:`plan_only`).  Their runnable surface is
+:mod:`repro_torch.models.api` (whisper's decode cache built from its
+encoder's memory by :func:`repro_torch.models.whisper.init_cache`).
 
 Both workloads serve the attention families: dense (qwen3-1.7b,
 qwen2.5-14b, minitron-4b, phi3-mini-3.8b), moe (granite-moe-1b-a400m,

@@ -1,6 +1,6 @@
-"""Family-dispatch API, as ``repro/models/api.py``: one surface for the
-ported families (dense, moe and vlm = ``lm``, ssm = rwkv6, hybrid =
-recurrentgemma).
+"""Family-dispatch API, as ``repro/models/api.py``: one surface for every
+family (dense, moe and vlm = ``lm``, ssm = rwkv6, hybrid = recurrentgemma,
+encdec = whisper).
 
     init(cfg, device, generator)               -> params
     forward(cfg, params, batch)                -> fp32 logits (prefill)
@@ -12,8 +12,13 @@ recurrentgemma).
 
 ``prefill`` (the attention families; not in the reference, whose decode
 takes one token a step) puts a prompt batch into an empty KV cache in one
-forward.  The encdec family (the encoder-decoder slice) raises
-:class:`NotImplementedError`.
+forward.
+
+encdec: ``batch`` holds ``frames`` (B, n_frames, d_model) stub embeddings
+and ``tokens``; ``init_cache`` gives the reference's all-zero memory K/V,
+so a real decode loop builds its cache from the encoder's memory with
+:func:`repro_torch.models.whisper.init_cache` (``memory=whisper.encode(
+...), params=...``) and steps it through :func:`decode`.
 """
 from __future__ import annotations
 
@@ -22,13 +27,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from . import lm, rglru, rwkv6
+from . import lm, rglru, rwkv6, whisper
 from .lm import LMConfig
 
 Params = Dict[str, Any]
 
 _MODULES = {"dense": lm, "moe": lm, "vlm": lm, "ssm": rwkv6,
-            "hybrid": rglru}
+            "hybrid": rglru, "encdec": whisper}
 
 
 def _module(cfg: LMConfig):

@@ -5,8 +5,8 @@ activations with fp32 norm, RoPE and softmax arithmetic.  The model's
 attention goes through the CUDA kernels
 (:mod:`repro_torch.kernels.flash_attention` for a sequence,
 :mod:`repro_torch.kernels.flash_decode` for one decode token);
-:func:`full_attention` and :func:`decode_attention` are the plain references
-with the JAX module's exact rounding points.
+:func:`full_attention`, :func:`decode_attention` and :func:`cross_attention`
+are the plain references with the JAX module's exact rounding points.
 """
 from __future__ import annotations
 
@@ -126,3 +126,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v_cache.dtype), v_cache)
     return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention over a fixed memory (whisper's decoder): q
+    (B,S,Hq,D) against k/v (B,T,Hkv,D), any S and T, with
+    :func:`full_attention`'s rounding points and no mask."""
+    return full_attention(q, k, v, causal=False)

@@ -2,7 +2,8 @@
 
 The JAX tree stacks repeated layers along a leading axis (``blocks`` of
 the dense and ssm families; ``super`` super-blocks and ``tail`` rec blocks
-of the hybrid family) and lays weights out ``(in, out)``;
+of the hybrid family; ``enc`` and ``dec`` layers of the encdec family) and
+lays weights out ``(in, out)``;
 :func:`params_from_numpy` splits each stack into a list of one dict per
 layer and keeps every layout.  A JAX bf16 array becomes an
 ``ml_dtypes.bfloat16`` numpy array, which :func:`torch.from_numpy` rejects,
@@ -39,6 +40,8 @@ def _stacks(cfg: LMConfig) -> Dict[str, int]:
     if cfg.family == "hybrid":
         n_super, tail = n_super_and_tail(cfg.n_layers, cfg.attn_every)
         return {"super": n_super, "tail": tail}
+    if cfg.family == "encdec":
+        return {"enc": cfg.n_enc_layers, "dec": cfg.n_layers}
     return {"blocks": cfg.n_layers}
 
 

@@ -8,7 +8,8 @@ geglu, relu^2 or gelu MLP or the grouped GShard mixture of experts, final
 norm, tied or untied unembedding; vlm prepends patch embeddings).  The
 attention and MLP blocks also serve the hybrid family's local-attention
 layers (:mod:`repro_torch.models.rglru`); the ssm family is
-:mod:`repro_torch.models.rwkv6`.  Parameters are a plain dict mirroring the
+:mod:`repro_torch.models.rwkv6`, the encdec family
+:mod:`repro_torch.models.whisper`.  Parameters are a plain dict mirroring the
 JAX tree, except that ``blocks`` is a list with one dict per layer (the JAX
 tree stacks them along a leading axis); weights are laid out ``(in, out)``
 as there.
@@ -22,7 +23,6 @@ decode token against a KV cache the flash-decode kernel
 D)`` caches passed the same way.  Caches are written in place (the JAX
 module returns updated copies).  The mixture of experts is plain
 ``torch.einsum`` products, as the reference's are outside any kernel.
-The encdec family is not ported and raises.
 """
 from __future__ import annotations
 
@@ -105,17 +105,17 @@ class LMConfig:
 
 # the families of this module (the reference's ``_ATTN_FAMILIES``)
 ATTN_FAMILIES = ("dense", "moe", "vlm")
-PORTED_FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid")
+PORTED_FAMILIES = ATTN_FAMILIES + ("ssm", "hybrid", "encdec")
 
 
 def require_ported(cfg: LMConfig, families=None) -> None:
-    """Raise for the LM families this package does not run; ``families``
-    (a family or a tuple of them): also raise unless ``cfg`` is of one."""
+    """Raise for an LM family this package does not run (every family of
+    the reference runs); ``families`` (a family or a tuple of them): also
+    raise unless ``cfg`` is of one."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (the {'/'.join(PORTED_FAMILIES)} families are); encdec is "
-            f"the encoder-decoder slice")
+            f"(the {'/'.join(PORTED_FAMILIES)} families are)")
     if isinstance(families, str):
         families = (families,)
     if families is not None and cfg.family not in families:

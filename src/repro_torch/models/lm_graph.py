@@ -9,7 +9,10 @@ reference's node by node, so every plan over it is the reference's plan.
 
 Depth structure: ``embed -> block nodes -> final_norm -> head``; the block
 nodes are ``block_i`` (dense, ssm) or ``block_i_rec`` / ``block_i_attn``
-(hybrid).
+(hybrid).  whisper (encdec): ``encoder_input -> enc_0 .. enc_{E-1}``, then
+``embed -> dec_0 .. dec_{L-1} -> head``, every ``dec_i`` also fed by the
+last encoder layer (its cross-attention edge), so the longest-path depth
+rule (paper §6.1.1) places every decoder layer after the whole encoder.
 """
 from __future__ import annotations
 
@@ -51,6 +54,10 @@ def lm_layer_graph(cfg: LMConfig, seq_len: int = 4096,
     shapes = api.init(cfg, torch.device("meta"))
     act = seq_len * cfg.d_model * act_bytes_per_elt
     w_bytes = 2  # bf16 weights
+
+    if cfg.family == "encdec":
+        return _encdec_graph(g, cfg, shapes, seq_len, act_bytes_per_elt,
+                             w_bytes)
 
     embed_p = api.tree_size(shapes["embed"])
     g.add_layer("embed", params=embed_p, macs=seq_len * cfg.d_model,
@@ -97,4 +104,42 @@ def lm_layer_graph(cfg: LMConfig, seq_len: int = 4096,
     g.add_layer("head", params=head_p, macs=seq_len * cfg.d_model * cfg.vocab,
                 out_bytes=0, inputs=["final_norm"],
                 weight_bytes=head_p * w_bytes, kind="head")
+    return g
+
+
+def _encdec_graph(g: LayerGraph, cfg: LMConfig, shapes, seq_len: int,
+                  act_bytes_per_elt: int, w_bytes: int) -> LayerGraph:
+    """whisper's DAG (module docstring); the tied unembedding's weight
+    bytes live with ``embed``, its MACs and both final norms with
+    ``head``."""
+    act = seq_len * cfg.d_model * act_bytes_per_elt
+    bc = _block_cost(cfg)
+    frame_act = cfg.n_frames * cfg.d_model * act_bytes_per_elt
+    g.add_layer("encoder_input", params=0, macs=0, out_bytes=frame_act,
+                kind="stub")
+    prev = "encoder_input"
+    per_enc = api.tree_size(shapes["enc"]) // cfg.n_enc_layers
+    enc_macs = bc.block_macs(cfg.n_frames, cfg.n_frames)
+    for i in range(cfg.n_enc_layers):
+        g.add_layer(f"enc_{i}", params=per_enc, macs=enc_macs,
+                    out_bytes=frame_act, inputs=[prev],
+                    weight_bytes=per_enc * w_bytes, kind="enc_block")
+        prev = f"enc_{i}"
+    enc_out = prev
+    embed_p = api.tree_size(shapes["embed"])
+    g.add_layer("embed", params=embed_p, macs=seq_len * cfg.d_model,
+                out_bytes=act, weight_bytes=embed_p * w_bytes, kind="embed")
+    prev = "embed"
+    per_dec = api.tree_size(shapes["dec"]) // cfg.n_layers
+    dec_macs = (bc.block_macs(seq_len, seq_len)
+                + 2 * seq_len * cfg.n_frames * cfg.n_heads * cfg.hd)
+    for i in range(cfg.n_layers):
+        g.add_layer(f"dec_{i}", params=per_dec, macs=dec_macs,
+                    out_bytes=act, inputs=[prev, enc_out],
+                    weight_bytes=per_dec * w_bytes, kind="dec_block")
+        prev = f"dec_{i}"
+    ln = api.tree_size(shapes["dec_ln"]) + api.tree_size(shapes["enc_ln"])
+    g.add_layer("head", params=ln, macs=seq_len * cfg.d_model * cfg.vocab,
+                out_bytes=0, inputs=[prev], weight_bytes=ln * w_bytes,
+                kind="head")
     return g

@@ -36,7 +36,7 @@ from repro_torch.kernels.ref import (flash_attention_ref, flash_decode_ref,
                                      matmul_qi8_ref, rglru_scan_ref,
                                      rwkv6_scan_ref)
 from repro_torch.launch import serve
-from repro_torch.models import api, cnn, lm
+from repro_torch.models import api, cnn, lm, whisper
 
 pytestmark = pytest.mark.cuda
 
@@ -593,3 +593,108 @@ def test_replica_workers_overlap_on_their_own_streams(sm90):
     for x, out in zip(xs, outs):
         assert torch.equal(out["y"], x * 2 + 1)
     assert two < 1.5 * one, (one, two)
+
+
+# whisper-tiny's attention shapes (6/6 heads, D 64): the encoder's
+# non-causal S = T = 1500 (not a multiple of the KV tile), the prefill's
+# cross-attention of 448 tokens against 1500 frames, and a ragged S < T
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("s,t", [(1500, 1500), (448, 1500), (17, 1000)],
+                         ids=["encoder", "cross", "ragged_cross"])
+def test_whisper_shapes_flash_attention_matches_plain(sm90, s, t, dtype):
+    g = torch.Generator(sm90).manual_seed(2)
+    q, k, v = _attention_inputs(g, sm90, 2, 6, 6, s, t, 64, dtype,
+                                layout=True)
+    before = _build.launches("flash_attention")
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert _build.launches("flash_attention") == before + 1
+    torch.testing.assert_close(
+        got.float(), flash_attention_ref(q, k, v, causal=False).float(),
+        rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# whisper's decode step over a layer's memory K/V (T 1500, every row) and
+# over ragged lengths, MHA at D 64
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("lens", [[1500] * 16,
+                                  [0, 1, 15, 16, 17, 500, 749, 750, 751,
+                                   1000, 1234, 1488, 1499, 1500, 3, 64]],
+                         ids=["full", "ragged"])
+def test_whisper_shapes_flash_decode_matches_plain(sm90, lens, dtype):
+    g = torch.Generator(sm90).manual_seed(3)
+    q = torch.randn(16, 6, 64, generator=g, device=sm90,
+                    dtype=DTYPES[dtype])
+    k, v = (torch.randn(16, 1500, 6, 64, generator=g, device=sm90,
+                        dtype=DTYPES[dtype]).transpose(1, 2)
+            for _ in range(2))
+    arg = torch.tensor(lens, dtype=torch.int32, device=sm90)
+    got = fd.flash_decode(q, k, v, arg)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(),
+                               flash_decode_ref(q, k, v, arg).float(),
+                               rtol=tol, atol=tol)
+    if len(set(lens)) == 1:                     # the scalar length too
+        torch.testing.assert_close(fd.flash_decode(q, k, v, 1500), got)
+
+
+def test_whisper_smoke_on_card_matches_cpu(sm90):
+    """whisper's smoke config (fp32) on the card against the CPU: the
+    forward of 2 clips x 20 tokens, the encoder memory, and a greedy loop
+    of 8 steps after a 4-token prompt from a cache built from that
+    memory, within 1e-4, greedy tokens equal."""
+    cfg = configs.get("whisper-tiny").smoke_config()
+    cpu = torch.device("cpu")
+    params = api.init(cfg, cpu, torch.Generator(cpu).manual_seed(0))
+    card = _to(params, sm90)
+    batch = concrete_batch(cfg, 20, 2, kind="prefill")
+    torch.testing.assert_close(api.forward(cfg, card, batch).cpu(),
+                               api.forward(cfg, params, batch),
+                               rtol=1e-4, atol=1e-4)
+    runs = []
+    for dev, p in ((cpu, params), (sm90, card)):
+        memory = whisper.encode(cfg, p, batch["frames"])
+        cache = whisper.init_cache(cfg, 2, 16, dev, memory, p)
+        seen, toks = [], []
+        for i in range(12):
+            tok = (batch["tokens"][:, i:i + 1] if i < 4 else toks[-1]).to(dev)
+            logits, cache = api.decode(cfg, p, tok, cache)
+            seen.append(logits.cpu())
+            toks.append(logits[:, -1].argmax(-1, keepdim=True))
+        runs.append((memory.cpu(), torch.cat(seen, 1),
+                     torch.cat(toks, 1).cpu()))
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(runs[1][1], runs[0][1], rtol=1e-4, atol=1e-4)
+    assert torch.equal(runs[1][2], runs[0][2])
+
+
+def test_cuda_reporter_measures_and_refines(sm90):
+    """The segment reporter on the card: a range's bytes hold at least its
+    blocks' weights and grow with the range; its refinement moves the
+    balanced cuts of a budget they spill and converges."""
+    import dataclasses
+    from repro_torch.api import DeploymentSpec, plan
+    from repro_torch.core.refine import refine_cuts
+    from repro_torch.core.segmentation import segment_ranges
+    from repro_torch.launch.cuda_reporter import CudaSegmentReporter
+    from repro_torch.models import lm_graph
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b").smoke_config(),
+                              n_layers=12, vocab=1024, dtype=torch.bfloat16)
+    g = lm_graph.lm_layer_graph(cfg, seq_len=64)
+    per = g.nodes["block_0"].weight_bytes
+    rep = CudaSegmentReporter(cfg, g, 1 << 40, seq=64, device=sm90)
+    used = [rep.segment_report(1, n)[0] for n in (1, 2, 4, 8)]
+    assert rep.compilations == 4
+    assert all(u >= n * per for u, n in zip(used, (1, 2, 4, 8)))
+    assert used == sorted(used) and used[-1] > used[0] + 6 * per
+    pl = plan(DeploymentSpec(stages=4, strategy="balanced_norefine"),
+              graph=g)
+    n = len(g.levels())
+    sizes = [rep.segment_report(lo, hi)[0]
+             for lo, hi in segment_ranges(n, pl.cuts)]
+    budget = (max(sizes) + sum(sizes) // len(sizes)) // 2
+    tight = CudaSegmentReporter(cfg, g, budget, seq=64, device=sm90)
+    res = refine_cuts(pl.cuts, n, tight)
+    assert res.converged and res.moves > 0 and res.cuts != pl.cuts
+    assert all(tight.segment_report(lo, hi)[1] == 0
+               for lo, hi in segment_ranges(n, res.cuts))

@@ -81,3 +81,25 @@ def test_no_source_calls_a_library_kernel(call):
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
     assert [f.name for f in files if call in f.read_text()] == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models.whisper",
+                                    "repro_torch.launch.cuda_reporter",
+                                    "repro_torch.launch.profile_serve"])
+def test_encdec_and_reporter_load_neither_jax_nor_repro(module):
+    code = (f"import sys, {module}; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    path = PKG.parents[1] / "chip_smoke.py"
+    mods = list(_imported_modules(path))
+    assert "repro_torch.models" in mods
+    assert [m for m in mods
+            if m.split(".")[0] in ("jax", "jaxlib", "repro")] == []

@@ -147,10 +147,15 @@ def test_full_logits_match_reference():
 
 
 def test_unported_configs_raise():
-    # every family but the encoder-decoder one (whisper) is ported
+    # every reference family is ported; a family the reference does not
+    # have is not
+    for arch in jconfigs.arch_ids():
+        tlm.require_ported(tconfigs.get(arch).config())
+    assert set(tlm.PORTED_FAMILIES) == {
+        jconfigs.get(a).config().family for a in jconfigs.arch_ids()}
     cfg = dataclasses.replace(tconfigs.get(ARCH).smoke_config(),
-                              family="encdec", n_enc_layers=2)
-    with pytest.raises(NotImplementedError, match="encdec"):
+                              family="diffusion")
+    with pytest.raises(NotImplementedError, match="diffusion"):
         tlm.init_params(cfg, CPU)
 
 

@@ -575,5 +575,4 @@ def test_dense_module_refuses_the_hybrid_config(weights):
     with pytest.raises(ValueError, match="repro_torch.models.api"):
         tlm.init_params(tcfg, CPU)
     with pytest.raises(NotImplementedError):
-        tapi.init(dataclasses.replace(tcfg, family="encdec",
-                                      n_enc_layers=2), "cpu")
+        tapi.init(dataclasses.replace(tcfg, family="diffusion"), "cpu")

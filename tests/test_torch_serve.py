@@ -137,21 +137,28 @@ def test_serve_entry_point_raises_without_cuda(monkeypatch):
         tserve.main(["--smoke", "--requests", "1"])
 
 
+def _spmd_executor(**spec):
+    """The SPMD tier (not ported) asked of a deployment of ``spec``."""
+    return tapi.deploy(tapi.DeploymentSpec(backend="spmd", **spec),
+                       stage_fns=[None, None]).executor()
+
+
+_DECODE = dict(workload="decode", strategy="decode_placement", stages=2,
+               max_context=64, decode_concurrency=2)
+
+
 @pytest.mark.parametrize("call", [
     lambda dep: dep.executor(backend="spmd"),
-    # the encoder-decoder family (whisper) is not ported
-    lambda dep: tmodels.forward(dataclasses.replace(
-        tconfigs.get(ARCH).smoke_config(), family="encdec"), {}, {}),
-    # the encoder-decoder family's decode step
-    lambda dep: tmodels.decode(dataclasses.replace(
-        tconfigs.get(ARCH).smoke_config(), family="encdec"), {}, None, {}),
+    # every reference family runs; the SPMD tier of whisper's plan does not
+    lambda dep: _spmd_executor(model="lm:whisper-tiny:seq=16", stages=2),
+    # nor of an LM's decode plan
+    lambda dep: _spmd_executor(model=f"lm:{ARCH}", **_DECODE),
     # a CNN plans and serves on the host tier; its SPMD tier is not ported
     lambda dep: tapi.deploy(tapi.DeploymentSpec(model="cnn:ResNet50",
                                                 stages=2, backend="spmd"),
                             stage_fns=[None, None]).executor(),
-    # the encoder-decoder family's cache
-    lambda dep: tmodels.init_cache(dataclasses.replace(
-        tconfigs.get(ARCH).smoke_config(), family="encdec"), 1, 8, CPU),
+    # nor of whisper's decode plan
+    lambda dep: _spmd_executor(model="lm:whisper-tiny", **_DECODE),
 ], ids=["spmd", "encdec_family", "decode", "cnn", "encdec_init_cache"])
 def test_unported_paths_raise(served, call):
     with pytest.raises(NotImplementedError, match="repro_torch"):
