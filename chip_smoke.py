@@ -113,7 +113,29 @@ With no arguments:
    convergence and each final segment's measured bytes beside its
    analytic weight bytes (one JSON line); fails unless it moved a cut and
    converged with every segment within the budget;
-11. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
+11. the SPMD tier (``launch/pipeline_spmd.py``, one CUDA stream per
+   stage, TF32 off), batch 8 over 4 microbatches through
+   ``Deployment.executor(backend="spmd")``: full-width qwen3-1.7b over
+   its analytic balanced 4-stage plan (8 x 1024 tokens; fp32 activations
+   on its bf16 weights made fp32, the reference's numerics) with every
+   kernel's count set to 0 just before a call and read just after
+   (flash_attention = layers x microbatches), its logits against the same
+   stage bodies run microbatch by microbatch on one stream, and against
+   them with flash_attention's plain version in its place, within 1e-4 of
+   max |logit| each, and the gap to the bf16 forward printed beside the
+   bf16 noise, then batch 7 (padded) and the comp plan's unequal block
+   counts, ``pipeline_logits`` in bf16 against ``lm.forward`` (2e-2), and
+   flash_attention's fp32 route timed at the microbatch's shape beside
+   SDPA in fp32; then
+   ResNet50 (analytic balanced and comp plans, batch 8 and 7) and
+   MobileNetV2 over C4's balanced cuts [125, 126, 147] (a tensor skips
+   stage 1 in the boundary buffer), each within 1e-4 of max |y| of the
+   direct forward; for qwen3 and ResNet50 the fill and blocked seconds of
+   overlapped and serial weight streaming (medians of 5 interleaved
+   samples from pinned host copies), modeled vs achieved stage times,
+   and items/s of 3 calls beside the host PipelineExecutor on the same
+   plan and batch (one JSON line);
+12. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
    synthetic_cnn(64) at their published input sizes, one forward each on
    the card against the CPU; ResNet50 planned by the analytic Edge TPU
    model (balanced, 4 stages) and served through ``cnn_stage_fns`` (64
@@ -124,7 +146,7 @@ With no arguments:
    direct forward;
    then the int8 API on ResNet50's head (``quantized_dense``, 1
    matmul_qi8 launch between a reset and a read of the counts);
-12. the fault-tolerance tier on ResNet50 (the weights of 11): the placement
+13. the fault-tolerance tier on ResNet50 (the weights of 12): the placement
    DP's 4-stage cut with its two slowest modeled stages on a second
    device each (6 devices), served through ``cnn_stage_fns`` with
    stage-loss retries, hedging and a ``HealthMonitor`` while a
@@ -132,13 +154,13 @@ With no arguments:
    the last replica of the second; the monitor replans the survivors
    through ``ElasticPlanner`` and hot-swaps.  64 requests 15 ms apart: 0
    lost, 0 misordered, every output equal to the direct forward;
-13. full-width qwen3-1.7b prefill through ``serve.run`` with
+14. full-width qwen3-1.7b prefill through ``serve.run`` with
    ``--device-budget 6 --stage-loss-retries 1``, hedging after three
    bottleneck-stage times of 5 and a deadline no request reaches: the
    first output within 2e-2 of the direct forward, flash_attention's
    launches equal to layers x forwards plus the layers of every hedged
    stage execution the executor reports;
-14. self-healing on ResNet50: the analytic 4-stage plan served under
+15. self-healing on ResNet50: the analytic 4-stage plan served under
    ``dep.self_heal(canaries)``, a ``tick()`` after each of 12 batches of
    8 requests (deterministic in windows): each window's req/s, per-item
    stage busy, drift and state, the controller's commits, rollbacks and
@@ -146,14 +168,14 @@ With no arguments:
    ``vs trace`` form); then the plan the live trace gives, its canary
    cold and warm and the stream served over it and the incumbent in
    turns; every output equal to the direct forward;
-15. a fleet of ResNet50 (share 3) and MobileNetV2 (share 1) over 6
+16. a fleet of ResNet50 (share 3) and MobileNetV2 (share 1) over 6
    devices, each member served through ``cnn_stage_fns``: 4 windows of
    share-proportional traffic, then 4 with ResNet50's load tripled, the
    autoscaler ticked after each window: the pool split before and after,
    its events, attainment and the audit (0 lost, 0 misordered, every
-   output equal to its member's direct forward); the phases 12 to 15
+   output equal to its member's direct forward); the phases 13 to 16
    launch no hand-written kernel but the prefill's flash_attention;
-16. prints one JSON line of CNN results, one of the fault-tolerance,
+17. prints one JSON line of CNN results, one of the fault-tolerance,
    self-healing and fleet results, one of kernel results, then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
@@ -169,9 +191,12 @@ import subprocess
 import sys
 import threading
 import time
+import unittest.mock
+import warnings
 
 import numpy as np
 import torch
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # --tree DIR: the port is imported from DIR/src instead of this checkout's
@@ -180,7 +205,8 @@ TREE = (pathlib.Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
 sys.path.insert(0, str(TREE / "src"))
 
 from repro_torch import configs  # noqa: E402  (needs src/ on the path)
-from repro_torch.api import Deployment, DeploymentSpec, plan  # noqa: E402
+from repro_torch.api import (Deployment, DeploymentSpec,  # noqa: E402
+                             deploy, plan)
 from repro_torch.configs.common import concrete_batch  # noqa: E402
 from repro_torch.core.edge_tpu_model import EdgeTPUSpec  # noqa: E402
 from repro_torch.core.pipeline import (PipelineExecutor,  # noqa: E402
@@ -200,7 +226,9 @@ from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
                                      flash_decode_ref, matmul_qi8_ref,
                                      rglru_scan_ref, rwkv6_scan_ref)
 from repro_torch.core.segmentation import segment_ranges  # noqa: E402
-from repro_torch.launch import profile_serve, serve  # noqa: E402
+from repro_torch.checkpoint.store import tree_flatten  # noqa: E402
+from repro_torch.launch import (pipeline_spmd, profile_serve,  # noqa: E402
+                                serve)
 from repro_torch.launch.cuda_reporter import (  # noqa: E402
     CudaSegmentReporter)
 from repro_torch.models import (api, cnn, lm, lm_graph,  # noqa: E402
@@ -350,6 +378,15 @@ WHISPER_FA = (("encoder", 1500, 1500, False), ("cross", 448, 1500, False),
 WHISPER_FD = (("cross", 1500, 1500), ("self", 448, 448))
 # the segment memory reporter's refine: qwen3-1.7b at full width, batch 1
 REPORTER_SEQ = 1024
+# the SPMD tier: batch 8 over 4 microbatches on the 4 stage streams of the
+# card (qwen3-1.7b 8 x 1024 tokens, ResNet50 and MobileNetV2 8 images);
+# interleaved fill samples of each issue order; served calls of each
+# executor (served throughput moves between calls on unchanged code)
+SPMD_BATCH = 8
+SPMD_M = 4
+SPMD_FILL_REPS = 5
+SPMD_CALLS = 3
+SPMD_TOL = 1e-4         # relative to max |logit| or max |y| (fp32)
 CARD = "cuda"
 D96_TAG = "ILi96E"      # a mangled template argument of 96 (the head dim)
 
@@ -448,24 +485,58 @@ def tflops(q, k, ms, window=None, causal=True):
     return attention_flops(q, k, causal, window) / (ms * 1e-3) / 1e12
 
 
-def time_attention(q, k, v, library=True, causal=True):
-    """Kernel, plain version and (``library``) SDPA (ms), and the bound, on
-    one input.  SDPA is timed in bf16 only: in fp32 it computes in TF32 or
-    through a math path, neither this function's arithmetic.  SDPA's
-    causal mask is top-left aligned, so a causal S < T call is timed only
-    at S = T (every causal shape timed here)."""
+def sdpa_call(q, k, v, causal=True):
+    """One SDPA call computing flash_attention on these inputs, and the
+    name of its backend.  bf16: the default dispatch.  fp32 (TF32 off):
+    the memory-efficient backend (fp32-accurate tensor-core GEMMs) where
+    it takes the inputs, else the math one; its output is held against
+    the plain version within 1e-4.  SDPA's causal mask is top-left
+    aligned, so a causal S < T call is timed only at S = T (every causal
+    shape timed here)."""
+    def call(backend=None):
+        if backend is None:
+            return lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
+
+        def fn():
+            with sdpa_kernel(backend):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+        return fn
+
+    if q.dtype != torch.float32:
+        return call(), "default"
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("SDPA in fp32 is timed with TF32 off")
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        fn = call(backend)
+        try:
+            with warnings.catch_warnings():     # a refusal warns, then raises
+                warnings.simplefilter("ignore", UserWarning)
+                got = fn()
+        except RuntimeError:        # the backend does not take the inputs
+            continue
+        err = (got - flash_attention_ref(q, k, v, causal)).abs().max().item()
+        if err > 1e-4:
+            raise SystemExit(f"SDPA ({backend.name}) in fp32 disagrees with "
+                             f"the plain version: {err:.3e} > 1e-4")
+        return fn, backend.name
+    raise SystemExit("no SDPA backend takes these fp32 inputs")
+
+
+def time_attention(q, k, v, causal=True):
+    """Kernel, plain version and SDPA (:func:`sdpa_call`) (ms), and the
+    bound, on one input."""
     ms = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=causal)])
     plain_ms = cuda_ms([lambda: flash_attention_ref(q, k, v, causal)])
-    library_ms = cuda_ms([
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True)]) if library else None
+    sdpa, backend = sdpa_call(q, k, v, causal)
+    library_ms = cuda_ms([sdpa])
     bound_ms, bound_by = attention_bound(q, k, causal=causal)
     return {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "library_backend": backend,
             "tflops": tflops(q, k, ms, causal=causal),
-            "library_tflops": (tflops(q, k, library_ms, causal=causal)
-                               if library_ms else None)}
+            "library_tflops": tflops(q, k, library_ms, causal=causal)}
 
 
 def check_flash_attention():
@@ -513,11 +584,10 @@ def check_flash_attention():
         shape = {"b": b, "hq": hq, "hkv": hkv, "s": s, "t": t, "d": d,
                  "dtype": str(dtype), "causal": True}
         if record is None or (d in (96, 256) and layout):
-            times = (time_attention(q, k, v) if dtype == torch.bfloat16
-                     else time_attention(q, k, v, library=False))
-            sdpa = ("not timed (fp32)" if times["library_ms"] is None else
-                    f"{times['library_ms']:.4f} ms "
-                    f"({times['library_tflops']:.1f} TFLOP/s)")
+            times = time_attention(q, k, v)
+            sdpa = (f"{times['library_ms']:.4f} ms "
+                    f"({times['library_tflops']:.1f} TFLOP/s, "
+                    f"{times['library_backend']})")
             print(f"flash_attention timing at {name}: kernel "
                   f"{times['ms']:.4f} ms ({times['tflops']:.1f} TFLOP/s), "
                   f"plain {times['plain_ms']:.4f} ms, sdpa {sdpa}, bound "
@@ -2559,6 +2629,341 @@ def run_reporter_phase():
             "seconds": refine_s}
 
 
+def fill_samples(ex, host):
+    """Medians of SPMD_FILL_REPS overlapped and as many serial bring-up
+    fills of ``ex``'s weights, interleaved (the first order alternating):
+    ``host``, pinned copies of what the executor streamed, streamed with
+    the executor's bring-up as ``compile_fn``."""
+    runs = {True: [], False: []}
+    for i in range(SPMD_FILL_REPS):
+        for overlap in ((True, False) if i % 2 == 0 else (False, True)):
+            runs[overlap].append(pipeline_spmd.stream_stage_weights(
+                ex.mesh, host, overlap=overlap, compile_fn=ex.bring_up)[2])
+    out = {}
+    for overlap, reps in runs.items():
+        out["overlap" if overlap else "serial"] = {
+            "fill_s": float(np.median([r.fill_s for r in reps])),
+            "blocked_s": float(np.median([r.blocked_s for r in reps])),
+            "fill_samples_s": [r.fill_s for r in reps],
+            "blocked_samples_s": [r.blocked_s for r in reps]}
+    return out
+
+
+def served_rates(run_batch, items):
+    """items/s of SPMD_CALLS calls of ``run_batch(items)`` after one
+    warm-up call, each ending with the card finished."""
+    run_batch(items)
+    rates = []
+    for _ in range(SPMD_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_batch(items)
+        torch.cuda.synchronize()
+        rates.append(len(items) / (time.perf_counter() - t0))
+    return rates
+
+
+def host_rates(dep, items):
+    """The host PipelineExecutor of ``dep`` on the same items."""
+    with dep.executor(start=True) as hx:
+        return served_rates(hx.run_batch, items)
+
+
+def report_spmd(label, ex, model, params, smi):
+    """The executor's fill samples (from pinned host copies of its stage
+    weights, made here and dropped after), modeled vs achieved stage
+    times, printed once with the card; returns them."""
+    host = pipeline_spmd.host_stage_weights(model, params, ex.plan)
+    nbytes = sum(t.numel() * t.element_size() for tree in host
+                 for t in tree_flatten(tree)[0])
+    fills = fill_samples(ex, host)
+    del host
+    pred = ex.predicted_stage_times()
+    ach = ex.achieved_stage_times(reps=5, warmup=1)
+    for how, f in fills.items():
+        print(f"spmd {label} fill, {how} streaming of {nbytes} bytes: median "
+              f"fill_s {f['fill_s']:.6f} (samples "
+              f"{[round(x, 6) for x in f['fill_samples_s']]}), blocked_s "
+              f"{f['blocked_s']:.6f} (samples "
+              f"{[round(x, 6) for x in f['blocked_samples_s']]}); {smi}")
+    print(f"spmd {label} stage times (s): modeled "
+          f"{[round(t, 6) for t in pred]}, achieved (alone on its stream, "
+          f"median of 5) {[round(t, 6) for t in ach]}; {smi}")
+    return {"weight_bytes": nbytes, "fills": fills, "predicted_s": pred,
+            "achieved_s": ach}
+
+
+def spmd_plans(graph, model_ref):
+    """The analytic balanced and the comp 4-stage plans of ``graph``."""
+    return {strategy: plan(DeploymentSpec(model=model_ref, stages=STAGES,
+                                          strategy=strategy), graph=graph)
+            for strategy in ("balanced", "comp")}
+
+
+def rel_err(got, expect):
+    """max |got - expect| / max |expect|."""
+    return ((got - expect).abs().max() / expect.abs().max()).item()
+
+
+def run_spmd_lm(record, smi):
+    """qwen3-1.7b at full width through the SPMD tier: the analytic
+    balanced 4-stage plan through ``Deployment.executor(backend="spmd")``,
+    batch 8 x SEQ tokens over 4 microbatches, with every kernel's count set
+    to 0 just before a call and read just after (flash_attention: layers x
+    microbatches).  The logits against the same stage bodies run
+    microbatch by microbatch on one stream (fp32 activations, the same
+    weights made fp32), and against that composition with flash_attention's
+    plain version in its place, each within SPMD_TOL of max |logit|; the
+    gap to the bf16 forward printed beside the bf16 noise (the bf16
+    forward against the plain composition); then batch 7 (padded), the comp
+    plan's unequal block counts, the fill, stage times and items/s beside
+    the host executor, ``pipeline_logits`` in bf16 against ``lm.forward``
+    (2e-2), and flash_attention's fp32 route timed at the microbatch's
+    shape."""
+    dev = torch.device(CARD)
+    cfg = configs.get(ARCH).config()
+    params = lm.init_params(cfg, dev, torch.Generator(dev).manual_seed(0))
+    graph = lm_graph.lm_layer_graph(cfg, seq_len=SEQ)
+    plans = spmd_plans(graph, f"lm:{ARCH}:seq={SEQ}")
+    counts = {k: serve.stage_block_counts(p, cfg.n_layers)
+              for k, p in plans.items()}
+    print(f"spmd {ARCH}: balanced cuts {plans['balanced'].cuts} blocks "
+          f"{counts['balanced']}, comp cuts {plans['comp'].cuts} blocks "
+          f"{counts['comp']}")
+    if len(set(counts["comp"])) < 2:
+        raise SystemExit(f"spmd {ARCH}: the comp plan's block counts are "
+                         f"equal: {counts['comp']}")
+    tokens = concrete_batch(cfg, SEQ, SPMD_BATCH, kind="prefill",
+                            rng=np.random.default_rng(3))["tokens"].to(dev)
+    mb = SPMD_BATCH // SPMD_M
+    want = {"flash_attention": cfg.n_layers * SPMD_M}
+
+    def executor(strategy):
+        dep = deploy(DeploymentSpec(stages=STAGES, strategy=strategy,
+                                    backend="spmd"), graph=graph)
+        if dep.plan.cuts != plans[strategy].cuts:
+            raise SystemExit(f"spmd {ARCH}: {dep.plan.cuts} != "
+                             f"{plans[strategy].cuts}")
+        return dep.executor(model=cfg, params=params,
+                            n_microbatches=SPMD_M, batch_size=SPMD_BATCH,
+                            seq_len=SEQ)
+
+    launches = {}
+
+    def counted(label, fn):
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[label] = read_counts()
+        check_counts(f"spmd {ARCH} {label}", launches[label], want)
+        return out
+
+    # the one-stream composition: fp32 weights, microbatch by microbatch;
+    # with the kernel (``expect``) and through flash_attention's plain
+    # version (``plain``: an evaluation that shares no kernel)
+    blocks32 = [to_fp32(bp) for bp in params["blocks"]]
+    rest32 = {k: to_fp32(v) for k, v in params.items() if k != "blocks"}
+
+    def composition():
+        parts = []
+        for i in range(0, SPMD_BATCH, mb):
+            x = lm.embed_tokens(cfg, rest32, tokens[i:i + mb])
+            positions = lm.positions_for(cfg, x)
+            for bp in blocks32:
+                x = lm.block(cfg, bp, x, positions)
+            parts.append(lm.unembed(cfg, rest32, x))
+        return torch.cat(parts)
+
+    def plain_attention(q, k, v, causal=True, window=None):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    with torch.no_grad():
+        expect = composition()
+        with unittest.mock.patch.object(lm, "flash_attention",
+                                        plain_attention):
+            plain = composition()
+        del blocks32
+        bf16 = torch.cat([lm.forward(cfg, params, {"tokens": tokens[i:i + mb]})
+                          for i in range(0, SPMD_BATCH, mb)])
+
+    out = {"arch": ARCH, "batch": SPMD_BATCH, "seq": SEQ,
+           "n_microbatches": SPMD_M,
+           "cuts": {k: list(p.cuts) for k, p in plans.items()},
+           "blocks": counts}
+    t0 = time.perf_counter()
+    ex = executor("balanced")
+    build_s = time.perf_counter() - t0
+    got = counted("balanced", lambda: ex(tokens))
+    err = rel_err(got, expect)
+    err_plain = rel_err(got, plain)
+    gap = (got - bf16).abs().max().item()
+    noise = (bf16 - plain).abs().max().item()
+    print(f"spmd {ARCH} balanced plan, batch {SPMD_BATCH} x {SEQ}, m "
+          f"{SPMD_M}: executor built in {build_s:.2f} s (fill "
+          f"{ex.fill_s:.4f} s, blocked {ex.fill_blocked_s:.4f} s); logits "
+          f"max_abs_err / max|logit| vs the one-stream composition "
+          f"{err:.3e}, vs the composition through plain attention "
+          f"{err_plain:.3e} (tol {SPMD_TOL:g} each); max_abs_err vs the "
+          f"bf16 forward {gap:.3e} beside the bf16 noise (bf16 forward vs "
+          f"the plain fp32 composition) {noise:.3e}; logits "
+          f"{tuple(got.shape)}")
+    if not (got.shape == expect.shape and bool(torch.isfinite(got).all())
+            and err <= SPMD_TOL and err_plain <= SPMD_TOL):
+        raise SystemExit(f"spmd {ARCH}: executor vs one-stream composition "
+                         f"{err:.3e}, vs plain attention {err_plain:.3e}, "
+                         f"> {SPMD_TOL:g} or not finite")
+    out.update(vs_composition=err, vs_plain_composition=err_plain,
+               vs_bf16_forward=gap, bf16_noise=noise)
+    del got, plain
+    got = counted("balanced, batch 7", lambda: ex(tokens[:7]))
+    err7 = rel_err(got, expect[:7])
+    print(f"spmd {ARCH} batch 7 (padded to 8): max_abs_err / max|logit| "
+          f"{err7:.3e} (tol {SPMD_TOL:g})")
+    if not (got.shape == expect[:7].shape and err7 <= SPMD_TOL):
+        raise SystemExit(f"spmd {ARCH}: batch 7 {err7:.3e}")
+    del got
+    out["vs_composition_batch7"] = err7
+    out.update(report_spmd(ARCH, ex, cfg, params, smi))
+    rows = list(tokens)
+    out["spmd_items_per_s"] = served_rates(ex.run_batch, rows)
+    ex.close()
+    del ex
+    torch.cuda.empty_cache()
+    host = serve.make_stage_fns(cfg, params, counts["balanced"], dev)
+    out["host_items_per_s"] = host_rates(
+        deploy(DeploymentSpec(stages=STAGES, strategy="balanced"),
+               graph=graph, stage_fns=host), [r[None] for r in rows])
+    print(f"spmd {ARCH} served batch of {SPMD_BATCH}: SPMD executor "
+          f"{[round(r, 3) for r in out['spmd_items_per_s']]} items/s (fp32 "
+          f"activations, every position's logits) beside the host "
+          f"PipelineExecutor on the same plan "
+          f"{[round(r, 3) for r in out['host_items_per_s']]} items/s (bf16, "
+          f"last-token logits); {smi}")
+    ex = executor("comp")
+    got = counted("comp", lambda: ex(tokens))
+    errc = rel_err(got, expect)
+    print(f"spmd {ARCH} comp plan (blocks {counts['comp']}): max_abs_err / "
+          f"max|logit| {errc:.3e} (tol {SPMD_TOL:g})")
+    if errc > SPMD_TOL:
+        raise SystemExit(f"spmd {ARCH}: comp plan {errc:.3e}")
+    out["vs_composition_comp"] = errc
+    ex.close()
+    del ex, got, expect
+    torch.cuda.empty_cache()
+    mesh = pipeline_spmd.default_stage_mesh(STAGES)
+    got = counted("pipeline_logits (bf16)",
+                  lambda: pipeline_spmd.pipeline_logits(
+                      cfg, mesh, plans["balanced"], params,
+                      {"tokens": tokens}, n_microbatches=SPMD_M))
+    errp = (got - bf16).abs().max().item()
+    print(f"spmd {ARCH} pipeline_logits (bf16) vs lm.forward: max_abs_err "
+          f"{errp:.3e} (bound 2e-2)")
+    if not errp < 2e-2:
+        raise SystemExit(f"spmd {ARCH}: pipeline_logits {errp:.3e}")
+    out["pipeline_logits_vs_forward"] = errp
+    del got, bf16, params
+    torch.cuda.empty_cache()
+    # flash_attention's fp32 route at the microbatch's shape (D 128)
+    q, k, v = attention_inputs(mb, cfg.n_heads, cfg.n_kv_heads, SEQ, SEQ,
+                               cfg.hd, torch.float32, True)
+    fa_err = (fa.flash_attention(q, k, v) - flash_attention_ref(q, k, v)
+              ).abs().max().item()
+    times = time_attention(q, k, v)
+    print(f"flash_attention fp32 at the SPMD microbatch ({mb}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, {SEQ}, D {cfg.hd}): kernel "
+          f"{times['ms']:.4f} ms ({times['tflops']:.2f} TFLOP/s), plain "
+          f"{times['plain_ms']:.4f} ms, sdpa {times['library_ms']:.4f} ms "
+          f"({times['library_tflops']:.2f} TFLOP/s, "
+          f"{times['library_backend']}), bound {times['bound_ms']:.4f} ms "
+          f"({times['bound_by']}), max_abs_err {fa_err:.3e} (tol 1e-4); "
+          f"{smi}")
+    if fa_err > 1e-4:
+        raise SystemExit(f"flash_attention fp32 at the SPMD shape: {fa_err}")
+    record["spmd_fp32"] = {"max_abs_err": fa_err, **times, "shape": {
+        "b": mb, "hq": cfg.n_heads, "hkv": cfg.n_kv_heads, "s": SEQ,
+        "t": SEQ, "d": cfg.hd, "dtype": "torch.float32", "causal": True}}
+    record["launches_spmd"] = launches["balanced"]["flash_attention"]
+    return out
+
+
+def run_spmd_cnn(name, smi, expect_cuts=None):
+    """``name`` (fp32, TF32 off) through the SPMD tier: the analytic
+    balanced 4-stage plan through ``Deployment.executor(backend="spmd")``,
+    8 images over 4 microbatches, then 7 (padded) and the comp plan, each
+    within SPMD_TOL of max |y| of the direct forward and launching no
+    hand-written kernel; ResNet50 also reports the fill, stage times and
+    items/s beside the host executor over ``cnn_stage_fns``."""
+    dev = torch.device(CARD)
+    m = cnn.REAL_CNNS[name]()
+    graph = m.to_layer_graph()
+    params = m.init(dev, torch.Generator(dev).manual_seed(0))
+    x = torch.randn((SPMD_BATCH,) + m.input_shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(4))
+    direct = m.apply(params, x)
+    plans = spmd_plans(graph, f"cnn:{name}")
+    if expect_cuts is not None and plans["balanced"].cuts != expect_cuts:
+        raise SystemExit(f"spmd {name}: balanced cuts "
+                         f"{plans['balanced'].cuts} != {expect_cuts}")
+    out = {"cuts": {k: list(p.cuts) for k, p in plans.items()}}
+    for strategy, pl in plans.items():
+        dep = serve.deploy_cnn(m, params, DeploymentSpec(
+            model=f"cnn:{name}", stages=STAGES, strategy=strategy,
+            backend="spmd"), dev)
+        if dep.plan.cuts != pl.cuts:
+            raise SystemExit(f"spmd {name}: {dep.plan.cuts} != {pl.cuts}")
+        ex = dep.executor(model=m, params=params, n_microbatches=SPMD_M,
+                          batch_size=SPMD_BATCH)
+        batches = (SPMD_BATCH, 7) if strategy == "balanced" else (
+            SPMD_BATCH,)
+        for b in batches:
+            _build.reset_launches()
+            y = ex(x[:b])
+            torch.cuda.synchronize()
+            check_counts(f"spmd {name} {strategy} batch {b}", read_counts(),
+                         {})
+            err = rel_err(y, direct[:b])
+            print(f"spmd {name} {strategy} plan (cuts {pl.cuts}), batch {b}, "
+                  f"m {SPMD_M}: max_abs_err / max|y| vs the direct forward "
+                  f"{err:.3e} (tol {SPMD_TOL:g})")
+            if not (y.shape == direct[:b].shape and err <= SPMD_TOL):
+                raise SystemExit(f"spmd {name} {strategy} batch {b}: "
+                                 f"{err:.3e}")
+            out[f"{strategy}_batch{b}_rel_err"] = err
+        if strategy == "balanced" and name == CNN:
+            out.update(report_spmd(name, ex, m, params, smi))
+            items = list(x)
+            out["spmd_items_per_s"] = served_rates(ex.run_batch, items)
+            out["host_items_per_s"] = host_rates(
+                serve.deploy_cnn(m, params, DeploymentSpec(
+                    model=f"cnn:{name}", stages=STAGES,
+                    strategy=strategy), dev),
+                [{m.INPUT: i[None]} for i in items])
+            print(f"spmd {name} served batch of {SPMD_BATCH}: SPMD executor "
+                  f"{[round(r, 2) for r in out['spmd_items_per_s']]} "
+                  f"items/s beside the host PipelineExecutor over "
+                  f"cnn_stage_fns on the same plan "
+                  f"{[round(r, 2) for r in out['host_items_per_s']]} "
+                  f"items/s; {smi}")
+        ex.close()
+    return out
+
+
+def run_spmd_phase(record, smi):
+    """The SPMD tier on the card: qwen3-1.7b, ResNet50 and MobileNetV2
+    (C4's balanced cuts, a tensor skipping stage 1 in the boundary
+    buffer)."""
+    t0 = time.perf_counter()
+    out = {"lm": run_spmd_lm(record, smi)}
+    torch.cuda.empty_cache()
+    out["cnn"] = run_spmd_cnn(CNN, smi)
+    out["mobilenetv2"] = run_spmd_cnn("MobileNetV2", smi,
+                                      expect_cuts=[125, 126, 147])
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"SPMD phase: {out['seconds']:.1f} s")
+    return out
+
+
 def device_line():
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2727,6 +3132,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"segment memory reporter phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"reporter": reporter}))
+    print(json.dumps({"spmd": run_spmd_phase(record, smi)}))
 
     zoo_worst = check_cnn_zoo()
     cnn_res, ctx = run_cnn_path()

@@ -29,6 +29,7 @@ hand-copy, this module is the single typed entry point:
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Callable, List, Optional, Sequence
 
 from ..core.edge_tpu_model import EdgeTPUModel, EdgeTPUSpec
@@ -41,6 +42,8 @@ from .spec import DeploymentSpec, resolve_model_graph
 from .strategies import PlanContext, get_strategy
 
 StageFnBuilder = Callable[[PlacementPlan], List[Callable[[Any], Any]]]
+
+logger = logging.getLogger(__name__)
 
 
 def plan(spec: DeploymentSpec, *,
@@ -235,21 +238,57 @@ class Deployment:
                          "stage_fns or stage_fn_builder to deploy()")
 
     def executor(self, start: bool = False, *,
-                 backend: Optional[str] = None) -> PipelineExecutor:
-        """A host :class:`PipelineExecutor` wired from the plan + spec
-        (caller owns its lifecycle; use as a context manager or call
-        stop()).  ``backend`` (default: the spec's) must be ``"host"``:
-        the SPMD tier is not ported yet."""
+                 backend: Optional[str] = None,
+                 model: Any = None, params: Any = None,
+                 mesh: Any = None, n_microbatches: int = 4,
+                 overlap_streaming: bool = True,
+                 batch_size: Optional[int] = None,
+                 seq_len: Optional[int] = None):
+        """An executor wired from the plan + spec (caller owns its
+        lifecycle; use as a context manager or call stop()).
+
+        ``backend`` (default: the spec's) picks the execution tier:
+
+        * ``"host"`` -- the threaded :class:`PipelineExecutor` over this
+          deployment's stage functions.
+        * ``"spmd"`` -- the
+          :class:`~repro_torch.launch.pipeline_spmd.SpmdPipelineExecutor`:
+          the plan lowered onto a
+          :class:`~repro_torch.launch.pipeline_spmd.StageMesh` (``mesh``;
+          default: one stream per stage on the card), the GPipe schedule
+          over ``n_microbatches`` with event-ordered hops and overlapped
+          weight streaming.  Needs the live model (a ``GraphModel`` or LM
+          config) and its ``params`` -- runtime objects that cannot live
+          in the spec.  A plan with replicated stages cannot map one
+          stage to one stream: it falls back to the host executor with a
+          logged one-line notice (the low-level SPMD entry points keep
+          the hard error).
+        """
         self._check_open("executor()")
         backend = backend if backend is not None else self.spec.backend
         if backend not in ("host", "spmd"):
             raise ValueError(f"unknown backend {backend!r}; pick 'host' "
                              f"or 'spmd'")
         if backend == "spmd":
-            raise NotImplementedError(
-                "backend='spmd': the SPMD pipeline tier "
-                "(launch/pipeline_spmd.py) is not ported to repro_torch "
-                "yet; it is the SPMD slice.  Use backend='host'")
+            from ..launch.pipeline_spmd import (SpmdPipelineExecutor,
+                                                plan_supports_spmd)
+            if not plan_supports_spmd(self.plan):
+                logger.warning(
+                    "spmd backend: plan has replicated stages "
+                    "(replica_counts=%s); falling back to the host "
+                    "PipelineExecutor", self.plan.replica_counts)
+            else:
+                if model is None or params is None:
+                    raise ValueError(
+                        "backend='spmd' needs the live model and params: "
+                        "executor(backend='spmd', model=..., params=...)")
+                return SpmdPipelineExecutor.for_model(
+                    model, params, self.plan, mesh=mesh,
+                    n_microbatches=n_microbatches,
+                    overlap_streaming=overlap_streaming,
+                    batch_size=batch_size,
+                    **({"seq_len": seq_len} if seq_len is not None
+                       else {}))
         ex = PipelineExecutor.for_plan(
             self.plan, self.stage_functions(),
             queue_size=self.spec.queue_size,

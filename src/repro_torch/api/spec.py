@@ -82,9 +82,9 @@ class DeploymentSpec:
     ``"host"`` (default; the threaded
     :class:`~repro_torch.core.pipeline.PipelineExecutor`, one worker per stage
     with queues between) or ``"spmd"`` (the
-    :class:`~repro.launch.pipeline_spmd.SpmdPipelineExecutor`:
-    shard_map/ppermute pipeline over a device mesh with overlapped weight
-    streaming; needs one device per stage and an unreplicated plan —
+    :class:`~repro_torch.launch.pipeline_spmd.SpmdPipelineExecutor`:
+    the GPipe schedule over one CUDA stream per stage of the card, with
+    overlapped weight streaming; needs an unreplicated plan —
     replicated plans fall back to the host executor with a logged
     notice).
 

@@ -26,7 +26,7 @@ import os
 import shutil
 import threading
 import zlib
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +68,12 @@ def tree_unflatten(treedef: Any, leaves: List[Any]) -> Params:
             return type(node)(build(c) for c in node)
         return next(it)
     return build(treedef)
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Params) -> Params:
+    """``tree`` with ``fn`` applied to every leaf."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn(leaf) for leaf in leaves])
 
 
 def _host_copy(leaf: torch.Tensor) -> np.ndarray:

@@ -9,7 +9,8 @@ the checkout are read.  A failed build raises; nothing falls back.
 
 Each wrapper calls :func:`count_launch` with its source's name where it
 launches the kernel, and nowhere else; :func:`launches` reads the counts
-and :func:`reset_launches` sets them to 0.
+and :func:`reset_launches` sets them to 0.  The float kernels have no
+backward: each wrapper calls :func:`refuse_grad` on its CUDA route.
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -49,6 +52,20 @@ def launches(name: str) -> int:
 def reset_launches() -> None:
     with _count_lock:
         _launches.clear()
+
+
+def refuse_grad(name: str, *inputs: Optional[torch.Tensor]) -> None:
+    """Raise ``RuntimeError`` when autograd records and an input requires
+    a gradient: the kernel of ``csrc/<name>.cu`` has no backward, so its
+    output would carry no edge to its inputs and every weight upstream
+    would silently get no gradient.  The CPU route differentiates through
+    the plain version."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; an input requires "
+            f"grad.  Run it under torch.no_grad() or torch.inference_mode(), "
+            f"or differentiate on CPU tensors (the plain version)")
 
 
 def _nvcc() -> str:

@@ -97,6 +97,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous head dim "
                          "(stride 1 on the last axis)")
+    _build.refuse_grad("flash_attention", q, k, v)
     out = torch.empty_like(q)
     if q.dtype == torch.bfloat16:
         bad = [name for name, x in zip("qkv", (q, k, v))

@@ -110,6 +110,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"flash_decode runs on CUDA or CPU tensors, not "
                          f"{q.device}")
     _check_kernel_layout(q, k_cache, v_cache)
+    _build.refuse_grad("flash_decode", q, k_cache, v_cache)
     b, hq, d = q.shape
     hkv, t = k_cache.shape[1], k_cache.shape[2]
     if isinstance(cache_len, int):

@@ -104,6 +104,7 @@ def launch(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
     (uncounted: :func:`rglru_scan` counts its calls)."""
     if not (a.is_contiguous() and g.is_contiguous()):
         raise ValueError("rglru_scan kernel needs contiguous a and g")
+    _build.refuse_grad("rglru_scan", a, g, h0)
     b, s, r = a.shape
     if plan.route == "staged" and not staged_fits(r, a.element_size(),
                                                   _aligned(a, g)):

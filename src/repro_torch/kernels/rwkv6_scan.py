@@ -73,6 +73,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan kernel takes head dims {HEAD_DIMS}, "
                          f"got {d}")
+    _build.refuse_grad("rwkv6_scan", r, k, v, w, u, s0)
     if out is None:
         out = torch.empty_like(r)
     if any(x.stride(-1) != 1 for x in (r, k, v, w, out)):

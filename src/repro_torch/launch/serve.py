@@ -15,6 +15,15 @@ The batch workload (``--workload batch``, the default) of
    server's ``snapshot()`` deltas, and check the first request against
    the direct forward.
 
+``--backend spmd`` runs the batch workload's whole request set as one
+batch through the SPMD tier
+(:class:`~repro_torch.launch.pipeline_spmd.SpmdPipelineExecutor`: the GPipe
+schedule over one CUDA stream per stage, ``--microbatch`` microbatches,
+the stage weights streamed during bring-up; dense and moe archs, fp32
+activations as in the reference): a warm-up batch, the timed batch,
+predicted and achieved stage times, and the first request against the
+direct forward in the executor's numerics.
+
 The decode workload (``--workload decode``): plan with the
 ``decode_placement`` strategy at the ``(--decode-concurrency,
 --max-context)`` operating point, for a planning device with
@@ -48,6 +57,8 @@ token, so the grouping of a forward changes no token's output).
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --backend spmd \\
+        --seq 1024 --requests 8 --microbatch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --workload decode \\
         --decode-concurrency 8 --max-context 2048 --prompt-len 1024 \\
         --max-new-tokens 64 --requests 16 --plan-device-bytes 21000000000
@@ -66,9 +77,10 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.api import DeploymentSpec, deploy, plan
+from repro_torch.checkpoint.store import tree_map
 from repro_torch.configs.common import concrete_batch
 from repro_torch.core.edge_tpu_model import EdgeTPUSpec
-from repro_torch.core.pipeline import stage_balance_metrics
+from repro_torch.core.pipeline import PipelineExecutor, stage_balance_metrics
 from repro_torch.core.placement import PlacementPlan
 from repro_torch.decode import DECODE_FAMILIES
 from repro_torch.models import lm, lm_graph
@@ -232,7 +244,8 @@ def spec_from_args(args: argparse.Namespace) -> DeploymentSpec:
         deadline_ms=args.deadline_ms or None,
         shed_policy=args.shed_policy,
         drift_threshold=args.drift_threshold,
-        canary_requests=args.canary_requests)
+        canary_requests=args.canary_requests,
+        backend=args.backend)
     if args.workload == "decode":
         # decode plans at the (concurrency, max_context) operating point
         # with the per-token cost regime; see repro_torch.decode
@@ -266,6 +279,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--strategy", default="balanced",
                     choices=["balanced", "balanced_norefine", "comp"])
+    ap.add_argument("--backend", default="host", choices=["host", "spmd"],
+                    help="execution tier: 'host' (threaded stage workers, "
+                         "streaming admission) or 'spmd' (the plan lowered "
+                         "onto one CUDA stream per stage: the GPipe "
+                         "schedule over --microbatch microbatches with "
+                         "overlapped weight streaming; the requests run "
+                         "as one batch)")
     ap.add_argument("--microbatch", type=int, default=1,
                     help="stage-level dynamic micro-batching bucket size "
                          "(stack up to k same-shape in-flight requests "
@@ -436,6 +456,67 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
     return {"cfg": cfg, "params": params, "plan": dep.plan,
             "requests": reqs, "outs": outs, "snapshot": snap,
             "seconds": seconds, "max_err": err}
+
+
+def run_spmd(args: argparse.Namespace) -> Dict[str, Any]:
+    """``--backend spmd``: the request set as one batch through the SPMD
+    executor (``--microbatch`` microbatches): a warm-up batch of one
+    request, the timed batch, predicted and achieved stage times, and the
+    first request's last-token logits against the direct forward in the
+    executor's numerics (fp32 activations on the model's weights made
+    fp32).  Exits when the plan has replicated stages (the front door fell
+    back to the host executor).  Returns the config, weights, plan,
+    requests, outputs, the batch's stats, the stage times, wall time and
+    the pipeline-vs-direct error."""
+    from .pipeline_spmd import default_stage_mesh
+
+    cfg, params, dep, reqs = setup(args)
+    ex = dep.executor(backend="spmd", model=cfg, params=params,
+                      mesh=default_stage_mesh(dep.plan.n_stages,
+                                              args.device),
+                      n_microbatches=max(1, args.microbatch),
+                      batch_size=args.requests, seq_len=args.seq)
+    if isinstance(ex, PipelineExecutor):        # replicated-plan fallback
+        ex.stop()
+        raise SystemExit("plan has replicated stages; rerun without "
+                         "--device-budget or use --backend host")
+    rows = [r[0] for r in reqs]                 # (seq,) token rows
+    with ex:
+        ex.run_batch(rows[:1])                  # warm-up
+        t0 = time.perf_counter()
+        outs, stats = ex.run_batch(rows)
+        seconds = time.perf_counter() - t0
+        pred = ex.predicted_stage_times()
+        ach = ex.achieved_stage_times()
+    ref = lm.forward(cfg, tree_map(torch.Tensor.float, params),
+                     {"tokens": reqs[0]}, last_token_only=True)
+    err = float((outs[0][-1:] - ref[0]).abs().max())
+    return {"cfg": cfg, "params": params, "plan": dep.plan,
+            "requests": reqs, "outs": outs, "stats": stats,
+            "seconds": seconds, "predicted_s": pred, "achieved_s": ach,
+            "max_err": err}
+
+
+def main_spmd(args: argparse.Namespace) -> Dict[str, Any]:
+    res = run_spmd(args)
+    pl, stats = res["plan"], res["stats"]
+    print("plan:", pl.describe())
+    print("report:", pl.report.describe())
+    print("blocks per stage:", stage_block_counts(pl, res["cfg"].n_layers))
+    print(f"{len(res['outs'])} requests in {res['seconds'] * 1e3:.1f} ms "
+          f"({stats['items_per_s']:.1f} req/s, "
+          f"m={stats['n_microbatches']}, weight-stream fill "
+          f"{stats['fill_s'] * 1e3:.0f} ms, blocked "
+          f"{stats['fill_blocked_s'] * 1e3:.0f} ms)")
+    print("predicted stage times (s):",
+          [round(t, 4) for t in res["predicted_s"]])
+    print("achieved stage times (s): ",
+          [round(t, 4) for t in res["achieved_s"]])
+    print(f"pipeline vs direct max err: {res['max_err']:.2e}")
+    if not res["max_err"] < 2e-2:
+        raise SystemExit(f"pipeline output differs from the direct forward "
+                         f"by {res['max_err']:.2e} (bound 2e-2)")
+    return res
 
 
 def setup_decode(args: argparse.Namespace):
@@ -609,6 +690,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         return plan_only(args)
     if args.workload == "decode":
         return main_decode(args)
+    if args.backend == "spmd":
+        return main_spmd(args)
     res = run(args)
     pl, snap = res["plan"], res["snapshot"]
     print("plan:", pl.describe())

@@ -698,3 +698,117 @@ def test_cuda_reporter_measures_and_refines(sm90):
     assert res.converged and res.moves > 0 and res.cuts != pl.cuts
     assert all(tight.segment_report(lo, hi)[1] == 0
                for lo, hi in segment_ranges(n, res.cuts))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' gradient refusal (C5)
+# ---------------------------------------------------------------------------
+def _grad_inputs(name, dev):
+    g = torch.Generator(dev).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    if name == "flash_attention":
+        return (r(1, 4, 64, 64), r(1, 2, 64, 64), r(1, 2, 64, 64))
+    if name == "flash_decode":
+        return (r(2, 4, 64), r(2, 2, 128, 64), r(2, 2, 128, 64), 100)
+    if name == "rwkv6_scan":
+        w = torch.rand(1, 2, 8, 64, generator=g, device=dev)
+        return (r(1, 2, 8, 64), r(1, 2, 8, 64), r(1, 2, 8, 64), w,
+                r(2, 64), r(1, 2, 64, 64))
+    return (torch.rand(2, 8, 64, generator=g, device=dev), r(2, 8, 64),
+            r(2, 64))
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_decode",
+                                  "rwkv6_scan", "rglru_scan"])
+def test_kernels_refuse_a_gradient_on_card(sm90, name):
+    """Asked for a gradient, a kernel with no backward raises instead of
+    returning an output with no autograd edge; under no_grad it runs."""
+    fn = {"flash_attention": fa.flash_attention,
+          "flash_decode": fd.flash_decode, "rwkv6_scan": rw.rwkv6_scan,
+          "rglru_scan": rg.rglru_scan}[name]
+    args = _grad_inputs(name, sm90)
+    _build.reset_launches()
+    with torch.no_grad():
+        fn(*args)
+    assert _build.launches(name) == 1
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    for i in range(len(tensors)):
+        marked = [t.clone().requires_grad_(j == i)
+                  for j, t in enumerate(tensors)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*marked, *args[len(tensors):])
+    assert _build.launches(name) == 1
+
+
+# ---------------------------------------------------------------------------
+# the SPMD tier's stream schedule
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m", [4, 9], ids=["m=S", "m=2S+1"])
+@pytest.mark.parametrize("slow", [(4, 0, 0, 0), (0, 0, 0, 4), (0, 4, 0, 4)],
+                         ids=["slow_first", "slow_last", "slow_alternate"])
+@pytest.mark.parametrize("pressure", [False, True],
+                         ids=["cached", "empty_cache"])
+def test_stream_schedule_equals_one_stream(sm90, m, slow, pressure):
+    """The schedule over 4 stage streams equals the same stage functions
+    composed microbatch by microbatch on one stream.  Stages that sleep
+    on the card make a missing event wait read a hop before it is
+    written, and a missing ``record_stream`` hand a hop's memory to the
+    next microbatch while its reader still waits; ``empty_cache`` between
+    microbatches releases the allocator's cached blocks."""
+    from repro_torch.launch import pipeline_spmd as spmd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(sm90).manual_seed(0)
+    ws = [torch.randn(256, 256, generator=g, device=sm90) / 16
+          for _ in range(4)]
+
+    def stage(s):
+        def fn(x):
+            if pressure:
+                torch.cuda.empty_cache()
+            if slow[s]:
+                torch.cuda._sleep(slow[s] * 1_000_000)
+            return torch.tanh(x @ ws[s]) + x
+        return fn
+
+    fns = [stage(s) for s in range(4)]
+    x_all = torch.randn(m, 32, 256, generator=g, device=sm90)
+    mesh = spmd.default_stage_mesh(4)
+    got = spmd._gpipe_outputs(fns, mesh.streams, x_all)
+    expect = []
+    for i in range(m):
+        y = x_all[i]
+        for fn in fns:
+            y = fn(y)
+        expect.append(y)
+    torch.testing.assert_close(got, torch.stack(expect), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_spmd_lm_executor_on_card_matches_cpu(sm90):
+    """qwen3's smoke config through the SPMD executor, 4 stages and 9
+    microbatches of one row: the card (stage streams, flash_attention's
+    fp32 route, 4 launches a microbatch) against the CPU (the plain
+    version), within 1e-4."""
+    from repro_torch.launch import pipeline_spmd as spmd
+    from repro_torch.models import lm_graph
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get("qwen3-1.7b").smoke_config()
+    cpu = torch.device("cpu")
+    params = api.init(cfg, cpu, torch.Generator(cpu).manual_seed(0))
+    pl = tapi.plan(tapi.DeploymentSpec(stages=4,
+                                       strategy="balanced_norefine"),
+                   graph=lm_graph.lm_layer_graph(cfg, seq_len=64))
+    tokens = concrete_batch(cfg, 64, 9, kind="prefill")["tokens"]
+    outs = []
+    for dev in (cpu, sm90):
+        with spmd.SpmdPipelineExecutor.for_lm(
+                cfg, params, pl, mesh=spmd.default_stage_mesh(4, dev),
+                n_microbatches=9, batch_size=9, seq_len=64) as ex:
+            _build.reset_launches()
+            outs.append(ex(tokens).cpu())
+            assert _build.launches("flash_attention") == (
+                0 if dev == cpu else cfg.n_layers * 9)
+            assert all(t > 0 for t in ex.achieved_stage_times(2, 1))
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)

@@ -74,3 +74,31 @@ def test_spec_json_interchangeable_with_reference():
                                strategy="balanced")
     assert japi.DeploymentSpec.from_json(spec.to_json()).to_dict() \
         == spec.to_dict()
+
+
+@pytest.mark.parametrize("entry", ["plan", "plan_placement",
+                                   "plan_summary_table"])
+def test_removed_planner_entry_points_raise_as_the_reference(entry):
+    """``core/planner.py``'s stubs raise the reference's text, the package
+    name aside."""
+    from repro.core import planner as jplanner
+    from repro_torch.core import planner as tplanner
+    raised = []
+    for mod in (jplanner, tplanner):
+        with pytest.raises(RuntimeError, match="was removed") as exc:
+            getattr(mod, entry)(object(), stages=2)
+        raised.append(str(exc.value))
+    assert raised[1] == raised[0].replace("repro.", "repro_torch.")
+
+
+@pytest.mark.parametrize("name", ["PlacementPlan", "min_stages_to_fit",
+                                  "no_such_name"])
+def test_planner_stub_exports_nothing_as_the_reference(name):
+    from repro.core import planner as jplanner
+    from repro_torch.core import planner as tplanner
+    raised = []
+    for mod in (jplanner, tplanner):
+        with pytest.raises(AttributeError) as exc:
+            getattr(mod, name)
+        raised.append(str(exc.value))
+    assert raised[1] == raised[0].replace("repro.", "repro_torch.")

@@ -72,7 +72,7 @@ def served():
         jcfg, jparams, {"tokens": jnp.asarray(t, jnp.int32)},
         last_token_only=True)) for t in tokens]
     return dict(tdep=tdep, jdep=jdep, port=port, ref=ref, direct=direct,
-                tokens=tokens, tcfg=tcfg, tbuild=tbuild)
+                tokens=tokens, tcfg=tcfg, tparams=tparams, tbuild=tbuild)
 
 
 def test_same_plan_as_reference(served):
@@ -137,10 +137,10 @@ def test_serve_entry_point_raises_without_cuda(monkeypatch):
         tserve.main(["--smoke", "--requests", "1"])
 
 
-def _spmd_executor(**spec):
-    """The SPMD tier (not ported) asked of a deployment of ``spec``."""
-    return tapi.deploy(tapi.DeploymentSpec(backend="spmd", **spec),
-                       stage_fns=[None, None]).executor()
+def _spmd_deployment(api, **spec):
+    """A deployment of ``spec`` on the SPMD backend, in package ``api``."""
+    return api.deploy(api.DeploymentSpec(backend="spmd", **spec),
+                      stage_fns=[None, None])
 
 
 _DECODE = dict(workload="decode", strategy="decode_placement", stages=2,
@@ -148,21 +148,78 @@ _DECODE = dict(workload="decode", strategy="decode_placement", stages=2,
 
 
 @pytest.mark.parametrize("call", [
-    lambda dep: dep.executor(backend="spmd"),
-    # every reference family runs; the SPMD tier of whisper's plan does not
-    lambda dep: _spmd_executor(model="lm:whisper-tiny:seq=16", stages=2),
-    # nor of an LM's decode plan
-    lambda dep: _spmd_executor(model=f"lm:{ARCH}", **_DECODE),
-    # a CNN plans and serves on the host tier; its SPMD tier is not ported
-    lambda dep: tapi.deploy(tapi.DeploymentSpec(model="cnn:ResNet50",
-                                                stages=2, backend="spmd"),
-                            stage_fns=[None, None]).executor(),
-    # nor of whisper's decode plan
-    lambda dep: _spmd_executor(model="lm:whisper-tiny", **_DECODE),
+    lambda api, dep: dep.executor(backend="spmd"),
+    lambda api, dep: _spmd_deployment(
+        api, model="lm:whisper-tiny:seq=16", stages=2).executor(),
+    # an LM's decode plan
+    lambda api, dep: _spmd_deployment(api, model=f"lm:{ARCH}",
+                                      **_DECODE).executor(),
+    lambda api, dep: _spmd_deployment(api, model="cnn:ResNet50",
+                                      stages=2).executor(),
+    # whisper's decode plan
+    lambda api, dep: _spmd_deployment(api, model="lm:whisper-tiny",
+                                      **_DECODE).executor(),
 ], ids=["spmd", "encdec_family", "decode", "cnn", "encdec_init_cache"])
 def test_unported_paths_raise(served, call):
-    with pytest.raises(NotImplementedError, match="repro_torch"):
-        call(served["tdep"])
+    """The SPMD backend of a deployment asked without the live model and
+    params: the port refuses it as the reference does, with its
+    message."""
+    raised = []
+    for api, dep in ((japi, served["jdep"]), (tapi, served["tdep"])):
+        with pytest.raises(ValueError,
+                           match="needs the live model and params") as exc:
+            call(api, dep)
+        raised.append(str(exc.value))
+    assert raised[0] == raised[1]
+
+
+def test_spmd_backend_runs_qwen3_where_the_reference_runs(served):
+    """With the model and its weights, the served deployment's SPMD
+    backend is the SPMD executor, its logits the direct forward's."""
+    from repro_torch.launch import pipeline_spmd as tspmd
+
+    dep, cfg = served["tdep"], served["tcfg"]
+    tokens = torch.from_numpy(served["tokens"][:, 0])
+    with dep.executor(backend="spmd", model=cfg, params=served["tparams"],
+                      mesh=tspmd.default_stage_mesh(3, "cpu"),
+                      n_microbatches=2) as ex:
+        assert isinstance(ex, tspmd.SpmdPipelineExecutor)
+        assert ex.kind == "lm"
+        got = ex(tokens)[:, -1:]
+    for row, expect in zip(got, served["direct"]):
+        assert float((row - torch.tensor(expect[0])).abs().max()) < 2e-2
+
+
+def test_spmd_backend_runs_resnet50_where_the_reference_runs():
+    from repro_torch.launch import pipeline_spmd as tspmd
+    from repro_torch.models import cnn as tcnn
+
+    m = tcnn.REAL_CNNS["ResNet50"]()
+    params = m.init(CPU, torch.Generator().manual_seed(0))
+    dep = _spmd_deployment(tapi, model="cnn:ResNet50", stages=2)
+    x = torch.randn((2,) + m.input_shape,
+                    generator=torch.Generator().manual_seed(1))
+    with dep.executor(model=m, params=params,
+                      mesh=tspmd.default_stage_mesh(2, "cpu"),
+                      n_microbatches=2) as ex:
+        assert isinstance(ex, tspmd.SpmdPipelineExecutor)
+        got = ex(x)
+    expect = m.apply(params, x)
+    assert got.shape == (2, 1000)
+    assert float((got - expect).abs().max()) <= 1e-4 * float(
+        expect.abs().max())
+
+
+def test_spmd_backend_refuses_whisper_as_the_reference():
+    """whisper-tiny with its model: both packages refuse the family."""
+    raised = []
+    for api, configs in ((japi, jconfigs), (tapi, tconfigs)):
+        cfg = configs.get("whisper-tiny").smoke_config()
+        dep = _spmd_deployment(api, model="lm:whisper-tiny:seq=16", stages=2)
+        with pytest.raises(ValueError, match="dense/moe") as exc:
+            dep.executor(model=cfg, params={})
+        raised.append(str(exc.value))
+    assert raised[0] == raised[1]
 
 
 @pytest.mark.parametrize("argv", [
@@ -177,9 +234,10 @@ def test_unported_paths_raise(served, call):
     ["--microbatch", "4", "--microbatch-wait-ms", "1.5", "--requests", "9"],
     ["--workload", "decode", "--max-context", "256",
      "--decode-concurrency", "8", "--hedge-after-ms", "3"],
+    ["--backend", "spmd", "--microbatch", "4"],
 ], ids=["defaults", "device_budget", "hedge", "stage_loss_retries",
         "deadline_shed", "trace_source", "calibrated_source",
-        "drift_threshold", "microbatch", "decode"])
+        "drift_threshold", "microbatch", "decode", "spmd_backend"])
 def test_spec_from_args_matches_reference(argv):
     """The port's flags give the reference's ``DeploymentSpec`` field by
     field (the reference parses inside ``main``, so its builder gets the
