@@ -12,8 +12,9 @@ With no arguments:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the model paths from the sources in this
-   checkout (flash_attention, flash_decode, rwkv6_scan, rglru_scan,
-   matmul_qi8; one nvcc per source, started together), prints ptxas's
+   checkout (flash_attention, flash_attention_bwd, flash_decode,
+   rwkv6_scan, rglru_scan, matmul_qi8; one nvcc per source, started
+   together), prints ptxas's
    registers and spills of each kernel (failing if flash_decode,
    rwkv6_scan or rglru_scan spills) and the tensor-core instructions in
    the SASS of bf16 flash_attention and flash_decode (HMMA) and
@@ -135,7 +136,30 @@ With no arguments:
    samples from pinned host copies), modeled vs achieved stage times,
    and items/s of 3 calls beside the host PipelineExecutor on the same
    plan and batch (one JSON line);
-12. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
+12. the training path: the flash-attention backward kernel against its
+   plain version (``flash_attention_bwd_ref``) at qwen3-1.7b's training
+   shape (8, 16/8, 1024, 128), whisper's encoder (16, 6/6, 1500, 64) and
+   cross-attention (S 448, T 1500), recurrentgemma's D 256 group 16 with
+   window 2048 at S = T = 4096, granite-moe's D 64, phi3-mini's D 96 and a
+   ragged S, bf16 and fp32, each gradient within its tolerances (largest
+   deviation and relative L2) and equal bit for bit from call to call,
+   the output and lse of the forward launch that writes lse against the
+   plain forward, the first three timed beside the plain
+   version, SDPA's backward (the yardstick) and the bound; one train step
+   of the smoke configs of qwen3-1.7b, granite-moe-1b-a400m and
+   whisper-tiny on the card against the CPU (fp32); full-width qwen3-1.7b
+   (bf16 weights from seed 0, remat) trained 1 + 5 steps of 8 x 1024
+   tokens from ``SyntheticLMDataset`` with every kernel's count set to 0
+   just before a step and read just after (flash_attention = 2 x 28,
+   flash_attention_bwd = 28): loss, grad_norm, lr, step time, tokens/s,
+   the share of the bf16 peak and the allocator's peak; one step's loss
+   and gradients against the same step with the plain attention in the
+   kernel's place, in bf16 beside the bf16 noise (the plain bf16 step
+   against the plain step on the weights made fp32) and in fp32;
+   and the reference's fault-tolerance demo (``examples/train_lm.py``'s
+   config, 200 steps, a failure at step 77) through the port's driver
+   (one JSON line);
+13. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
    synthetic_cnn(64) at their published input sizes, one forward each on
    the card against the CPU; ResNet50 planned by the analytic Edge TPU
    model (balanced, 4 stages) and served through ``cnn_stage_fns`` (64
@@ -146,7 +170,7 @@ With no arguments:
    direct forward;
    then the int8 API on ResNet50's head (``quantized_dense``, 1
    matmul_qi8 launch between a reset and a read of the counts);
-13. the fault-tolerance tier on ResNet50 (the weights of 12): the placement
+14. the fault-tolerance tier on ResNet50 (the weights of 13): the placement
    DP's 4-stage cut with its two slowest modeled stages on a second
    device each (6 devices), served through ``cnn_stage_fns`` with
    stage-loss retries, hedging and a ``HealthMonitor`` while a
@@ -154,13 +178,13 @@ With no arguments:
    the last replica of the second; the monitor replans the survivors
    through ``ElasticPlanner`` and hot-swaps.  64 requests 15 ms apart: 0
    lost, 0 misordered, every output equal to the direct forward;
-14. full-width qwen3-1.7b prefill through ``serve.run`` with
+15. full-width qwen3-1.7b prefill through ``serve.run`` with
    ``--device-budget 6 --stage-loss-retries 1``, hedging after three
    bottleneck-stage times of 5 and a deadline no request reaches: the
    first output within 2e-2 of the direct forward, flash_attention's
    launches equal to layers x forwards plus the layers of every hedged
    stage execution the executor reports;
-15. self-healing on ResNet50: the analytic 4-stage plan served under
+16. self-healing on ResNet50: the analytic 4-stage plan served under
    ``dep.self_heal(canaries)``, a ``tick()`` after each of 12 batches of
    8 requests (deterministic in windows): each window's req/s, per-item
    stage busy, drift and state, the controller's commits, rollbacks and
@@ -168,14 +192,14 @@ With no arguments:
    ``vs trace`` form); then the plan the live trace gives, its canary
    cold and warm and the stream served over it and the incumbent in
    turns; every output equal to the direct forward;
-16. a fleet of ResNet50 (share 3) and MobileNetV2 (share 1) over 6
+17. a fleet of ResNet50 (share 3) and MobileNetV2 (share 1) over 6
    devices, each member served through ``cnn_stage_fns``: 4 windows of
    share-proportional traffic, then 4 with ResNet50's load tripled, the
    autoscaler ticked after each window: the pool split before and after,
    its events, attainment and the audit (0 lost, 0 misordered, every
-   output equal to its member's direct forward); the phases 13 to 16
+   output equal to its member's direct forward); the phases 14 to 17
    launch no hand-written kernel but the prefill's flash_attention;
-17. prints one JSON line of CNN results, one of the fault-tolerance,
+18. prints one JSON line of CNN results, one of the fault-tolerance,
    self-healing and fleet results, one of kernel results, then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
@@ -222,13 +246,17 @@ from repro_torch.kernels import matmul_qi8 as mq  # noqa: E402
 from repro_torch.kernels import quant  # noqa: E402
 from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rw  # noqa: E402
-from repro_torch.kernels.ref import (flash_attention_ref,  # noqa: E402
-                                     flash_decode_ref, matmul_qi8_ref,
-                                     rglru_scan_ref, rwkv6_scan_ref)
+from repro_torch.kernels.ref import (  # noqa: E402
+    flash_attention_bwd_ref, flash_attention_ref, flash_decode_ref,
+    matmul_qi8_ref, rglru_scan_ref, rwkv6_scan_ref)
 from repro_torch.core.segmentation import segment_ranges  # noqa: E402
 from repro_torch.checkpoint.store import tree_flatten  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.launch import (pipeline_spmd, profile_serve,  # noqa: E402
                                 serve)
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch import train as train_driver  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.launch.cuda_reporter import (  # noqa: E402
     CudaSegmentReporter)
 from repro_torch.models import (api, cnn, lm, lm_graph,  # noqa: E402
@@ -238,8 +266,8 @@ from repro_torch.runtime import (ChaosEvent, ChaosMonkey,  # noqa: E402
                                  ElasticPlanner, FaultPolicy,
                                  HealthMonitor)
 
-KERNELS = ("flash_attention", "flash_decode", "rwkv6_scan", "rglru_scan",
-           "matmul_qi8")
+KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
+           "rwkv6_scan", "rglru_scan", "matmul_qi8")
 # the kernels --kernel-times builds and times (the latest redesigns)
 TIMED = ("flash_decode", "rwkv6_scan", "rglru_scan")
 # each kernel's design, as its source note sets it out
@@ -250,6 +278,16 @@ DESIGNS = {
                        "x 16 q rows, heavy and light causal tiles paired "
                        "on each SM; fp32: CUDA cores, 64 x 64 tiles, 256 "
                        "threads",
+    "flash_attention_bwd": "three launches, no atomics (deterministic): "
+                           "D = rowsum(P * dP) over the recomputed fp32 P; "
+                           "dK/dV one block per (64-key tile, kv head, "
+                           "batch) over its group's q heads and visible "
+                           "query tiles; dQ one block per (64-row q tile, "
+                           "q head, batch); bf16 up to D 128: mma.sync "
+                           "m16n8k16, 4 warps x 16 rows, cp.async 2-stage "
+                           "rings, P and dS rounded to bf16 in registers as "
+                           "A operands; fp32 and D 256: CUDA cores, 256 "
+                           "threads, tiles staged as fp32 in shared memory",
     "flash_decode": "bf16: mma.sync m16n8k16 (fp32 accumulate), one block "
                     "of 4 warps per (split, kv head, row) serving up to 16 "
                     "q heads, a cp.async ring per warp of 16-key tiles, P "
@@ -387,6 +425,57 @@ SPMD_M = 4
 SPMD_FILL_REPS = 5
 SPMD_CALLS = 3
 SPMD_TOL = 1e-4         # relative to max |logit| or max |y| (fp32)
+# the training path: the backward kernel's shapes (name, B, Hq, Hkv, S, T,
+# D, causal, window), in bf16 and fp32, the first three also timed;
+# its tolerances per gradient: the largest deviation, of max(1, max
+# |plain|) (fp32: summation order; bf16: one rounding of each gradient),
+# and the relative L2 error ||g - e|| / ||e||, which a wrong bulk of rows
+# moves even where causal attention's first rows set the scale (bf16: the
+# kernel also rounds P and dS to bf16 for the tensor cores); the forward's
+# output of the launch that writes lse, within the forward's tolerance
+BWD_SHAPES = (
+    ("qwen3-1.7b (8, 16/8, 1024, 128) causal", 8, 16, 8, 1024, 1024, 128,
+     True, None),
+    ("whisper encoder (16, 6/6, 1500, 64)", 16, 6, 6, 1500, 1500, 64, False,
+     None),
+    ("recurrentgemma (1, 16/1, 4096, 256) window 2048", 1, 16, 1, 4096,
+     4096, 256, True, 2048),
+    ("granite-moe (8, 16/8, 1024, 64) causal", 8, 16, 8, 1024, 1024, 64,
+     True, None),
+    ("phi3-mini (2, 32/32, 1024, 96) causal", 2, 32, 32, 1024, 1024, 96,
+     True, None),
+    ("whisper cross (16, 6/6, S 448, T 1500, 64)", 16, 6, 6, 448, 1500, 64,
+     False, None),
+    ("ragged (2, 16/8, 1000, 128) causal", 2, 16, 8, 1000, 1000, 128, True,
+     None),
+)
+BWD_TIMED = 3
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BWD_L2_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+FWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the smoke configs' train step card vs CPU (fp32, TF32 off): batch, tokens,
+# loss chunk, and the tolerance of loss, grad_norm and every updated
+# parameter (relative to max(1, max |CPU|))
+TRAIN_SMOKE = ("qwen3-1.7b", "granite-moe-1b-a400m", "whisper-tiny")
+TRAIN_SMOKE_SHAPE = (2, 64, 32)
+TRAIN_SMOKE_TOL = 1e-4
+# full-width qwen3-1.7b: batch x SEQ tokens from SyntheticLMDataset, the
+# loss in chunks of 512, 1 warm-up + 5 timed steps of the train step; the
+# driver's AdamW (lr 1e-3, 10 warm-up steps); the step against the same
+# step with the plain attention: loss within 1e-3 relative, each gradient
+# leaf's relative L2 error within 2e-2 in bf16 and, on the weights made
+# fp32, within 1e-4
+TRAIN_BATCH = 8
+TRAIN_CHUNK = 512
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-3
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the reference's fault-tolerance demo (examples/train_lm.py): qwen3's smoke
+# config at 2 layers, d_model 128, d_ff 256, fp32; steps, batch, seq, lr,
+# warm-up, checkpoint interval, the injected failure
+FT_DEMO = {"steps": 200, "batch": 8, "seq": 64, "lr": 3e-3, "warmup": 20,
+           "ckpt_every": 50, "fail_at": 77}
 CARD = "cuda"
 D96_TAG = "ILi96E"      # a mangled template argument of 96 (the head dim)
 
@@ -2774,9 +2863,6 @@ def run_spmd_lm(record, smi):
             parts.append(lm.unembed(cfg, rest32, x))
         return torch.cat(parts)
 
-    def plain_attention(q, k, v, causal=True, window=None):
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
-
     with torch.no_grad():
         expect = composition()
         with unittest.mock.patch.object(lm, "flash_attention",
@@ -2964,6 +3050,436 @@ def run_spmd_phase(record, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+def attention_bwd_bound(q, k, causal, window=None):
+    """Least time (ms) for one flash-attention backward on these inputs:
+    q, k, v, dO and lse read and dq, dk, dv written once over HBM
+    bandwidth, against the 5 products (10 D flops per unmasked (query,
+    key) pair: 2.5 times the forward's 2) over the peak rate of the input
+    type."""
+    flops = 2.5 * attention_flops(q, k, causal, window)
+    b, hq, s, _ = q.shape
+    nbytes = ((3 * q.numel() + 4 * k.numel()) * q.element_size()
+              + 4 * b * hq * s)
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def sdpa_bwd_ms(q, k, v, do, causal):
+    """The library yardstick of the backward (the port never calls it):
+    ``torch.autograd.grad`` through one SDPA call less that call's forward
+    (ms), and the backend.  The backends are tried in the order flash,
+    memory-efficient, cuDNN, math, each with ``enable_gqa`` and, where it
+    refuses that, with K/V expanded to the q heads.  SDPA's causal mask
+    is top-left aligned, so a causal S < T shape is not timed."""
+    if causal and q.shape[2] != k.shape[2]:
+        return None, None
+    group = q.shape[1] // k.shape[1]
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    expanded = [leaves[0]] + [x.detach().repeat_interleave(group, 1)
+                              .requires_grad_() for x in (k, v)]
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        for args, gqa in ((leaves, True), (expanded, False)):
+            def fwd(args=args, gqa=gqa, backend=backend):
+                with sdpa_kernel(backend):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        *args, is_causal=causal, enable_gqa=gqa)
+
+            def fwd_bwd(args=args, fwd=fwd):
+                torch.autograd.grad(fwd(), args, do)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    fwd_bwd()
+                    torch.cuda.synchronize()
+            except RuntimeError:            # the backend refuses the inputs
+                continue
+            total = cuda_ms([fwd_bwd], reps=10)
+            forward = cuda_ms([fwd], reps=10)
+            name = backend.name + ("" if gqa else ", K/V expanded")
+            return total - forward, name
+    raise SystemExit("no SDPA backend differentiates these inputs")
+
+
+def check_flash_attention_bwd():
+    """The backward kernel against its plain version at BWD_SHAPES in bf16
+    and fp32 (dq, dk and dv each within BWD_TOL of its scale and within
+    BWD_L2_TOL relative L2), on q/k/v as (B, S, H, D) views (the model's
+    layout); two calls equal bit for bit; the output and lse of the
+    forward launch that writes lse against the plain forward; the first
+    BWD_TIMED shapes timed beside the plain version, SDPA's backward and
+    the bound.  Returns the kernel record (the first shape's bf16 times at
+    the top) and the largest relative L2 error of each dtype."""
+    record, worst_l2 = None, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, b, hq, hkv, s, t, d, causal, window) in enumerate(
+                BWD_SHAPES):
+            q, k, v = attention_inputs(b, hq, hkv, s, t, d, dtype,
+                                       model_layout=True)
+            g = torch.Generator("cuda").manual_seed(1)
+            do = torch.randn(q.shape, generator=g, device="cuda", dtype=dtype)
+            o, lse = fa._forward(q, k, v, causal, window, with_lse=True)
+            o_serve = fa._forward(q, k, v, causal, window, with_lse=False)
+            got = fa.flash_attention_bwd(q, k, v, lse, do, causal, window)
+            again = fa.flash_attention_bwd(q, k, v, lse, do, causal, window)
+            expect = flash_attention_bwd_ref(q, k, v, lse, do, causal,
+                                             window)
+            o_ref, lse_ref = flash_attention_ref(q, k, v, causal, window,
+                                                 return_lse=True)
+            torch.cuda.synchronize()
+            lse_err = (lse - lse_ref).abs().max().item()
+            o_err = (o.float() - o_ref.float()).abs().max().item()
+            o_same = torch.equal(o, o_serve)
+            del o, o_serve, o_ref, lse_ref
+            errs, l2 = {}, {}
+            for key, a, e in zip(("dq", "dk", "dv"), got, expect):
+                a, e = a.float(), e.float()
+                scale = max(1.0, e.abs().max().item())
+                errs[key] = (a - e).abs().max().item() / scale
+                l2[key] = (torch.linalg.vector_norm(a - e)
+                           / torch.linalg.vector_norm(e)).item()
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            worst_l2[str(dtype)] = max(worst_l2.get(str(dtype), 0.0),
+                                       *l2.values())
+            tol, l2_tol = BWD_TOL[dtype], BWD_L2_TOL[dtype]
+            print(f"flash_attention_bwd {dtype} {name}: max err of the "
+                  f"scale dq {errs['dq']:.3e} dk {errs['dk']:.3e} dv "
+                  f"{errs['dv']:.3e} (tol {tol:g}), rel L2 dq "
+                  f"{l2['dq']:.3e} dk {l2['dk']:.3e} dv {l2['dv']:.3e} (tol "
+                  f"{l2_tol:g}), lse {lse_err:.3e}, forward output with lse "
+                  f"{o_err:.3e} (tol {FWD_TOL[dtype]:g}, equal to the "
+                  f"serving launch's {o_same}), repeat equal {same}")
+            if (max(errs.values()) > tol or max(l2.values()) > l2_tol
+                    or lse_err > 1e-4 or o_err > FWD_TOL[dtype] or not same):
+                raise SystemExit(f"flash_attention_bwd disagrees with its "
+                                 f"plain version on {name} ({dtype})")
+            del got, again, expect
+            if i >= BWD_TIMED:
+                continue
+            ms = cuda_ms([lambda: fa.flash_attention_bwd(
+                q, k, v, lse, do, causal, window)], reps=10)
+            plain_ms = cuda_ms([lambda: flash_attention_bwd_ref(
+                q, k, v, lse, do, causal, window)], reps=5)
+            library_ms, backend = sdpa_bwd_ms(q, k, v, do, causal)
+            bound_ms, bound_by, flops = attention_bwd_bound(q, k, causal,
+                                                            window)
+            times = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "library_backend": backend,
+                     "tflops": flops / (ms * 1e-3) / 1e12,
+                     "max_abs_err": max(errs.values())}
+            lib = ("null" if library_ms is None
+                   else f"{library_ms:.4f} ms ({backend})")
+            print(f"flash_attention_bwd timing {dtype} {name}: kernel "
+                  f"{ms:.4f} ms ({times['tflops']:.1f} TFLOP/s), plain "
+                  f"{plain_ms:.4f} ms, SDPA backward {lib}, bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
+            shape = {"b": b, "hq": hq, "hkv": hkv, "s": s, "t": t, "d": d,
+                     "dtype": str(dtype), "causal": causal, "window": window}
+            if record is None:
+                record = {"name": "flash_attention_bwd", "route": "cuda",
+                          "source": "src/repro_torch/kernels/csrc/"
+                                    "flash_attention_bwd.cu",
+                          "replaces": "src/repro/kernels/"
+                                      "flash_attention.py:74",
+                          **times, "shape": shape}
+            else:
+                tag = name.split(" (")[0].replace(" ", "_")
+                key = tag + ("_fp32" if dtype == torch.float32 else "")
+                record[key] = {**times, "shape": shape}
+            del q, k, v, lse, do
+            torch.cuda.empty_cache()
+    return record, worst_l2
+
+
+def tree_rel_errs(got, expect):
+    """||g - e|| / ||e|| (fp32) of each leaf, in the trees' leaf order."""
+    out = []
+    for a, e in zip(tree_flatten(got)[0], tree_flatten(expect)[0]):
+        a, e = a.float(), e.float()
+        norm = torch.linalg.vector_norm(e).item()
+        diff = torch.linalg.vector_norm(a - e).item()
+        out.append(diff / norm if norm > 0 else diff)
+    return out
+
+
+def check_smoke_train_steps():
+    """One train step of each TRAIN_SMOKE smoke config (fp32) on the card
+    against the same step on the CPU from the same weights, AdamW state and
+    batch: loss, grad_norm and every updated parameter within
+    TRAIN_SMOKE_TOL of max(1, max |CPU|); every attention call once through
+    each flash kernel."""
+    b, seq, chunk = TRAIN_SMOKE_SHAPE
+    cpu = torch.device("cpu")
+    for arch in TRAIN_SMOKE:
+        cfg = configs.get(arch).smoke_config()
+        params, state = train_steps.init_train_state(
+            cfg, cpu, torch.Generator(cpu).manual_seed(0))
+        batch = concrete_batch(cfg, seq, b, rng=np.random.default_rng(0))
+        step = train_steps.make_train_step(
+            cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4), chunk)
+        expect = step(params, state, batch)
+        _build.reset_launches()
+        got = step(to_card(params), to_card(state), to_card(batch))
+        torch.cuda.synchronize()
+        n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers
+                  if cfg.family == "encdec" else cfg.n_layers)
+        check_counts(f"{arch} smoke train step", read_counts(),
+                     {"flash_attention": n_attn,
+                      "flash_attention_bwd": n_attn})
+        errs = {key: abs(got[2][key].item() - expect[2][key].item())
+                / max(1.0, abs(expect[2][key].item()))
+                for key in ("loss", "grad_norm", "lr")}
+        worst = 0.0
+        for a, e in zip(tree_flatten(got[0])[0], tree_flatten(expect[0])[0]):
+            worst = max(worst, (a.cpu() - e).abs().max().item()
+                        / max(1.0, e.abs().max().item()))
+        print(f"{arch} smoke train step card vs CPU: loss "
+              f"{got[2]['loss'].item():.6f} (err {errs['loss']:.2e}), "
+              f"grad_norm err {errs['grad_norm']:.2e}, lr err "
+              f"{errs['lr']:.2e}, worst updated parameter {worst:.2e} (tol "
+              f"{TRAIN_SMOKE_TOL:g})")
+        if max(worst, *errs.values()) > TRAIN_SMOKE_TOL:
+            raise SystemExit(f"{arch}: the card's train step disagrees with "
+                             f"the CPU's")
+
+
+def train_step_flops(cfg, batch, seq):
+    """FLOPs of one train step as the code runs it, and the formula: the
+    blocks' and the unembedding's matmuls 4 times (forward, the remat or
+    loss-chunk recompute, and a backward of twice the forward), attention's
+    two forward products 2 times (forward, remat) plus the backward's 5."""
+    tokens = batch * seq
+    d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    block_w = d * qd + 2 * d * kvd + qd * d + 3 * d * f
+    unembed_w = d * cfg.vocab
+    attn_fwd = 4 * cfg.hd * cfg.n_heads * batch * seq * (seq + 1) // 2
+    matmul = 4 * 2 * tokens * (cfg.n_layers * block_w + unembed_w)
+    attention = cfg.n_layers * attn_fwd * (2 + 2.5)
+    formula = (f"4 x 2 x {tokens} tokens x ({cfg.n_layers} x {block_w} "
+               f"block weights + {unembed_w} unembedding) + {cfg.n_layers} "
+               f"layers x 4.5 x {attn_fwd} causal attention flops")
+    return matmul + attention, formula
+
+
+def plain_attention(q, k, v, causal=True, window=None):
+    return flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def grads_of(cfg, params, batch, plain=False):
+    """``loss_and_grads`` of one step; ``plain``: with
+    ``flash_attention_ref`` in the kernel's place."""
+    if not plain:
+        return train_steps.loss_and_grads(cfg, params, batch, TRAIN_CHUNK)
+    with unittest.mock.patch.object(lm, "flash_attention", plain_attention):
+        return train_steps.loss_and_grads(cfg, params, batch, TRAIN_CHUNK)
+
+
+def print_leaf_errs(label, names, errs):
+    print(f"{label}, gradient rel L2 per leaf:")
+    for i in range(0, len(errs), 6):
+        print("  " + ", ".join(f"{n} {e:.2e}" for n, e in
+                               zip(names[i:i + 6], errs[i:i + 6])))
+    worst = max(errs)
+    print(f"{label}: largest {worst:.3e} ({names[errs.index(worst)]})")
+    return {"worst": worst, "leaf": names[errs.index(worst)],
+            "median": float(np.median(errs))}
+
+
+def check_against_plain_attention(cfg, params, batch):
+    """One step's loss and gradients (bf16, the trained weights) against the
+    same step with the plain attention in the kernel's place: the loss
+    within TRAIN_LOSS_TOL relative, each leaf within TRAIN_GRAD_TOL[bf16];
+    beside it, both steps' distance to the plain step on the weights made
+    fp32 (the bf16 noise, printed); then the kernel's own fp32 step (all
+    layers, its fp32 routes) against that plain fp32 step, the loss within
+    TRAIN_LOSS_TOL and each leaf within TRAIN_GRAD_TOL[fp32].  Each leaf's
+    relative L2 error is printed."""
+    names = [".".join(map(str, path)) for path in leaf_paths(params)]
+    loss, grads = grads_of(cfg, params, batch)
+    loss_p, grads_p = grads_of(cfg, params, batch, plain=True)
+    loss_err = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"bf16 step: loss {loss.item():.6f} vs plain attention "
+          f"{loss_p.item():.6f} (rel {loss_err:.2e}, tol "
+          f"{TRAIN_LOSS_TOL:g})")
+    out = {"loss_rel_err": loss_err}
+    out["bf16_vs_plain"] = print_leaf_errs(
+        "bf16 step vs the plain-attention step", names,
+        tree_rel_errs(grads, grads_p))
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = to_fp32(params)
+    loss_f, grads_f = grads_of(cfg32, params32, batch, plain=True)
+    kf = tree_rel_errs(grads, grads_f)
+    pf = tree_rel_errs(grads_p, grads_f)
+    del grads, grads_p
+    out["bf16_vs_fp32"] = print_leaf_errs("bf16 step vs the fp32 plain step",
+                                          names, kf)
+    out["plain_bf16_vs_fp32"] = print_leaf_errs(
+        "plain bf16 step vs the fp32 plain step (the bf16 noise)", names, pf)
+    ratio = max(a / b for a, b in zip(kf, pf))
+    out["worst_noise_ratio"] = ratio
+    print(f"bf16: the kernel's distance to the fp32 step over the plain "
+          f"step's, worst leaf {ratio:.3f}")
+    loss32, grads32 = grads_of(cfg32, params32, batch)
+    out["fp32_loss_rel_err"] = abs(loss32.item() - loss_f.item()) / abs(
+        loss_f.item())
+    out["fp32_vs_plain"] = print_leaf_errs(
+        f"fp32 step ({cfg.n_layers} layers) vs the plain-attention step",
+        names, tree_rel_errs(grads32, grads_f))
+    print(f"bounds: loss {TRAIN_LOSS_TOL:g}, gradients bf16 "
+          f"{TRAIN_GRAD_TOL[torch.bfloat16]:g}, fp32 "
+          f"{TRAIN_GRAD_TOL[torch.float32]:g}")
+    if (loss_err > TRAIN_LOSS_TOL
+            or out["bf16_vs_plain"]["worst"] > TRAIN_GRAD_TOL[torch.bfloat16]
+            or out["fp32_loss_rel_err"] > TRAIN_LOSS_TOL
+            or out["fp32_vs_plain"]["worst"] > TRAIN_GRAD_TOL[torch.float32]):
+        raise SystemExit("the kernel's train step disagrees with the "
+                         "plain-attention step")
+    return out
+
+
+def leaf_paths(tree, prefix=()):
+    """The key path of each leaf, in ``tree_flatten``'s order."""
+    if isinstance(tree, dict):
+        return [p for key in sorted(tree)
+                for p in leaf_paths(tree[key], prefix + (key,))]
+    if isinstance(tree, list):
+        return [p for i, sub in enumerate(tree)
+                for p in leaf_paths(sub, prefix + (i,))]
+    return [prefix]
+
+
+def run_training_path(smi):
+    """qwen3-1.7b at full width (bf16 weights from seed 0, remat): 1
+    warm-up + TRAIN_STEPS timed train steps of TRAIN_BATCH x SEQ tokens
+    from SyntheticLMDataset, each with every kernel's count set to 0 just
+    before and read just after (flash_attention = 2 x layers: forward and
+    remat; flash_attention_bwd = layers); then one step's loss and
+    gradients against the plain-attention step
+    (:func:`check_against_plain_attention`).  Returns the phase's
+    record."""
+    cfg = configs.get(ARCH).config()
+    n_params = api.param_count(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, state = train_steps.init_train_state(
+        cfg, CARD, torch.Generator(CARD).manual_seed(0))
+    data = SyntheticLMDataset(DataConfig(global_batch=TRAIN_BATCH,
+                                         seq_len=SEQ, vocab=cfg.vocab))
+    step = train_steps.make_train_step(
+        cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
+                         total_steps=TRAIN_STEPS + 1), TRAIN_CHUNK)
+    flops, formula = train_step_flops(cfg, TRAIN_BATCH, SEQ)
+    print(f"training {cfg.name} at full width: {n_params} parameters, "
+          f"{TRAIN_BATCH} x {SEQ} tokens a step, loss chunk {TRAIN_CHUNK}, "
+          f"remat={cfg.remat}; {flops / 1e12:.2f} TFLOP a step = {formula}")
+    rows, launches = [], {"flash_attention": 0, "flash_attention_bwd": 0}
+    step_launches = None
+    for i in range(TRAIN_STEPS + 1):
+        batch = train_driver.step_batch(cfg, data, i, TRAIN_BATCH, SEQ, CARD)
+        if i == 0:
+            first = batch
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        check_counts(f"train step {i}", counts,
+                     {"flash_attention": 2 * cfg.n_layers,
+                      "flash_attention_bwd": cfg.n_layers})
+        for key in launches:
+            launches[key] += counts[key]
+        if i == 1:                  # the first timed step's counts
+            step_launches = {key: counts[key] for key in launches}
+        row = {"step": i, "loss": m["loss"].item(),
+               "grad_norm": m["grad_norm"].item(), "lr": m["lr"].item(),
+               "s": dt}
+        print(f"train step {i}{' (warm-up)' if i == 0 else ''}: loss "
+              f"{row['loss']:.4f} grad_norm {row['grad_norm']:.4f} lr "
+              f"{row['lr']:.3e} {dt:.3f} s")
+        if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
+            raise SystemExit(f"train step {i}: a loss or grad_norm that is "
+                             f"not finite")
+        rows.append(row)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median([r["s"] for r in rows[1:]]))
+    out = {"arch": ARCH, "batch": TRAIN_BATCH, "seq": SEQ,
+           "loss_chunk": TRAIN_CHUNK, "params": n_params, "steps": rows,
+           "step_s_median": step_s, "tokens_per_s": TRAIN_BATCH * SEQ / step_s,
+           "flops_per_step": flops, "flops_formula": formula,
+           "peak_share": flops / (step_s * PEAK_FLOPS[torch.bfloat16]),
+           "peak_bytes": peak, "launches": launches,
+           "launches_per_step": step_launches, "card": smi}
+    print(f"full-width training: median step {step_s:.3f} s, "
+          f"{out['tokens_per_s']:.0f} tokens/s, {flops / 1e12:.2f} TFLOP / "
+          f"({step_s:.3f} s x 989 TFLOP/s) = {out['peak_share']:.2%} of the "
+          f"bf16 peak; allocator peak {peak / 1e9:.2f} GB")
+    del state
+    torch.cuda.empty_cache()
+    out["vs_plain"] = check_against_plain_attention(cfg, params, first)
+    del params, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_ft_demo():
+    """The reference's fault-tolerance demo (``examples/train_lm.py``)
+    through the port's driver on the card: FT_DEMO's steps of qwen3's smoke
+    config at 2 layers, d_model 128, d_ff 256 (fp32) under the
+    TrainSupervisor, checkpoints in a temporary directory, a failure
+    injected once; fails unless it restarted once and the mean of the last
+    10 losses is below that of the first 10."""
+    import shutil
+    import tempfile
+    cfg = dataclasses.replace(configs.get(ARCH).smoke_config(), n_layers=2,
+                              d_model=128, d_ff=256)
+    demo = FT_DEMO
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_ft_demo_")
+    try:
+        _, report, seconds = train_driver.train(
+            cfg, demo["steps"], demo["batch"], demo["seq"],
+            AdamWConfig(lr=demo["lr"], warmup_steps=demo["warmup"],
+                        total_steps=demo["steps"]),
+            ckpt, demo["ckpt_every"], [demo["fail_at"]], CARD)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = [m["loss"] for _, m in report.history]
+    head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    out = {"steps": demo["steps"], "restarts": report.restarts,
+           "checkpoints": report.checkpoints, "steps_run": len(losses),
+           "loss_first10": head, "loss_last10": tail, "seconds": seconds}
+    print(f"fault-tolerance demo: {len(losses)} steps run in {seconds:.1f} s, "
+          f"restarts={report.restarts} checkpoints={report.checkpoints}, "
+          f"loss {head:.3f} -> {tail:.3f}")
+    if report.restarts != 1 or not tail < head:
+        raise SystemExit("fault-tolerance demo: expected one restart and a "
+                         "falling loss")
+    return out
+
+
+def run_training_phase(smi):
+    """The training slice: the backward kernel, the smoke configs' train
+    step card vs CPU, full-width qwen3-1.7b, the fault-tolerance demo."""
+    t0 = time.perf_counter()
+    record, worst_l2 = check_flash_attention_bwd()
+    check_smoke_train_steps()
+    out = run_training_path(smi)
+    out["bwd_worst_rel_l2"] = worst_l2
+    out["ft_demo"] = run_ft_demo()
+    record["launches"] = out["launches"]["flash_attention_bwd"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"training phase: {out['seconds']:.1f} s")
+    return record, out
+
+
 def device_line():
     return json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3036,12 +3552,14 @@ def main() -> int:
                              f"found): {counts}")
         tensor_ops[name] = {"op": op, "instantiations": len(counts),
                             "count": sum(counts.values())}
-        if op == "HMMA":                # the head dim 96 instantiation
+        if op == "HMMA":                # the head dim 96 instantiations
             d96 = [n for fn, n in counts.items() if D96_TAG in fn]
-            print(f"{name} SASS: {op} in the D 96 bf16 instantiation {d96}")
-            if len(d96) != 1 or d96[0] == 0:
-                raise SystemExit(f"{name}: no D 96 bf16 kernel with {op}: "
-                                 f"{d96}")
+            # flash_attention's with and without the lse epilogue
+            want = 2 if name == "flash_attention" else 1
+            print(f"{name} SASS: {op} in the D 96 bf16 instantiations {d96}")
+            if len(d96) != want or min(d96) == 0:
+                raise SystemExit(f"{name}: not {want} D 96 bf16 kernels "
+                                 f"with {op}: {d96}")
             tensor_ops[name]["d96"] = d96[0]
 
     t0 = time.perf_counter()
@@ -3133,6 +3651,10 @@ def main() -> int:
     print(f"segment memory reporter phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"reporter": reporter}))
     print(json.dumps({"spmd": run_spmd_phase(record, smi)}))
+    bwd_record, training = run_training_phase(smi)
+    record["launches_train_step"] = (
+        training["launches_per_step"]["flash_attention"])
+    print(json.dumps({"training": training}))
 
     zoo_worst = check_cnn_zoo()
     cnn_res, ctx = run_cnn_path()
@@ -3158,7 +3680,8 @@ def main() -> int:
     ft["fleet"] = run_fleet_phase(members, dev)
     print(json.dumps({"ft": ft}, default=str))
 
-    kernels = [record, decode_record, rwkv_record, rglru_record, qi8_record]
+    kernels = [record, bwd_record, decode_record, rwkv_record, rglru_record,
+               qi8_record]
     for rec in kernels:
         rec["design"] = DESIGNS[rec["name"]]
         if rec["name"] in tensor_ops:

@@ -1,9 +1,11 @@
 // Shared-memory staging shared by the kernels of this directory
-// (flash_attention's and flash_decode's bf16 routes, matmul_qi8,
-// rwkv6_scan's chunks): 16-byte cp.async copies with zero fill, their
-// commit and wait, and ldmatrix.  _build.py hashes this header into each
+// (flash_attention's forward and backward and flash_decode's bf16 routes,
+// matmul_qi8, rwkv6_scan's chunks): 16-byte cp.async copies with zero
+// fill, their commit and wait, ldmatrix, and the bf16 row-tile copy of the
+// flash-attention kernels.  _build.py hashes this header into each
 // library's name, so an edit here rebuilds every kernel.
 #pragma once
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -46,6 +48,46 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+
+// rows [r0, r0 + ROWS) of a (rows, D) bf16 matrix with row stride `ld`
+// (elements) -> shared (ROWS, D + 8) by 16-byte cp.async; rows at or past
+// `n` are zero-filled.  Where a row's D / 8 chunks divide THREADS, thread t
+// copies chunk t % (D / 8) of every (THREADS / (D / 8))-th row from row
+// t / (D / 8) on, so consecutive threads read consecutive bytes and its
+// source address only steps; else (D 96: 12 chunks) thread t copies chunks
+// t, t + THREADS, ... of the tile, in row-major order.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void cp_rows(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* src,
+                                        long long ld, int r0, int n) {
+  constexpr int kChunks = D / 8;      // 16-byte chunks a row
+  constexpr int kLd = D + 8;
+  if constexpr (THREADS % kChunks == 0) {
+    constexpr int kStep = THREADS / kChunks;
+    const int c = threadIdx.x % kChunks;
+    const int r = threadIdx.x / kChunks;
+    const __nv_bfloat16* from = src + (r0 + r) * ld + c * 8;
+    __nv_bfloat16* to = dst + r * kLd + c * 8;
+    const int left = n - r0 - r;      // rows of this thread still inside
+#pragma unroll
+    for (int j = 0; j < (ROWS + kStep - 1) / kStep; ++j) {
+      if (ROWS % kStep != 0 && r + j * kStep >= ROWS) break;
+      const bool ok = j * kStep < left;
+      cp_async16(to + j * kStep * kLd, ok ? from : src, ok ? 16 : 0);
+      from += kStep * ld;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < (ROWS * kChunks + THREADS - 1) / THREADS; ++j) {
+      const int i = threadIdx.x + j * THREADS;
+      if ((ROWS * kChunks) % THREADS != 0 && i >= ROWS * kChunks) break;
+      const int r = i / kChunks, c = i % kChunks;
+      const bool ok = r0 + r < n;
+      cp_async16(dst + r * kLd + c * 8,
+                 ok ? src + (r0 + r) * ld + c * 8 : src, ok ? 16 : 0);
+    }
+  }
 }
 
 }  // namespace

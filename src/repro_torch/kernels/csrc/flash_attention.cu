@@ -21,7 +21,10 @@
 //   tile holding one of its keys (every row sees its own position)
 //   rescales both by exp(-1e30 - m) = 0 exactly.
 // Unlike the Pallas kernel it masks ragged S and T itself (no S % 128 or
-// T % 128 requirement).
+// T % 128 requirement).  Asked for it (the training path), it also writes
+// each row's log-sum-exp of its scaled, masked scores, the input of the
+// backward (flash_attention_bwd.cu), from separate instantiations: the
+// serving kernels are compiled as before.
 //
 // Bound at the prefill shape (B=1, Hq=16, Hkv=8, S=T=1024, D=128, bf16,
 // causal): 524,800 unmasked (query, key) pairs per head, 4*D flops each,
@@ -87,6 +90,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                         // (B, Hq, S) fp32, or null
   int s, t, group, q_offset, causal, window;  // window <= 0: none
   int hq, batch, sms;                 // q heads, batch, the card's SMs
   float scale;
@@ -118,7 +122,7 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_f32_kernel(Args a) {
   static_assert(kBQ == kBK, "load_tile serves both tiles");
@@ -241,13 +245,18 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kCD; ++c)
       og[row * a.os.s + tx + c * kTX] = acc[i][c] * inv;
+    if constexpr (LSE) {
+      if (tx == 0)
+        a.lse[(static_cast<long long>(b) * a.hq + h) * a.s + row] =
+            m[i] + logf(l[i]);
+    }
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch_f32(const Args& a, int b, int hq, cudaStream_t stream) {
   const int smem = (kBQ * (D + 1) + kBK * (D + 1) + kBQ * kPP) * sizeof(float);
-  auto kernel = flash_attention_f32_kernel<D>;
+  auto kernel = flash_attention_f32_kernel<D, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -260,50 +269,11 @@ cudaError_t launch_f32(const Args& a, int b, int hq, cudaStream_t stream) {
 
 using bf16 = __nv_bfloat16;
 
-// rows [r0, r0 + ROWS) of a (rows, D) bf16 matrix with row stride `ld`
-// (elements) -> shared (ROWS, D + 8) by 16-byte cp.async; rows at or past
-// `n` are zero-filled.  Where a row's D / 8 chunks divide THREADS, thread t
-// copies chunk t % (D / 8) of every (THREADS / (D / 8))-th row from row
-// t / (D / 8) on, so consecutive threads read consecutive bytes and its
-// source address only steps; else (D 96: 12 chunks) thread t copies chunks
-// t, t + THREADS, ... of the tile, in row-major order.
-template <int D, int ROWS, int THREADS>
-__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src,
-                                        long long ld, int r0, int n) {
-  constexpr int kChunks = D / 8;      // 16-byte chunks a row
-  constexpr int kLd = D + 8;
-  if constexpr (THREADS % kChunks == 0) {
-    constexpr int kStep = THREADS / kChunks;
-    const int c = threadIdx.x % kChunks;
-    const int r = threadIdx.x / kChunks;
-    const bf16* from = src + (r0 + r) * ld + c * 8;
-    bf16* to = dst + r * kLd + c * 8;
-    const int left = n - r0 - r;      // rows of this thread still inside
-#pragma unroll
-    for (int j = 0; j < (ROWS + kStep - 1) / kStep; ++j) {
-      if (ROWS % kStep != 0 && r + j * kStep >= ROWS) break;
-      const bool ok = j * kStep < left;
-      cp_async16(to + j * kStep * kLd, ok ? from : src, ok ? 16 : 0);
-      from += kStep * ld;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < (ROWS * kChunks + THREADS - 1) / THREADS; ++j) {
-      const int i = threadIdx.x + j * THREADS;
-      if ((ROWS * kChunks) % THREADS != 0 && i >= ROWS * kChunks) break;
-      const int r = i / kChunks, c = i % kChunks;
-      const bool ok = r0 + r < n;
-      cp_async16(dst + r * kLd + c * 8,
-                 ok ? src + (r0 + r) * ld + c * 8 : src, ok ? 16 : 0);
-    }
-  }
-}
-
 constexpr int kWarpsB = 4;            // warps a bf16 block, 16 q rows each
 constexpr int kThreadsB = kWarpsB * 32;
 constexpr int kRowsB = kWarpsB * 16;  // q rows a bf16 block
 
-template <int D, int BK>
+template <int D, int BK, bool LSE>
 __global__ void __launch_bounds__(kThreadsB)
     flash_attention_bf16_kernel(Args a) {
   constexpr int kLd = D + 8;          // padded shared row (elements)
@@ -492,14 +462,19 @@ __global__ void __launch_bounds__(kThreadsB)
       *reinterpret_cast<__nv_bfloat162*>(orow + db * 8) =
           __floats2bfloat162_rn(acc[db][2 * r] * inv,
                                 acc[db][2 * r + 1] * inv);
+    if constexpr (LSE) {              // m is in log2 units: lse = ln 2 *
+      if (tig == 0)                   // (m + log2 l)
+        a.lse[(static_cast<long long>(b) * a.hq + h) * a.s + row] =
+            (m[r] + log2f(l[r])) * 0.6931471805599453f;
+    }
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch_bf16(const Args& a, int b, int hq, cudaStream_t stream) {
   constexpr int kKeys = D == 256 ? 32 : 64;   // keys a K/V tile
   const int smem = (kRowsB + 4 * kKeys) * (D + 8) * sizeof(bf16);
-  auto kernel = flash_attention_bf16_kernel<D, kKeys>;
+  auto kernel = flash_attention_bf16_kernel<D, kKeys, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -508,28 +483,37 @@ cudaError_t launch_bf16(const Args& a, int b, int hq, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_bf16(const Args& a, int b, int hq, int d,
-                          cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch_bf16<16>(a, b, hq, stream);
-    case 32: return launch_bf16<32>(a, b, hq, stream);
-    case 64: return launch_bf16<64>(a, b, hq, stream);
-    case 96: return launch_bf16<96>(a, b, hq, stream);
-    case 128: return launch_bf16<128>(a, b, hq, stream);
-    case 256: return launch_bf16<256>(a, b, hq, stream);
-    default: return cudaErrorInvalidValue;
+template <int D, bool LSE>
+struct LaunchBf16 {
+  static cudaError_t run(const Args& a, int b, int hq, cudaStream_t st) {
+    return launch_bf16<D, LSE>(a, b, hq, st);
   }
+};
+
+template <int D, bool LSE>
+struct LaunchF32 {
+  static cudaError_t run(const Args& a, int b, int hq, cudaStream_t st) {
+    return launch_f32<D, LSE>(a, b, hq, st);
+  }
+};
+
+template <template <int, bool> class Launch, int D>
+cudaError_t launch_lse(const Args& a, int b, int hq, cudaStream_t st) {
+  return a.lse != nullptr ? Launch<D, true>::run(a, b, hq, st)
+                          : Launch<D, false>::run(a, b, hq, st);
 }
 
-cudaError_t dispatch_f32(const Args& a, int b, int hq, int d,
-                         cudaStream_t stream) {
+// the launch of head dim d, with the lse epilogue when a.lse is set
+template <template <int, bool> class Launch>
+cudaError_t dispatch(const Args& a, int b, int hq, int d,
+                     cudaStream_t stream) {
   switch (d) {
-    case 16: return launch_f32<16>(a, b, hq, stream);
-    case 32: return launch_f32<32>(a, b, hq, stream);
-    case 64: return launch_f32<64>(a, b, hq, stream);
-    case 96: return launch_f32<96>(a, b, hq, stream);
-    case 128: return launch_f32<128>(a, b, hq, stream);
-    case 256: return launch_f32<256>(a, b, hq, stream);
+    case 16: return launch_lse<Launch, 16>(a, b, hq, stream);
+    case 32: return launch_lse<Launch, 32>(a, b, hq, stream);
+    case 64: return launch_lse<Launch, 64>(a, b, hq, stream);
+    case 96: return launch_lse<Launch, 96>(a, b, hq, stream);
+    case 128: return launch_lse<Launch, 128>(a, b, hq, stream);
+    case 256: return launch_lse<Launch, 256>(a, b, hq, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -540,10 +524,15 @@ cudaError_t dispatch_f32(const Args& a, int b, int hq, int d,
 // and their batch, head and sequence strides 16-byte aligned, which the
 // caller checks).  strides: 12 element strides, the (batch, head, seq)
 // strides of q, k, v and o in that order.  window: the local-attention
-// window (keys qpos - window < kpos), <= 0 for none.  Returns the launch's
-// cudaError_t (0 on success); the caller raises on anything else.
+// window (keys qpos - window < kpos), <= 0 for none.  lse: null, or the
+// (B, Hq, S) contiguous fp32 buffer that takes each row's log-sum-exp of
+// its scaled, masked scores (the backward's input; a separate
+// instantiation, so without it the serving kernels are unchanged).
+// Returns the launch's cudaError_t (0 on success); the caller raises on
+// anything else.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int b,
+                                   const void* v, void* o, float* lse,
+                                   int dtype, int b,
                                    int hq, int hkv, int s, int t, int d,
                                    const long long* strides, int causal,
                                    int window, float scale, void* stream) {
@@ -552,6 +541,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   a.k = k;
   a.v = v;
   a.o = o;
+  a.lse = lse;
   a.s = s;
   a.t = t;
   a.group = hq / hkv;
@@ -572,8 +562,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     err = cudaDeviceGetAttribute(&a.sms, cudaDevAttrMultiProcessorCount,
                                  device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = dtype == 0   ? dispatch_f32(a, b, hq, d, st)
-                          : dtype == 1 ? dispatch_bf16(a, b, hq, d, st)
-                                       : cudaErrorInvalidValue;
+  err = dtype == 0   ? dispatch<LaunchF32>(a, b, hq, d, st)
+        : dtype == 1 ? dispatch<LaunchBf16>(a, b, hq, d, st)
+                     : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -1,4 +1,5 @@
-"""Flash-attention forward: the wrapper around ``csrc/flash_attention.cu``.
+"""Flash attention, forward and backward: the wrappers around
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``.
 
 ``flash_attention(q, k, v, causal, window)`` computes the function of the
 TPU kernel ``repro/kernels/flash_attention.py`` (q ``(B, Hq, S, D)``, k/v
@@ -9,17 +10,29 @@ launch the hand-written kernel; CPU tensors take the plain version
 :func:`~repro_torch.kernels.ref.flash_attention_ref`.  Any other case
 raises.
 
-The route is chosen by dtype, one route each: bf16 runs on the tensor
-cores (``mma.sync``, its K/V tiles filled by 16-byte ``cp.async``), fp32
-on CUDA cores (tensor cores would mean TF32, a different function).  The
-bf16 route needs 16-byte aligned rows (:func:`aligned`); a bf16 input that
-is not raises ``ValueError`` and falls back to nothing.
+While autograd records and an input requires grad, the call goes through
+a :class:`torch.autograd.Function`: its forward also writes each row's
+log-sum-exp (the kernel's ``lse`` epilogue) and saves q, k, v and lse;
+its backward is :func:`flash_attention_bwd`, the hand-written backward
+kernel (three launches: each row's rowsum(P * dP), dK/dV, dQ), or on CPU
+tensors the plain :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`.
+Otherwise (serving, ``torch.no_grad``) nothing is saved and no lse is
+written.
 
-The kernel takes element strides for the batch, head and sequence axes, so
+The forward's route is chosen by dtype, one route each: bf16 runs on the
+tensor cores (``mma.sync``, its K/V tiles filled by 16-byte ``cp.async``),
+fp32 on CUDA cores (tensor cores would mean TF32, a different function).
+The bf16 route needs 16-byte aligned rows (:func:`aligned`); a bf16 input
+that is not raises ``ValueError`` and falls back to nothing.  The backward
+runs bf16 on the tensor cores up to head dim 128 (the same alignment
+rule; a misaligned ``do`` is copied contiguous first), fp32 and head dim
+256 on CUDA cores.
+
+The kernels take element strides for the batch, head and sequence axes, so
 q/k/v may be transposed views of ``(B, S, H, D)`` projections as long as the
-head dim is contiguous.  The output is allocated with q's layout
-(``torch.empty_like``), so for such a q the caller's transpose back to
-``(B, S, H, D)`` is contiguous again.
+head dim is contiguous.  Outputs and gradients are allocated with their
+input's layout (``torch.empty_like``), so for such a q the caller's
+transpose back to ``(B, S, H, D)`` is contiguous again.
 """
 from __future__ import annotations
 
@@ -30,7 +43,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,50 +95,154 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     When S != T the queries are right-aligned: query i sits at absolute
     position qpos = T - S + i.  ``window``: key kpos is visible only when
     kpos > qpos - window (the kernel never visits the KV tiles before a
-    query tile's window)."""
+    query tile's window).  Differentiable in q, k and v."""
     _check(q, k, v, causal, window)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _forward(q, k, v, causal, window, with_lse=False)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel with its backward; the CPU route's are the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+        else:
+            out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, lse, do, ctx.causal,
+                                         ctx.window)
+        return dq, dk, dv, None, None
+
+
+def _cuda_checks(name: str, *xs: torch.Tensor) -> None:
+    q = xs[0]
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, "
-                         f"not {q.device}")
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not "
+                         f"{q.device}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name} kernel takes head dims {HEAD_DIMS}, got "
+                         f"{q.shape[-1]}")
+    if any(x.stride(-1) != 1 for x in xs):
+        raise ValueError(f"{name} needs a contiguous head dim (stride 1 on "
+                         f"the last axis)")
+
+
+def _is_aligned(x: torch.Tensor) -> bool:
+    return aligned(x.data_ptr(), x.stride(), x.shape, x.element_size())
+
+
+def _check_aligned(name: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> None:
+    bad = [n for n, x in zip("qkv", (q, k, v)) if not _is_aligned(x)]
+    if bad:
+        raise ValueError(f"bf16 {name} needs 16-byte aligned rows (data_ptr "
+                         f"and batch, head and sequence strides); "
+                         f"{', '.join(bad)} are not")
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, window: Optional[int], with_lse: bool):
+    """One launch of the forward kernel: out, or (out, lse) with the fp32
+    (B, Hq, S) log-sum-exp when ``with_lse``."""
+    _cuda_checks("flash_attention", q, k, v)
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got {d}")
-    if any(x.stride(-1) != 1 for x in (q, k, v)):
-        raise ValueError("flash_attention needs a contiguous head dim "
-                         "(stride 1 on the last axis)")
-    _build.refuse_grad("flash_attention", q, k, v)
     out = torch.empty_like(q)
+    lse = (torch.empty(b, hq, s, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if q.dtype == torch.bfloat16:
-        bad = [name for name, x in zip("qkv", (q, k, v))
-               if not aligned(x.data_ptr(), x.stride(), x.shape,
-                              x.element_size())]
-        if bad:
-            raise ValueError(f"bf16 flash_attention needs 16-byte aligned "
-                             f"rows (data_ptr and batch, head and sequence "
-                             f"strides); {', '.join(bad)} are not")
+        _check_aligned("flash_attention", q, k, v)
     strides = (ctypes.c_longlong * 12)(
         *(st for x in (q, k, v, out) for st in x.stride()[:3]))
     fn = _kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  _DTYPES[q.dtype], b, hq, hkv, s, t, d, strides,
                  int(causal), window or 0, d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     _build.count_launch("flash_attention")
-    return out
+    return out if lse is None else (out, lse)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None):
+    """The gradient of :func:`flash_attention` in (q, k, v) -> (dq, dk,
+    dv), each with its input's shape, dtype and layout: from the forward's
+    inputs, its fp32 (B, Hq, S) ``lse`` and the output's gradient ``do``.
+    CUDA tensors launch the backward kernel (counted once a call), CPU
+    tensors take :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`."""
+    _check(q, k, v, causal, window)
+    b, hq, s, d = q.shape
+    if do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd wants do of q's shape "
+                         f"{tuple(q.shape)}; got {tuple(do.shape)}")
+    if lse.shape != (b, hq, s) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd wants an fp32 lse of shape "
+                         f"{(b, hq, s)}; got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, lse, do, causal=causal,
+                                       window=window)
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                              and not _is_aligned(do)):
+        do = do.contiguous()
+    _cuda_checks("flash_attention_bwd", q, k, v, do)
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_attention_bwd", q, k, v)
+    lse = lse.contiguous()
+    hkv, t = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty_like(lse)
+    strides = (ctypes.c_longlong * 21)(
+        *(st for x in (q, k, v, do, dq, dk, dv) for st in x.stride()[:3]))
+    fn = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 _DTYPES[q.dtype], b, hq, hkv, s, t, d, strides,
+                 int(causal), window or 0, d ** -0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    _build.count_launch("flash_attention_bwd")
+    return dq, dk, dv
 
 
 @functools.cache
 def _kernel():
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int

@@ -9,33 +9,90 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True,
-                        window: Optional[int] = None) -> torch.Tensor:
-    """q: (B,Hq,S,D); k/v: (B,Hkv,T,D) -> (B,Hq,S,D), fp32 softmax.
-
-    Queries are right-aligned: query i sits at absolute position
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            window: Optional[int]) -> torch.Tensor:
+    """fp32 scaled, masked scores (B, Hkv, G, S, T) of q grouped by kv
+    head.  Queries are right-aligned: query i sits at absolute position
     qpos = T - S + i.  ``window`` (local attention): key kpos is visible
     only when kpos > qpos - window, the reference's mask
-    (``repro/models/attention.py`` ``full_attention``).
-    """
+    (``repro/models/attention.py`` ``full_attention``).  Masked pairs hold
+    NEG_INF."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    g = hq // hkv
-    qg = q.reshape(b, hkv, g, s, d).float()
+    qg = q.reshape(b, hkv, hq // hkv, s, d).float()
     scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / (d ** 0.5)
-    qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
-    kpos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones(s, t, dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
     if causal or window is not None:
+        qpos = torch.arange(s, device=q.device)[:, None] + (t - s)
+        kpos = torch.arange(t, device=q.device)[None, :]
+        mask = torch.ones(s, t, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
         scores = scores.masked_fill(~mask, NEG_INF)
+    return scores
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        window: Optional[int] = None,
+                        return_lse: bool = False):
+    """q: (B,Hq,S,D); k/v: (B,Hkv,T,D) -> (B,Hq,S,D), fp32 softmax over
+    :func:`_scores`.
+
+    ``return_lse``: also return the fp32 (B, Hq, S) log-sum-exp of each
+    query's scaled, masked scores, which the backward recomputes the
+    probabilities from (:func:`flash_attention_bwd_ref`)."""
+    b, hq, s, d = q.shape
+    scores = _scores(q, k, causal, window)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", probs, v.float())
-    return out.reshape(b, hq, s, d).to(q.dtype)
+    out = out.reshape(b, hq, s, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1).reshape(b, hq, s)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, lse: torch.Tensor,
+                            do: torch.Tensor, causal: bool = True,
+                            window: Optional[int] = None):
+    """The gradient of :func:`flash_attention_ref` with respect to q, k and
+    v, given the forward's ``lse`` (fp32 (B, Hq, S)) and the output's
+    gradient ``do``, step by step in fp32 (the FlashAttention-2 backward):
+
+        P  = exp(scale Q K^T - lse), 0 where masked
+        dV = sum over the group's q heads of P^T dO
+        dP = dO V^T
+        D  = rowsum(P * dP)
+        dS = P * (dP - D)
+        dQ = scale dS K
+        dK = scale * sum over the group's q heads of dS^T Q
+
+    D is the row sum of P * dP over the recomputed fp32 P, which equals
+    FlashAttention-2's rowsum(dO * O) for the exact output.  An output whose
+    P was rounded to bf16 before P V (the bf16 kernel's) would carry that
+    rounding into every element of a row's dS, and so into dQ and dK along
+    the row's mean key; this D keeps the gradient that of the recomputed
+    softmax.  Returns (dq, dk, dv) in the inputs' dtype."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    scale = d ** -0.5
+    grouped = lambda x: x.reshape(b, hkv, g, s, d).float()  # noqa: E731
+    qg, dog = grouped(q), grouped(do)
+    kf, vf = k.float(), v.float()
+    # masked pairs: exp(NEG_INF - lse) is exactly 0
+    p = torch.exp(_scores(q, k, causal, window)
+                  - lse.reshape(b, hkv, g, s, 1).float())
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dog, vf)
+    delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) * scale
+    return (dq.reshape(b, hq, s, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_lengths(cache_len, b: int, device) -> torch.Tensor:

@@ -31,6 +31,12 @@ a numpy seed), and one of ``--max-new-tokens`` greedy decode steps of
 (rwkv6: in one call; recurrentgemma and whisper: token by token; whisper's
 cache built from its encoder's memory of the same clips).
 
+Training (``--train-steps N``, the attention families and whisper): one
+window of N train steps (``launch/steps.py``'s ``make_train_step``, the
+driver's AdamW) of ``--requests`` rows x ``--seq`` tokens from
+``SyntheticLMDataset`` (loss chunks of min(512, seq)), after one
+unprofiled step; the backward kernel's launches are their own kind.
+
 A CNN of the paper's zoo (``--model cnn:<Name>`` or
 ``synthetic-cnn:<f>``; fp32, TF32 off as the reference's function): one
 window of ``--forwards`` direct single-image forwards, and one of a
@@ -46,6 +52,8 @@ thread and CUDA stream per stage), after an unprofiled round.
         --arch whisper-tiny --seq 448 --requests 16 --prompt-len 4
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --model cnn:ResNet50 --requests 64
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --train-steps 3 --requests 8 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --workload decode --decode-concurrency 8 --max-context 2048 \\
         --prompt-len 1024 --max-new-tokens 64 --requests 16 \\
@@ -68,6 +76,8 @@ from repro_torch.launch import serve
 from repro_torch.models import api, cnn, lm, rglru, whisper
 
 KINDS = (("flash_attention", ("flash_attention",)),
+         # flash_attention_bwd's kernels (dK/dV, dQ; fp32 and mma routes)
+         ("flash_attention_bwd", ("dkdv_", "dq_kernel<", "dq_mma_kernel<")),
          ("flash_decode", ("flash_decode",)),
          ("rwkv6_scan", ("rwkv6_scan",)),
          # rglru_scan's step and staged kernels
@@ -218,6 +228,38 @@ def profile_model(args: argparse.Namespace, forwards: int) -> None:
                           f"{decode_steps} steps")
 
 
+def profile_train(args: argparse.Namespace, steps: int) -> None:
+    """The training window (module docstring)."""
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.launch.train import step_batch
+    from repro_torch.optim import AdamWConfig
+    mod = configs.get(args.arch)
+    cfg = mod.smoke_config() if args.smoke else mod.config()
+    dev = torch.device("cuda")
+    params, state = train_steps.init_train_state(
+        cfg, dev, torch.Generator(dev).manual_seed(args.seed))
+    data = SyntheticLMDataset(DataConfig(global_batch=args.requests,
+                                         seq_len=args.seq, vocab=cfg.vocab))
+    step = train_steps.make_train_step(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps + 1),
+        loss_chunk=min(512, args.seq))
+    batches = [step_batch(cfg, data, i, args.requests, args.seq, dev)
+               for i in range(steps + 1)]
+    run = {"params": params, "state": state}
+
+    def train(first, n):
+        for b in batches[first:first + n]:
+            run["params"], run["state"], _ = step(run["params"],
+                                                  run["state"], b)
+
+    train(0, 1)                                 # warms the step
+    torch.cuda.synchronize()
+    prof, wall = profiled(lambda: train(1, steps))
+    summarize(prof, wall, f"{cfg.name} train ({args.requests}, {args.seq}) "
+                          f"x{steps}")
+
+
 def cnn_model(ref: str):
     """A ``cnn:<Name>`` or ``synthetic-cnn:<f>`` ref -> its GraphModel."""
     kind, _, rest = ref.partition(":")
@@ -259,6 +301,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--model", default=None,
                     help="a CNN ref (cnn:<Name> or synthetic-cnn:<f>) to "
                          "profile instead of --arch")
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="profile this many train steps of --arch instead "
+                         "of serving")
     extra, rest = ap.parse_known_args(argv)
     args = serve.parse_args(rest)
     if args.device != "cuda":
@@ -269,6 +314,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         profile_cnn(args, extra.model, extra.forwards)
+        return
+    if extra.train_steps:
+        profile_train(args, extra.train_steps)
         return
     if configs.get(args.arch).config().family not in serve.SERVED_FAMILIES:
         profile_model(args, extra.forwards)

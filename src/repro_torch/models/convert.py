@@ -8,7 +8,8 @@ lays weights out ``(in, out)``;
 layer and keeps every layout.  A JAX bf16 array becomes an
 ``ml_dtypes.bfloat16`` numpy array, which :func:`torch.from_numpy` rejects,
 so such arrays pass through their uint16 bits.
-:func:`cnn_params_from_numpy` maps the CNN zoo's per-node dicts.
+:func:`opt_state_from_numpy` maps the reference's AdamW state the same
+way; :func:`cnn_params_from_numpy` maps the CNN zoo's per-node dicts.
 """
 from __future__ import annotations
 
@@ -60,6 +61,20 @@ def params_from_numpy(cfg: LMConfig, tree: Dict[str, Any],
         else:
             out[key] = _tree(sub, lambda a: tensor_from_numpy(a, dev))
     return out
+
+
+def opt_state_from_numpy(cfg: LMConfig, state: Dict[str, Any],
+                         device="cuda") -> Dict[str, Any]:
+    """The reference's AdamW state (``{"mu": tree, "nu": tree, "step":
+    0-d}`` with numpy leaves, e.g. ``jax.tree.map(np.asarray, opt_state)``)
+    -> :mod:`repro_torch.optim`'s: the moment trees split as
+    :func:`params_from_numpy` splits the parameters, the step an int32
+    0-d tensor."""
+    dev = resolve_device(device)
+    return {"mu": params_from_numpy(cfg, state["mu"], dev),
+            "nu": params_from_numpy(cfg, state["nu"], dev),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}
 
 
 def cnn_params_from_numpy(tree: Dict[str, Dict[str, Any]],

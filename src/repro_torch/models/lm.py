@@ -23,6 +23,12 @@ decode token against a KV cache the flash-decode kernel
 D)`` caches passed the same way.  Caches are written in place (the JAX
 module returns updated copies).  The mixture of experts is plain
 ``torch.einsum`` products, as the reference's are outside any kernel.
+
+Training: :func:`lm_loss` and :func:`moe_aux_loss` are the reference's
+losses; with ``cfg.remat`` :func:`forward_hidden` recomputes each block in
+the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``), and attention differentiates through the
+flash-attention kernel's backward.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_decode import flash_decode
@@ -363,6 +370,18 @@ def moe_block(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(bb, ss, d)
 
 
+def moe_aux_loss(cfg: LMConfig, logits: torch.Tensor,
+                 gate_idx: torch.Tensor) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss: ``E * sum_e me_e ce_e``
+    of the router's mean probability ``me`` and the share of top-k choices
+    ``ce`` of each expert (the reference's, which no train step adds)."""
+    e = cfg.n_experts
+    probs = torch.softmax(logits.float(), dim=-1)
+    me = probs.reshape(-1, e).mean(0)
+    ce = F.one_hot(gate_idx.reshape(-1).long(), e).float().mean(0)
+    return e * torch.sum(me * ce)
+
+
 def block(cfg: LMConfig, bp: Params, x: torch.Tensor,
           positions: torch.Tensor,
           cache_rows: Optional[KVRows] = None) -> torch.Tensor:
@@ -409,7 +428,14 @@ def forward_hidden(cfg: LMConfig, params: Params,
     given, goes before the token embeddings; ``batch["positions"]``, when
     given, replaces :func:`positions_for`.  ``cache`` (:func:`init_cache`'s,
     of B rows): every layer's post-RoPE K/V go into its rows [0, S), in
-    place."""
+    place.
+
+    With ``cfg.remat``, while autograd records the blocks (grad mode on
+    and the hidden state requiring grad, as it does once the embedding or
+    any weight before the block does), each block runs under
+    :func:`torch.utils.checkpoint.checkpoint` (non-reentrant), as the
+    reference's ``jax.checkpoint``: only its input is kept, and the
+    backward recomputes its forward, attention kernel included."""
     require_ported(cfg, ATTN_FAMILIES)
     x = embed_tokens(cfg, params, batch["tokens"])
     if cfg.family == "vlm" and "embeds" in batch:
@@ -417,6 +443,10 @@ def forward_hidden(cfg: LMConfig, params: Params,
     positions = (batch["positions"].to(x.device) if "positions" in batch
                  else positions_for(cfg, x))
     for i, bp in enumerate(params["blocks"]):
+        if (cache is None and cfg.remat and torch.is_grad_enabled()
+                and x.requires_grad):
+            x = checkpoint(block, cfg, bp, x, positions, use_reentrant=False)
+            continue
         rows = None if cache is None else (cache["k"][i], cache["v"][i])
         x = block(cfg, bp, x, positions, rows)
     return x
@@ -433,6 +463,23 @@ def forward(cfg: LMConfig, params: Params, batch: Dict[str, torch.Tensor],
     if last_token_only:
         x = x[:, -1:]
     return unembed(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; labels (B, S) integers; ``mask``
+    (B, S) weights the tokens (the mean over its sum, at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 # ---------------------------------------------------------------------------

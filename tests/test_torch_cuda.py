@@ -13,7 +13,13 @@ flash_attention also rounds P to bf16 for the tensor cores).  The scans:
 rtol = atol = 2e-4 (rwkv6_scan) and 1e-5 (rglru_scan) in fp32, 2e-2 in
 bf16, the tolerances of the reference's own kernel tests.  matmul_qi8 and
 the int8 API: exact.  The CNN forward: 1e-4 of max |y| against the CPU
-(fp32, TF32 off; convolution algorithms sum in other orders).
+(fp32, TF32 off; convolution algorithms sum in other orders).  The
+flash-attention backward: each of dq, dk and dv within 1e-4 (fp32) or
+2e-2 (bf16, which also rounds P and dS to bf16 for the tensor cores) of
+its scale max(1, max |plain|), within 1e-5 (fp32) or 1e-2 (bf16)
+relative L2 error (which a wrong bulk of rows moves even where causal
+attention's first rows set the scale), and equal bit for bit from call
+to call.
 """
 import time
 
@@ -32,7 +38,9 @@ from repro_torch.kernels import matmul_qi8 as mq
 from repro_torch.kernels import quant
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as rw
-from repro_torch.kernels.ref import (flash_attention_ref, flash_decode_ref,
+from repro_torch.checkpoint.store import tree_map
+from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+                                     flash_attention_ref, flash_decode_ref,
                                      matmul_qi8_ref, rglru_scan_ref,
                                      rwkv6_scan_ref)
 from repro_torch.launch import serve
@@ -708,8 +716,6 @@ def _grad_inputs(name, dev):
 
     def r(*shape):
         return torch.randn(*shape, generator=g, device=dev)
-    if name == "flash_attention":
-        return (r(1, 4, 64, 64), r(1, 2, 64, 64), r(1, 2, 64, 64))
     if name == "flash_decode":
         return (r(2, 4, 64), r(2, 2, 128, 64), r(2, 2, 128, 64), 100)
     if name == "rwkv6_scan":
@@ -720,13 +726,13 @@ def _grad_inputs(name, dev):
             r(2, 64))
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "flash_decode",
-                                  "rwkv6_scan", "rglru_scan"])
+@pytest.mark.parametrize("name", ["flash_decode", "rwkv6_scan",
+                                  "rglru_scan"])
 def test_kernels_refuse_a_gradient_on_card(sm90, name):
     """Asked for a gradient, a kernel with no backward raises instead of
-    returning an output with no autograd edge; under no_grad it runs."""
-    fn = {"flash_attention": fa.flash_attention,
-          "flash_decode": fd.flash_decode, "rwkv6_scan": rw.rwkv6_scan,
+    returning an output with no autograd edge; under no_grad it runs.
+    (flash_attention has a backward: the tests below.)"""
+    fn = {"flash_decode": fd.flash_decode, "rwkv6_scan": rw.rwkv6_scan,
           "rglru_scan": rg.rglru_scan}[name]
     args = _grad_inputs(name, sm90)
     _build.reset_launches()
@@ -740,6 +746,150 @@ def test_kernels_refuse_a_gradient_on_card(sm90, name):
         with pytest.raises(RuntimeError, match="no backward"):
             fn(*marked, *args[len(tensors):])
     assert _build.launches(name) == 1
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention backward
+# ---------------------------------------------------------------------------
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+BWD_L2_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _bwd_case(dev, b, hq, hkv, s, t, d, dtype, causal, window, layout=True):
+    """q/k/v (model layout views), the forward's lse, and dO."""
+    g = torch.Generator(dev).manual_seed(0)
+    q, k, v = _attention_inputs(g, dev, b, hq, hkv, s, t, d, dtype, layout)
+    _, lse = fa._forward(q, k, v, causal, window, with_lse=True)
+    do = torch.randn(q.shape, generator=g, device=dev, dtype=DTYPES[dtype])
+    return q, k, v, lse, do
+
+
+def _assert_grads_close(got, expect, dtype):
+    """Each gradient's largest deviation within ``BWD_TOL`` of its scale
+    max(1, max |expect|), and its relative L2 error within
+    ``BWD_L2_TOL``."""
+    for a, e in zip(got, expect):
+        assert a.dtype == e.dtype and a.shape == e.shape
+        a, e = a.float(), e.float()
+        scale = max(1.0, e.abs().max().item())
+        err = (a - e).abs().max().item()
+        assert err <= BWD_TOL[dtype] * scale, (err, scale)
+        l2 = (torch.linalg.vector_norm(a - e)
+              / torch.linalg.vector_norm(e)).item()
+        assert l2 <= BWD_L2_TOL[dtype], l2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal,window", [
+    (8, 16, 8, 1024, 1024, 128, True, None),    # qwen3-1.7b's training
+    (2, 16, 8, 1024, 1024, 64, True, None),     # granite-moe's D 64
+    (2, 32, 32, 1024, 1024, 96, True, None),    # phi3-mini's D 96
+    (1, 16, 1, 4096, 4096, 256, True, 2048),    # recurrentgemma's window
+    (2, 6, 6, 1500, 1500, 64, False, None),     # whisper's encoder
+    (2, 6, 6, 448, 1500, 64, False, None),      # whisper's cross
+    (2, 4, 2, 1000, 1000, 128, True, None),     # ragged S = T
+    (1, 4, 1, 72, 200, 16, True, None),         # ragged, S < T
+    (1, 2, 2, 100, 37, 32, False, None),        # non-causal S > T
+    (1, 4, 2, 500, 500, 64, True, 100),         # a window inside a tile
+])
+def test_flash_attention_bwd_matches_plain(sm90, b, hq, hkv, s, t, d,
+                                           causal, window, dtype):
+    q, k, v, lse, do = _bwd_case(sm90, b, hq, hkv, s, t, d, dtype, causal,
+                                 window)
+    _, lse_ref = flash_attention_ref(q, k, v, causal, window,
+                                     return_lse=True)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    _build.reset_launches()
+    got = fa.flash_attention_bwd(q, k, v, lse, do, causal, window)
+    torch.cuda.synchronize()
+    assert _build.launches("flash_attention_bwd") == 1
+    expect = flash_attention_bwd_ref(q, k, v, lse, do, causal, window)
+    _assert_grads_close(got, expect, dtype)
+    # the gradients keep their inputs' layouts
+    for a, x in zip(got, (q, k, v)):
+        assert a.stride() == x.stride()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_is_deterministic(sm90, dtype):
+    q, k, v, lse, do = _bwd_case(sm90, 2, 16, 2, 600, 600, 128, dtype,
+                                 True, None)
+    first = fa.flash_attention_bwd(q, k, v, lse, do)
+    second = fa.flash_attention_bwd(q, k, v, lse, do)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_attention_differentiates_on_card(sm90, dtype, window):
+    """An input that requires grad: one forward launch (with lse) and one
+    backward launch, the gradients those of the plain route."""
+    g = torch.Generator(sm90).manual_seed(3)
+    q, k, v = _attention_inputs(g, sm90, 2, 8, 2, 300, 300, 64, dtype, True)
+    do = torch.randn(q.shape, generator=g, device=sm90, dtype=DTYPES[dtype])
+    grads = []
+    for fn in (fa.flash_attention, flash_attention_ref):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        _build.reset_launches()
+        out = fn(*leaves, True, window)
+        out.backward(do)
+        torch.cuda.synchronize()
+        launched = (_build.launches("flash_attention"),
+                    _build.launches("flash_attention_bwd"))
+        assert launched == ((1, 1) if fn is fa.flash_attention else (0, 0))
+        grads.append([x.grad for x in leaves])
+    _assert_grads_close(grads[0], grads[1], dtype)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
+                                  "whisper-tiny"])
+def test_smoke_train_step_on_card_matches_cpu(sm90, arch):
+    """The smoke config (fp32, TF32 off) from the same weights, state and
+    batch: each gradient leaf within 1e-4 relative L2 of the CPU's, every
+    attention call once through each flash kernel; then one train step:
+    loss, grad_norm and lr within 1e-4, every updated parameter within
+    1e-4 of max(1, max |CPU|).  (AdamW divides each gradient element by its
+    own running magnitude, so an element whose gradient sits near eps
+    moves by an amount that rounding decides: the updated parameters are
+    compared at their scale, the gradients leaf by leaf.)"""
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.checkpoint.store import tree_flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get(arch).smoke_config()
+    cpu = torch.device("cpu")
+    params, state = steps.init_train_state(
+        cfg, cpu, torch.Generator(cpu).manual_seed(0))
+    batch = concrete_batch(cfg, 64, 2, rng=np.random.default_rng(1))
+    to = lambda tree: tree_map(lambda x: x.to(sm90), tree)  # noqa: E731
+    card_batch = {k: x.to(sm90) for k, x in batch.items()}
+    _build.reset_launches()
+    loss, grads = steps.loss_and_grads(cfg, to(params), card_batch, 32)
+    torch.cuda.synchronize()
+    # every attention call once forward (the smoke configs keep no remat)
+    # and once backward: whisper's encoder self-attention and its
+    # decoder's self- and cross-attention
+    n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers
+              if cfg.family == "encdec" else cfg.n_layers)
+    assert _build.launches("flash_attention") == n_attn
+    assert _build.launches("flash_attention_bwd") == n_attn
+    loss_cpu, grads_cpu = steps.loss_and_grads(cfg, params, batch, 32)
+    torch.testing.assert_close(loss.cpu(), loss_cpu, rtol=1e-5, atol=0)
+    for a, e in zip(tree_flatten(grads)[0], tree_flatten(grads_cpu)[0]):
+        err = torch.linalg.vector_norm(a.cpu() - e)
+        assert err <= 1e-4 * torch.linalg.vector_norm(e)
+
+    step = steps.make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                  total_steps=4), 32)
+    got = step(to(params), to(state), card_batch)
+    expect = step(params, state, batch)
+    for key in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(got[2][key].cpu(), expect[2][key],
+                                   rtol=1e-4, atol=1e-6)
+    for a, e in zip(tree_flatten(got[0])[0], tree_flatten(expect[0])[0]):
+        scale = max(1.0, e.abs().max().item())
+        assert (a.cpu() - e).abs().max().item() <= 1e-4 * scale
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,16 @@
-"""The float kernels' refusal of a gradient they cannot give.
+"""The kernels' gradients on the CPU route, and the refusal of a
+gradient a kernel cannot give.
 
-The CUDA kernels of ``flash_attention``, ``flash_decode``, ``rwkv6_scan``
-and ``rglru_scan`` have no backward, so on the card each wrapper raises
-when autograd records and an input requires grad
-(``kernels._build.refuse_grad``; pinned on the card in
-``tests/test_torch_cuda.py``).  On the CPU the wrappers run the plain
-versions, which differentiate: every input gets a finite gradient.
+``flash_attention`` has a backward kernel (``csrc/flash_attention_bwd.cu``;
+held against its plain version on the card in ``tests/test_torch_cuda.py``
+and against ``jax.vjp`` in ``tests/test_torch_flash_attention_bwd.py``).
+The CUDA kernels of ``flash_decode``, ``rwkv6_scan`` and ``rglru_scan`` have
+none, so on the card each of their wrappers raises when autograd records
+and an input requires grad (``kernels._build.refuse_grad``; pinned on the
+card in ``tests/test_torch_cuda.py``).  On the CPU every wrapper
+differentiates (``flash_attention`` through its autograd function's plain
+backward, the others through their plain versions): every input gets a
+finite gradient.
 """
 import pytest
 
@@ -21,12 +26,12 @@ from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 def test_refuse_grad_only_when_autograd_records():
     x = torch.zeros(3, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
-        _build.refuse_grad("flash_attention", None, x.detach(), x)
+        _build.refuse_grad("flash_decode", None, x.detach(), x)
     with torch.no_grad():
-        _build.refuse_grad("flash_attention", x)
+        _build.refuse_grad("flash_decode", x)
     with torch.inference_mode():
-        _build.refuse_grad("flash_attention", x)
-    _build.refuse_grad("flash_attention", x.detach(), None)
+        _build.refuse_grad("flash_decode", x)
+    _build.refuse_grad("flash_decode", x.detach(), None)
 
 
 def _inputs(name, g):

@@ -103,3 +103,18 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
     assert "repro_torch.models" in mods
     assert [m for m in mods
             if m.split(".")[0] in ("jax", "jaxlib", "repro")] == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.data",
+                                    "repro_torch.optim",
+                                    "repro_torch.launch.steps",
+                                    "repro_torch.launch.train"])
+def test_training_path_loads_neither_jax_nor_repro(module):
+    code = (f"import sys, {module}; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
