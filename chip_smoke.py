@@ -13,10 +13,11 @@ With no arguments:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the model paths from the sources in this
    checkout (flash_attention, flash_attention_bwd, flash_decode,
-   rwkv6_scan, rglru_scan, matmul_qi8; one nvcc per source, started
-   together), prints ptxas's
+   rwkv6_scan, rwkv6_scan_bwd, rglru_scan, rglru_scan_bwd, matmul_qi8;
+   one nvcc per source, started together), prints ptxas's
    registers and spills of each kernel (failing if flash_decode,
-   rwkv6_scan or rglru_scan spills) and the tensor-core instructions in
+   rwkv6_scan, rglru_scan or either scan's backward spills) and the
+   tensor-core instructions in
    the SASS of bf16 flash_attention and flash_decode (HMMA) and
    matmul_qi8 (IMMA), failing if any of their instantiations has none
    (the head dim 96 ones named; flash_attention's D 96 instantiations
@@ -145,20 +146,31 @@ With no arguments:
    deviation and relative L2) and equal bit for bit from call to call,
    the output and lse of the forward launch that writes lse against the
    plain forward, the first three timed beside the plain
-   version, SDPA's backward (the yardstick) and the bound; one train step
-   of the smoke configs of qwen3-1.7b, granite-moe-1b-a400m and
-   whisper-tiny on the card against the CPU (fp32); full-width qwen3-1.7b
-   (bf16 weights from seed 0, remat) trained 1 + 5 steps of 8 x 1024
-   tokens from ``SyntheticLMDataset`` with every kernel's count set to 0
-   just before a step and read just after (flash_attention = 2 x 28,
-   flash_attention_bwd = 28): loss, grad_norm, lr, step time, tokens/s,
-   the share of the bf16 peak and the allocator's peak; one step's loss
-   and gradients against the same step with the plain attention in the
-   kernel's place, in bf16 beside the bf16 noise (the plain bf16 step
-   against the plain step on the weights made fp32) and in fp32;
-   and the reference's fault-tolerance demo (``examples/train_lm.py``'s
-   config, 200 steps, a failure at step 77) through the port's driver
-   (one JSON line);
+   version, SDPA's backward (the yardstick) and the bound; the scans'
+   backward kernels against their plain versions (``rwkv6_scan_bwd_ref``
+   at rwkv6-1.6b's training shape (8, 32, 1024, 64) in the model layout,
+   ragged S, D 16 and 32, S = 1, decays of 1e-30 and 1, bf16;
+   ``rglru_scan_bwd_ref`` at (8, 1024, 4096), a short S, S = 1, ragged R
+   with decays of 1e-30 and 1, bf16), each gradient within its
+   tolerances and equal bit for bit from call to call, the training
+   shapes timed beside the plain versions and the bound; one train step
+   of the smoke configs of qwen3-1.7b, granite-moe-1b-a400m, whisper-tiny,
+   rwkv6-1.6b and recurrentgemma-9b on the card against the CPU (fp32);
+   full-width qwen3-1.7b, rwkv6-1.6b and recurrentgemma-9b cut to 6 of
+   its 38 layers (bf16 weights from seed 0, remat) each trained 1 + 5
+   steps of 8 x 1024 tokens from ``SyntheticLMDataset`` with every
+   kernel's count set to 0 just before a step and read just after
+   (flash_attention = 2 x 28, flash_attention_bwd = 28; rwkv6_scan = 2 x
+   24, rwkv6_scan_bwd = 24; rglru_scan = 8, rglru_scan_bwd = 4,
+   flash_attention = 4, flash_attention_bwd = 2): loss, grad_norm, lr,
+   step time, tokens/s, the share of the bf16 peak and the allocator's
+   peak; one step's loss and gradients against the same step with the
+   plain versions in the kernels' places, in bf16 beside the bf16 noise
+   (the plain bf16 step against the plain step on the weights made fp32)
+   and in fp32; and the reference's fault-tolerance demo
+   (``examples/train_lm.py``'s config, 200 steps, a failure at step 77)
+   and the same on rwkv6-1.6b's smoke config (60 steps, a failure at step
+   25) through ``launch/train.py`` (one JSON line);
 13. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
    synthetic_cnn(64) at their published input sizes, one forward each on
    the card against the CPU; ResNet50 planned by the analytic Edge TPU
@@ -209,6 +221,7 @@ result.
 """
 import dataclasses
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -218,8 +231,16 @@ import time
 import unittest.mock
 import warnings
 
-import numpy as np
-import torch
+# recurrentgemma-9b's train step (6 of 38 layers) holds about 66 GiB of
+# tensors at its peak, of the card's 79; the caching allocator's
+# fixed-size segments can leave 13 GiB of it reserved in pieces too small
+# for the optimizer's 3.9 GiB fp32 temporaries of the tied embedding.
+# Expandable segments grow and map instead (read at the first CUDA
+# allocation; a value the caller set is kept).
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -248,7 +269,8 @@ from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as rw  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     flash_attention_bwd_ref, flash_attention_ref, flash_decode_ref,
-    matmul_qi8_ref, rglru_scan_ref, rwkv6_scan_ref)
+    matmul_qi8_ref, rglru_scan_bwd_ref, rglru_scan_ref, rwkv6_scan_bwd_ref,
+    rwkv6_scan_ref)
 from repro_torch.core.segmentation import segment_ranges  # noqa: E402
 from repro_torch.checkpoint.store import tree_flatten  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
@@ -260,16 +282,19 @@ from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.launch.cuda_reporter import (  # noqa: E402
     CudaSegmentReporter)
 from repro_torch.models import (api, cnn, lm, lm_graph,  # noqa: E402
-                                whisper)
+                                rglru, rwkv6, whisper)
 from repro_torch.profiling import profile_model  # noqa: E402
 from repro_torch.runtime import (ChaosEvent, ChaosMonkey,  # noqa: E402
                                  ElasticPlanner, FaultPolicy,
                                  HealthMonitor)
 
 KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
-           "rwkv6_scan", "rglru_scan", "matmul_qi8")
+           "rwkv6_scan", "rwkv6_scan_bwd", "rglru_scan", "rglru_scan_bwd",
+           "matmul_qi8")
 # the kernels --kernel-times builds and times (the latest redesigns)
 TIMED = ("flash_decode", "rwkv6_scan", "rglru_scan")
+# kernels whose ptxas report must show no spill
+NO_SPILL = TIMED + ("rwkv6_scan_bwd", "rglru_scan_bwd")
 # each kernel's design, as its source note sets it out
 DESIGNS = {
     "flash_attention": "bf16: mma.sync m16n8k16 (fp32 accumulate), "
@@ -305,6 +330,23 @@ DESIGNS = {
                   "of shared memory; S < 64 (the decode step) one thread "
                   "per channel; both routes the same FMAs in the same "
                   "order",
+    "rwkv6_scan_bwd": "CUDA cores: 256 threads per (head, row), a thread "
+                      "holding D^2 / 256 columns of one row of S and of G "
+                      "in registers; phase 1 walks the forward and saves "
+                      "the state every 8 steps, phase 2 walks the 8-step "
+                      "pieces in reverse: recomputes a piece's states into "
+                      "shared memory, then steps G back (dr, dk, dw by "
+                      "shuffles over the row's threads, dv by a "
+                      "reduce-scatter over the warp's rows and a "
+                      "fixed-order sum over the warps); rows and start "
+                      "states double-buffered by cp.async; du summed over "
+                      "the batch by a second launch; no atomics, no "
+                      "division by a decay",
+    "rglru_scan_bwd": "CUDA cores: one thread per (row, channel), 128 a "
+                      "block, walking S backwards with 16 steps' a, dy and "
+                      "h_{t-1} loaded ahead of their FMAs; fp32 reads the "
+                      "carry from y, bf16 first recomputes it into fp32 "
+                      "scratch",
     "matmul_qi8": "mma.sync m16n8k32 s8 -> s32, cp.async 2-stage x ring, w "
                   "transposed by prmt on load, 64 x 64 or 16 x 64 tiles, "
                   "split-K with int32 atomics",
@@ -453,20 +495,58 @@ BWD_TIMED = 3
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BWD_L2_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 FWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the scans' backward kernels against their plain versions, each gradient
+# within BWD_TOL of its scale and BWD_L2_TOL relative L2 (fp32: summation
+# order; bf16: one rounding of each gradient), the first case of each (the
+# training shape, fp32) and its bf16 case timed: rwkv6_scan_bwd (name, B,
+# H, S, D, dtype, the model's (B, S, H, D) layout, decays 1e-30 and 1 on
+# alternate steps), rglru_scan_bwd (name, B, S, R, dtype, decays 1e-30 and
+# 1)
+RWKV_BWD_CASES = (
+    ("fp32 rwkv6-1.6b training (8, 32, 1024, 64), model layout", 8, 32,
+     1024, 64, torch.float32, True, False),
+    ("fp32 ragged S=300, model layout", 2, 32, 300, 64, torch.float32,
+     True, False),
+    ("fp32 D=32 S=257", 2, 4, 257, 32, torch.float32, False, False),
+    ("fp32 D=16 S=100, model layout", 2, 4, 100, 16, torch.float32, True,
+     False),
+    ("fp32 S=1, model layout", 4, 32, 1, 64, torch.float32, True, False),
+    ("fp32 S=300, decays 1e-30 and 1, model layout", 2, 32, 300, 64,
+     torch.float32, True, True),
+    ("bf16 (8, 32, 1024, 64), model layout", 8, 32, 1024, 64,
+     torch.bfloat16, True, False),
+    ("bf16 D=16 S=70", 2, 4, 70, 16, torch.bfloat16, False, False),
+)
+RGLRU_BWD_CASES = (
+    ("fp32 recurrentgemma-9b training (8, 1024, 4096)", 8, 1024, 4096,
+     torch.float32, False),
+    ("fp32 short S=40", 2, 40, 4096, torch.float32, False),
+    ("fp32 S=1", 2, 1, 4096, torch.float32, False),
+    ("fp32 ragged R=1000 S=300, decays 1e-30 and 1", 3, 300, 1000,
+     torch.float32, True),
+    ("bf16 (8, 1024, 4096)", 8, 1024, 4096, torch.bfloat16, False),
+    ("bf16 ragged R=1001 S=77, decays 1e-30 and 1", 2, 77, 1001,
+     torch.bfloat16, True),
+)
 # the smoke configs' train step card vs CPU (fp32, TF32 off): batch, tokens,
 # loss chunk, and the tolerance of loss, grad_norm and every updated
 # parameter (relative to max(1, max |CPU|))
-TRAIN_SMOKE = ("qwen3-1.7b", "granite-moe-1b-a400m", "whisper-tiny")
+TRAIN_SMOKE = ("qwen3-1.7b", "granite-moe-1b-a400m", "whisper-tiny",
+               "rwkv6-1.6b", "recurrentgemma-9b")
 TRAIN_SMOKE_SHAPE = (2, 64, 32)
 TRAIN_SMOKE_TOL = 1e-4
 # full-width qwen3-1.7b: batch x SEQ tokens from SyntheticLMDataset, the
 # loss in chunks of 512, 1 warm-up + 5 timed steps of the train step; the
 # driver's AdamW (lr 1e-3, 10 warm-up steps); the step against the same
-# step with the plain attention: loss within 1e-3 relative, each gradient
-# leaf's relative L2 error within 2e-2 in bf16 and, on the weights made
-# fp32, within 1e-4
+# step with the plain versions: loss within 1e-3 relative, each gradient
+# leaf's relative L2 error within 2e-2 in bf16 (where bf16 resolves the
+# leaf; see check_against_plain) and, on the weights made fp32, within 1e-4
+# rwkv6-1.6b trains at full width, recurrentgemma-9b at full width cut to
+# its first 6 of 38 layers (2 super-blocks: AdamW's state of all 38 alone
+# exceeds 80 GB)
 TRAIN_BATCH = 8
 TRAIN_CHUNK = 512
+GEMMA_TRAIN_LAYERS = 6
 TRAIN_STEPS = 5
 TRAIN_LR = 1e-3
 TRAIN_LOSS_TOL = 1e-3
@@ -476,6 +556,10 @@ TRAIN_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # warm-up, checkpoint interval, the injected failure
 FT_DEMO = {"steps": 200, "batch": 8, "seq": 64, "lr": 3e-3, "warmup": 20,
            "ckpt_every": 50, "fail_at": 77}
+# the same through launch/train.py on rwkv6-1.6b's smoke config (4 layers,
+# d 64)
+RWKV_FT_DEMO = {"steps": 60, "batch": 8, "seq": 64, "lr": 3e-3,
+                "warmup": 10, "ckpt_every": 20, "fail_at": 25}
 CARD = "cuda"
 D96_TAG = "ILi96E"      # a mangled template argument of 96 (the head dim)
 
@@ -3198,6 +3282,149 @@ def check_flash_attention_bwd():
     return record, worst_l2
 
 
+def scan_grad_errs(got, expect):
+    """Each gradient's largest deviation over its scale max(1, max |plain|)
+    and its relative L2 error ||g - e|| / ||e||, and whether all are
+    finite."""
+    errs, l2, finite = [], [], True
+    for a, e in zip(got, expect):
+        a, e = a.float(), e.float()
+        finite = finite and bool(torch.isfinite(a).all())
+        errs.append((a - e).abs().max().item()
+                    / max(1.0, e.abs().max().item()))
+        norm = torch.linalg.vector_norm(e).item()
+        l2.append(torch.linalg.vector_norm(a - e).item() / (norm or 1.0))
+    return errs, l2, finite
+
+
+def check_scan_grads(kernel, label, names, got, again, expect, dtype):
+    """Print and hold one case of a scan's backward: every gradient within
+    BWD_TOL of its scale and BWD_L2_TOL relative L2, finite, and equal bit
+    for bit to a second call's.  Returns (largest scaled error, largest
+    relative L2 error)."""
+    errs, l2, finite = scan_grad_errs(got, expect)
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    print(f"{kernel} {label}: max err of the scale "
+          + " ".join(f"{n} {e:.2e}" for n, e in zip(names, errs))
+          + f" (tol {BWD_TOL[dtype]:g}), rel L2 "
+          + " ".join(f"{n} {e:.2e}" for n, e in zip(names, l2))
+          + f" (tol {BWD_L2_TOL[dtype]:g}), finite {finite}, repeat equal "
+          f"{same}")
+    if (max(errs) > BWD_TOL[dtype] or max(l2) > BWD_L2_TOL[dtype]
+            or not finite or not same):
+        raise SystemExit(f"{kernel} disagrees with its plain version on "
+                         f"{label}")
+    return max(errs), max(l2)
+
+
+def time_scan_bwd(kernel, label, run, plain, nbytes, flops, shape):
+    """Kernel and plain version (ms, the card asleep while the host queues
+    the kernel's calls) beside the bound; no single PyTorch call computes
+    either backward, so library_ms is null."""
+    ms = cuda_ms([run], reps=10)
+    plain_ms = cuda_ms([plain], reps=1)
+    bound_ms, bound_by = scan_bound(nbytes, flops)
+    print(f"{kernel} timing {label}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); no "
+          f"single PyTorch call computes it")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "shape": shape}
+
+
+def check_rwkv6_scan_bwd():
+    """The rwkv6_scan backward kernel against ``rwkv6_scan_bwd_ref`` at
+    RWKV_BWD_CASES (cotangents on y and s_last), the training shape timed
+    in fp32 and bf16.  Returns its record."""
+    record, worst = None, {}
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    for label, b, h, s, d, dtype, layout, extreme in RWKV_BWD_CASES:
+        x = rwkv6_inputs(b, h, s, d, dtype, layout, seed=2)
+        if extreme:
+            x[3][:, :, 0::2] = 1e-30
+            x[3][:, :, 1::2] = 1.0
+        g = torch.Generator("cuda").manual_seed(3)
+        dy = (torch.randn(b, s, h, d, generator=g, device="cuda")
+              .transpose(1, 2) if layout else
+              torch.randn(b, h, s, d, generator=g, device="cuda")).to(dtype)
+        ds_last = torch.randn(b, h, d, d, generator=g, device="cuda")
+        got = rw.rwkv6_scan_bwd(*x, dy, ds_last)
+        again = rw.rwkv6_scan_bwd(*x, dy, ds_last)
+        expect = rwkv6_scan_bwd_ref(*x, dy, ds_last)
+        torch.cuda.synchronize()
+        err, l2 = check_scan_grads("rwkv6_scan_bwd", label, names, got,
+                                   again, expect, dtype)
+        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), l2)
+        del got, again, expect
+        if s == 1024:
+            size = x[0].element_size()
+            times = time_scan_bwd(
+                "rwkv6_scan_bwd", label,
+                lambda: rw.rwkv6_scan_bwd(*x, dy, ds_last),
+                lambda: rwkv6_scan_bwd_ref(*x, dy, ds_last),
+                9 * b * h * s * d * size + 3 * b * h * d * d * 4
+                + 2 * h * d * 4, 8 * b * h * s * d * d,
+                {"b": b, "h": h, "s": s, "d": d, "dtype": str(dtype)})
+            if record is None:
+                record = {"name": "rwkv6_scan_bwd", "route": "cuda",
+                          "source": "src/repro_torch/kernels/csrc/"
+                                    "rwkv6_scan_bwd.cu",
+                          "replaces": "src/repro/kernels/rwkv6_scan.py:53",
+                          **times, "max_abs_err": err}
+            else:
+                record["bf16"] = times
+        del x, dy, ds_last
+        torch.cuda.empty_cache()
+    record["worst_rel_l2"] = worst
+    return record
+
+
+def check_rglru_scan_bwd():
+    """The rglru_scan backward kernel against ``rglru_scan_bwd_ref`` at
+    RGLRU_BWD_CASES (y from the forward kernel, cotangents on y and
+    h_last), the training shape timed in fp32 and bf16.  Returns its
+    record."""
+    record, worst = None, {}
+    names = ("da", "dg", "dh0")
+    for label, b, s, r, dtype, extreme in RGLRU_BWD_CASES:
+        a, gx, h0 = rglru_inputs(b, s, r, dtype, seed=4)
+        if extreme:
+            a[:, 0::2] = 1e-30
+            a[:, 1::2, 0::2] = 1.0
+        with torch.no_grad():
+            y, _ = rg.rglru_scan(a, gx, h0)
+        g = torch.Generator("cuda").manual_seed(5)
+        dy = torch.randn(b, s, r, generator=g, device="cuda").to(dtype)
+        dh_last = torch.randn(b, r, generator=g, device="cuda")
+        got = rg.rglru_scan_bwd(a, gx, h0, y, dy, dh_last)
+        again = rg.rglru_scan_bwd(a, gx, h0, y, dy, dh_last)
+        expect = rglru_scan_bwd_ref(a, gx, h0, y, dy, dh_last)
+        torch.cuda.synchronize()
+        err, l2 = check_scan_grads("rglru_scan_bwd", label, names, got,
+                                   again, expect, dtype)
+        worst[str(dtype)] = max(worst.get(str(dtype), 0.0), l2)
+        del got, again, expect
+        if s == 1024:
+            times = time_scan_bwd(
+                "rglru_scan_bwd", label,
+                lambda: rg.rglru_scan_bwd(a, gx, h0, y, dy, dh_last),
+                lambda: rglru_scan_bwd_ref(a, gx, h0, y, dy, dh_last),
+                5 * b * s * r * a.element_size() + 3 * b * r * 4,
+                3 * b * s * r,
+                {"b": b, "s": s, "r": r, "dtype": str(dtype)})
+            if record is None:
+                record = {"name": "rglru_scan_bwd", "route": "cuda",
+                          "source": "src/repro_torch/kernels/csrc/"
+                                    "rglru_scan_bwd.cu",
+                          "replaces": "src/repro/kernels/rglru_scan.py:47",
+                          **times, "max_abs_err": err}
+            else:
+                record["bf16"] = times
+        del a, gx, h0, y, dy
+        torch.cuda.empty_cache()
+    record["worst_rel_l2"] = worst
+    return record
+
+
 def tree_rel_errs(got, expect):
     """||g - e|| / ||e|| (fp32) of each leaf, in the trees' leaf order."""
     out = []
@@ -3209,12 +3436,32 @@ def tree_rel_errs(got, expect):
     return out
 
 
+def step_counts(cfg):
+    """Launches of each kernel in one train step of ``cfg``: one forward
+    and one backward of every attention and recurrence, and with remat a
+    second forward (the recompute)."""
+    fwd = 2 if cfg.remat else 1
+    if cfg.family == "ssm":
+        return {"rwkv6_scan": fwd * cfg.n_layers,
+                "rwkv6_scan_bwd": cfg.n_layers}
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_every
+        n_rec = cfg.n_layers - n_attn
+        return {"rglru_scan": fwd * n_rec, "rglru_scan_bwd": n_rec,
+                "flash_attention": fwd * n_attn,
+                "flash_attention_bwd": n_attn}
+    n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers
+              if cfg.family == "encdec" else cfg.n_layers)
+    return {"flash_attention": fwd * n_attn, "flash_attention_bwd": n_attn}
+
+
 def check_smoke_train_steps():
     """One train step of each TRAIN_SMOKE smoke config (fp32) on the card
     against the same step on the CPU from the same weights, AdamW state and
     batch: loss, grad_norm and every updated parameter within
-    TRAIN_SMOKE_TOL of max(1, max |CPU|); every attention call once through
-    each flash kernel."""
+    TRAIN_SMOKE_TOL of max(1, max |CPU|); every attention and recurrence
+    call once through its forward kernel and once through its backward
+    (:func:`step_counts`; the smoke configs keep no remat)."""
     b, seq, chunk = TRAIN_SMOKE_SHAPE
     cpu = torch.device("cpu")
     for arch in TRAIN_SMOKE:
@@ -3228,11 +3475,8 @@ def check_smoke_train_steps():
         _build.reset_launches()
         got = step(to_card(params), to_card(state), to_card(batch))
         torch.cuda.synchronize()
-        n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers
-                  if cfg.family == "encdec" else cfg.n_layers)
         check_counts(f"{arch} smoke train step", read_counts(),
-                     {"flash_attention": n_attn,
-                      "flash_attention_bwd": n_attn})
+                     step_counts(cfg))
         errs = {key: abs(got[2][key].item() - expect[2][key].item())
                 / max(1.0, abs(expect[2][key].item()))
                 for key in ("loss", "grad_norm", "lr")}
@@ -3250,21 +3494,41 @@ def check_smoke_train_steps():
                              f"the CPU's")
 
 
-def train_step_flops(cfg, batch, seq):
+# parameters of a model's blocks that are not matmul weights: rwkv6's
+# token-shift mixes and bonus u, recurrentgemma's depthwise conv taps
+ELEMENTWISE_PARAMS = ("mu", "u", "conv_w")
+
+
+def block_matmul_weights(params):
+    """Weights of the blocks' matrix products: every parameter of two or
+    more dims outside the embedding, the head and the final norm, less
+    ELEMENTWISE_PARAMS."""
+    return sum(x.numel() for key, sub in params.items()
+               if key not in ("embed", "head", "final_norm")
+               for path, x in zip(leaf_paths(sub), tree_flatten(sub)[0])
+               if x.dim() >= 2 and path[-1] not in ELEMENTWISE_PARAMS)
+
+
+def train_step_flops(cfg, params, batch, seq):
     """FLOPs of one train step as the code runs it, and the formula: the
-    blocks' and the unembedding's matmuls 4 times (forward, the remat or
-    loss-chunk recompute, and a backward of twice the forward), attention's
-    two forward products 2 times (forward, remat) plus the backward's 5."""
+    blocks' matrix products (:func:`block_matmul_weights`) and the
+    unembedding 4 times (forward, the remat or loss-chunk recompute, and a
+    backward of twice the forward), attention's two forward products 2
+    times (forward, remat) plus the backward's 5; the recurrences' few
+    CUDA-core operations are not counted."""
     tokens = batch * seq
-    d, qd, kvd, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
-    block_w = d * qd + 2 * d * kvd + qd * d + 3 * d * f
-    unembed_w = d * cfg.vocab
+    n_attn = (0 if cfg.family == "ssm"
+              else cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+              else cfg.n_layers)
+    block_w = block_matmul_weights(params)
+    unembed_w = cfg.d_model * cfg.vocab
     attn_fwd = 4 * cfg.hd * cfg.n_heads * batch * seq * (seq + 1) // 2
-    matmul = 4 * 2 * tokens * (cfg.n_layers * block_w + unembed_w)
-    attention = cfg.n_layers * attn_fwd * (2 + 2.5)
-    formula = (f"4 x 2 x {tokens} tokens x ({cfg.n_layers} x {block_w} "
-               f"block weights + {unembed_w} unembedding) + {cfg.n_layers} "
-               f"layers x 4.5 x {attn_fwd} causal attention flops")
+    matmul = 4 * 2 * tokens * (block_w + unembed_w)
+    attention = n_attn * attn_fwd * (2 + 2.5)
+    formula = (f"4 x 2 x {tokens} tokens x ({block_w} block matmul weights "
+               f"of {cfg.n_layers} layers + {unembed_w} unembedding) + "
+               f"{n_attn} attention layers x 4.5 x {attn_fwd} causal "
+               f"attention flops")
     return matmul + attention, formula
 
 
@@ -3272,12 +3536,20 @@ def plain_attention(q, k, v, causal=True, window=None):
     return flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
+def plain_rwkv6_scan(r, k, v, w, u, s0, out=None):
+    return rwkv6_scan_ref(r, k, v, w, u, s0)
+
+
 def grads_of(cfg, params, batch, plain=False):
-    """``loss_and_grads`` of one step; ``plain``: with
-    ``flash_attention_ref`` in the kernel's place."""
+    """``loss_and_grads`` of one step; ``plain``: with the plain versions
+    (``flash_attention_ref``, ``rwkv6_scan_ref``, ``rglru_scan_ref``,
+    differentiated by autograd) in the kernels' places."""
     if not plain:
         return train_steps.loss_and_grads(cfg, params, batch, TRAIN_CHUNK)
-    with unittest.mock.patch.object(lm, "flash_attention", plain_attention):
+    with unittest.mock.patch.object(lm, "flash_attention", plain_attention), \
+            unittest.mock.patch.object(rwkv6, "rwkv6_scan",
+                                       plain_rwkv6_scan), \
+            unittest.mock.patch.object(rglru, "rglru_scan", rglru_scan_ref):
         return train_steps.loss_and_grads(cfg, params, batch, TRAIN_CHUNK)
 
 
@@ -3292,26 +3564,32 @@ def print_leaf_errs(label, names, errs):
             "median": float(np.median(errs))}
 
 
-def check_against_plain_attention(cfg, params, batch):
+def check_against_plain(cfg, params, batch):
     """One step's loss and gradients (bf16, the trained weights) against the
-    same step with the plain attention in the kernel's place: the loss
-    within TRAIN_LOSS_TOL relative, each leaf within TRAIN_GRAD_TOL[bf16];
-    beside it, both steps' distance to the plain step on the weights made
-    fp32 (the bf16 noise, printed); then the kernel's own fp32 step (all
-    layers, its fp32 routes) against that plain fp32 step, the loss within
+    same step with the plain versions in the kernels' places, beside both
+    steps' distance to the plain step on the weights made fp32 (the bf16
+    noise): the loss within TRAIN_LOSS_TOL relative; each leaf that bf16
+    resolves (the plain bf16 step within TRAIN_GRAD_TOL[bf16] of the fp32
+    plain step: every leaf of qwen3-1.7b) within TRAIN_GRAD_TOL[bf16] of
+    the plain bf16 step; each leaf that bf16 does not resolve (where any
+    two bf16 evaluations that round differently part by its noise) no
+    further from the fp32 plain step than the plain bf16 step is, plus
+    TRAIN_GRAD_TOL[bf16].  Then the kernels' own fp32 step (all layers,
+    their fp32 routes) against that plain fp32 step, the loss within
     TRAIN_LOSS_TOL and each leaf within TRAIN_GRAD_TOL[fp32].  Each leaf's
     relative L2 error is printed."""
     names = [".".join(map(str, path)) for path in leaf_paths(params)]
+    tol = TRAIN_GRAD_TOL[torch.bfloat16]
     loss, grads = grads_of(cfg, params, batch)
     loss_p, grads_p = grads_of(cfg, params, batch, plain=True)
     loss_err = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
-    print(f"bf16 step: loss {loss.item():.6f} vs plain attention "
+    print(f"bf16 step: loss {loss.item():.6f} vs the plain versions "
           f"{loss_p.item():.6f} (rel {loss_err:.2e}, tol "
           f"{TRAIN_LOSS_TOL:g})")
     out = {"loss_rel_err": loss_err}
-    out["bf16_vs_plain"] = print_leaf_errs(
-        "bf16 step vs the plain-attention step", names,
-        tree_rel_errs(grads, grads_p))
+    kp = tree_rel_errs(grads, grads_p)
+    out["bf16_vs_plain"] = print_leaf_errs("bf16 step vs the plain step",
+                                           names, kp)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = to_fp32(params)
     loss_f, grads_f = grads_of(cfg32, params32, batch, plain=True)
@@ -3322,25 +3600,39 @@ def check_against_plain_attention(cfg, params, batch):
                                           names, kf)
     out["plain_bf16_vs_fp32"] = print_leaf_errs(
         "plain bf16 step vs the fp32 plain step (the bf16 noise)", names, pf)
-    ratio = max(a / b for a, b in zip(kf, pf))
+    ratio = max(a / b for a, b in zip(kf, pf) if b > 0)
     out["worst_noise_ratio"] = ratio
-    print(f"bf16: the kernel's distance to the fp32 step over the plain "
+    print(f"bf16: the kernels' distance to the fp32 step over the plain "
           f"step's, worst leaf {ratio:.3f}")
+    resolved = [p <= tol for p in pf]
+    out["bf16_resolved_leaves"] = sum(resolved)
+    out["bf16_resolved_worst"] = max(
+        (e for e, r in zip(kp, resolved) if r), default=0.0)
+    out["bf16_unresolved_worst_excess"] = max(
+        (k - p for k, p, r in zip(kf, pf, resolved) if not r), default=0.0)
+    print(f"bf16: {sum(resolved)} of {len(names)} leaves resolved (the plain "
+          f"bf16 step within {tol:g} of the fp32 step), the kernels' step "
+          f"vs the plain step on them worst "
+          f"{out['bf16_resolved_worst']:.3e} (tol {tol:g}); on the others "
+          f"the kernels' distance to the fp32 step beyond the plain bf16 "
+          f"step's, worst {out['bf16_unresolved_worst_excess']:.3e} (tol "
+          f"{tol:g})")
     loss32, grads32 = grads_of(cfg32, params32, batch)
     out["fp32_loss_rel_err"] = abs(loss32.item() - loss_f.item()) / abs(
         loss_f.item())
     out["fp32_vs_plain"] = print_leaf_errs(
-        f"fp32 step ({cfg.n_layers} layers) vs the plain-attention step",
+        f"fp32 step ({cfg.n_layers} layers) vs the plain step",
         names, tree_rel_errs(grads32, grads_f))
     print(f"bounds: loss {TRAIN_LOSS_TOL:g}, gradients bf16 "
           f"{TRAIN_GRAD_TOL[torch.bfloat16]:g}, fp32 "
           f"{TRAIN_GRAD_TOL[torch.float32]:g}")
     if (loss_err > TRAIN_LOSS_TOL
-            or out["bf16_vs_plain"]["worst"] > TRAIN_GRAD_TOL[torch.bfloat16]
+            or out["bf16_resolved_worst"] > tol
+            or out["bf16_unresolved_worst_excess"] > tol
             or out["fp32_loss_rel_err"] > TRAIN_LOSS_TOL
             or out["fp32_vs_plain"]["worst"] > TRAIN_GRAD_TOL[torch.float32]):
-        raise SystemExit("the kernel's train step disagrees with the "
-                         "plain-attention step")
+        raise SystemExit("the kernels' train step disagrees with the "
+                         "plain step")
     return out
 
 
@@ -3355,16 +3647,20 @@ def leaf_paths(tree, prefix=()):
     return [prefix]
 
 
-def run_training_path(smi):
-    """qwen3-1.7b at full width (bf16 weights from seed 0, remat): 1
-    warm-up + TRAIN_STEPS timed train steps of TRAIN_BATCH x SEQ tokens
-    from SyntheticLMDataset, each with every kernel's count set to 0 just
-    before and read just after (flash_attention = 2 x layers: forward and
-    remat; flash_attention_bwd = layers); then one step's loss and
-    gradients against the plain-attention step
-    (:func:`check_against_plain_attention`).  Returns the phase's
-    record."""
-    cfg = configs.get(ARCH).config()
+def run_training_path(arch, smi, layers=None):
+    """``arch`` at full width (bf16 weights from seed 0, remat; ``layers``:
+    cut to its first that many layers, said wherever its numbers are
+    printed): 1 warm-up + TRAIN_STEPS timed train steps of TRAIN_BATCH x
+    SEQ tokens from SyntheticLMDataset, each with every kernel's count set
+    to 0 just before and read just after (:func:`step_counts`: forward and
+    remat, one backward); then one step's loss and gradients against the
+    step through the plain versions (:func:`check_against_plain`).
+    Returns the phase's record."""
+    full = configs.get(arch).config()
+    cfg = (full if layers is None
+           else dataclasses.replace(full, n_layers=layers))
+    cut = ("" if layers is None
+           else f" ({layers} of {full.n_layers} layers)")
     n_params = api.param_count(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3375,11 +3671,12 @@ def run_training_path(smi):
     step = train_steps.make_train_step(
         cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
                          total_steps=TRAIN_STEPS + 1), TRAIN_CHUNK)
-    flops, formula = train_step_flops(cfg, TRAIN_BATCH, SEQ)
-    print(f"training {cfg.name} at full width: {n_params} parameters, "
+    flops, formula = train_step_flops(cfg, params, TRAIN_BATCH, SEQ)
+    expect = step_counts(cfg)
+    print(f"training {cfg.name}{cut} at full width: {n_params} parameters, "
           f"{TRAIN_BATCH} x {SEQ} tokens a step, loss chunk {TRAIN_CHUNK}, "
           f"remat={cfg.remat}; {flops / 1e12:.2f} TFLOP a step = {formula}")
-    rows, launches = [], {"flash_attention": 0, "flash_attention_bwd": 0}
+    rows, launches = [], dict.fromkeys(expect, 0)
     step_launches = None
     for i in range(TRAIN_STEPS + 1):
         batch = train_driver.step_batch(cfg, data, i, TRAIN_BATCH, SEQ, CARD)
@@ -3392,9 +3689,7 @@ def run_training_path(smi):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = read_counts()
-        check_counts(f"train step {i}", counts,
-                     {"flash_attention": 2 * cfg.n_layers,
-                      "flash_attention_bwd": cfg.n_layers})
+        check_counts(f"{arch}{cut} train step {i}", counts, expect)
         for key in launches:
             launches[key] += counts[key]
         if i == 1:                  # the first timed step's counts
@@ -3402,46 +3697,48 @@ def run_training_path(smi):
         row = {"step": i, "loss": m["loss"].item(),
                "grad_norm": m["grad_norm"].item(), "lr": m["lr"].item(),
                "s": dt}
-        print(f"train step {i}{' (warm-up)' if i == 0 else ''}: loss "
-              f"{row['loss']:.4f} grad_norm {row['grad_norm']:.4f} lr "
+        print(f"{arch}{cut} train step {i}{' (warm-up)' if i == 0 else ''}: "
+              f"loss {row['loss']:.4f} grad_norm {row['grad_norm']:.4f} lr "
               f"{row['lr']:.3e} {dt:.3f} s")
         if not (np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])):
-            raise SystemExit(f"train step {i}: a loss or grad_norm that is "
-                             f"not finite")
+            raise SystemExit(f"{arch} train step {i}: a loss or grad_norm "
+                             f"that is not finite")
         rows.append(row)
     peak = torch.cuda.max_memory_allocated()
     step_s = float(np.median([r["s"] for r in rows[1:]]))
-    out = {"arch": ARCH, "batch": TRAIN_BATCH, "seq": SEQ,
-           "loss_chunk": TRAIN_CHUNK, "params": n_params, "steps": rows,
-           "step_s_median": step_s, "tokens_per_s": TRAIN_BATCH * SEQ / step_s,
+    out = {"arch": arch, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+           "seq": SEQ, "loss_chunk": TRAIN_CHUNK, "params": n_params,
+           "steps": rows, "step_s_median": step_s,
+           "tokens_per_s": TRAIN_BATCH * SEQ / step_s,
            "flops_per_step": flops, "flops_formula": formula,
            "peak_share": flops / (step_s * PEAK_FLOPS[torch.bfloat16]),
            "peak_bytes": peak, "launches": launches,
            "launches_per_step": step_launches, "card": smi}
-    print(f"full-width training: median step {step_s:.3f} s, "
+    print(f"{arch}{cut} full-width training: median step {step_s:.3f} s, "
           f"{out['tokens_per_s']:.0f} tokens/s, {flops / 1e12:.2f} TFLOP / "
           f"({step_s:.3f} s x 989 TFLOP/s) = {out['peak_share']:.2%} of the "
           f"bf16 peak; allocator peak {peak / 1e9:.2f} GB")
     del state
     torch.cuda.empty_cache()
-    out["vs_plain"] = check_against_plain_attention(cfg, params, first)
+    t0 = time.perf_counter()
+    out["vs_plain"] = check_against_plain(cfg, params, first)
+    print(f"{arch}{cut}: the steps against the plain versions took "
+          f"{time.perf_counter() - t0:.1f} s")
     del params, first
     torch.cuda.empty_cache()
     return out
 
 
-def run_ft_demo():
+def run_ft_demo(arch, demo, **over):
     """The reference's fault-tolerance demo (``examples/train_lm.py``)
-    through the port's driver on the card: FT_DEMO's steps of qwen3's smoke
-    config at 2 layers, d_model 128, d_ff 256 (fp32) under the
+    through ``launch/train.py`` on the card: ``demo``'s steps of ``arch``'s
+    smoke config (fp32; ``over`` replaces its fields) under the
     TrainSupervisor, checkpoints in a temporary directory, a failure
     injected once; fails unless it restarted once and the mean of the last
     10 losses is below that of the first 10."""
     import shutil
     import tempfile
-    cfg = dataclasses.replace(configs.get(ARCH).smoke_config(), n_layers=2,
-                              d_model=128, d_ff=256)
-    demo = FT_DEMO
+    cfg = dataclasses.replace(configs.get(arch).smoke_config(), **over)
     ckpt = tempfile.mkdtemp(prefix="repro_torch_ft_demo_")
     try:
         _, report, seconds = train_driver.train(
@@ -3453,31 +3750,48 @@ def run_ft_demo():
         shutil.rmtree(ckpt, ignore_errors=True)
     losses = [m["loss"] for _, m in report.history]
     head, tail = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
-    out = {"steps": demo["steps"], "restarts": report.restarts,
+    out = {"arch": arch, "steps": demo["steps"], "restarts": report.restarts,
            "checkpoints": report.checkpoints, "steps_run": len(losses),
            "loss_first10": head, "loss_last10": tail, "seconds": seconds}
-    print(f"fault-tolerance demo: {len(losses)} steps run in {seconds:.1f} s, "
-          f"restarts={report.restarts} checkpoints={report.checkpoints}, "
-          f"loss {head:.3f} -> {tail:.3f}")
+    print(f"{arch} fault-tolerance demo: {len(losses)} steps run in "
+          f"{seconds:.1f} s, restarts={report.restarts} "
+          f"checkpoints={report.checkpoints}, loss {head:.3f} -> {tail:.3f}")
     if report.restarts != 1 or not tail < head:
-        raise SystemExit("fault-tolerance demo: expected one restart and a "
-                         "falling loss")
+        raise SystemExit(f"{arch} fault-tolerance demo: expected one restart "
+                         f"and a falling loss")
     return out
 
 
 def run_training_phase(smi):
-    """The training slice: the backward kernel, the smoke configs' train
-    step card vs CPU, full-width qwen3-1.7b, the fault-tolerance demo."""
+    """The training slice: the backward kernels, the smoke configs' train
+    step card vs CPU, full-width qwen3-1.7b, rwkv6-1.6b and
+    recurrentgemma-9b (GEMMA_TRAIN_LAYERS of its layers), the
+    fault-tolerance demo on qwen3's and rwkv6's smoke configs.  Returns the
+    three backward kernels' records and the phase's record."""
     t0 = time.perf_counter()
     record, worst_l2 = check_flash_attention_bwd()
+    rwkv_bwd = check_rwkv6_scan_bwd()
+    rglru_bwd = check_rglru_scan_bwd()
+    print(f"backward kernel checks and timings: "
+          f"{time.perf_counter() - t0:.1f} s")
     check_smoke_train_steps()
-    out = run_training_path(smi)
+    out = run_training_path(ARCH, smi)
+    out["rwkv6"] = run_training_path(RWKV_ARCH, smi)
+    out["recurrentgemma"] = run_training_path(GEMMA_ARCH, smi,
+                                              layers=GEMMA_TRAIN_LAYERS)
     out["bwd_worst_rel_l2"] = worst_l2
-    out["ft_demo"] = run_ft_demo()
+    out["ft_demo"] = run_ft_demo(ARCH, FT_DEMO, n_layers=2, d_model=128,
+                                 d_ff=256)
+    out["ft_demo_rwkv6"] = run_ft_demo(RWKV_ARCH, RWKV_FT_DEMO)
     record["launches"] = out["launches"]["flash_attention_bwd"]
+    record["launches_recurrentgemma"] = (
+        out["recurrentgemma"]["launches"]["flash_attention_bwd"])
+    rwkv_bwd["launches"] = out["rwkv6"]["launches"]["rwkv6_scan_bwd"]
+    rglru_bwd["launches"] = (
+        out["recurrentgemma"]["launches"]["rglru_scan_bwd"])
     out["seconds"] = time.perf_counter() - t0
     print(f"training phase: {out['seconds']:.1f} s")
-    return record, out
+    return (record, rwkv_bwd, rglru_bwd), out
 
 
 def device_line():
@@ -3524,9 +3838,9 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  {name} ptxas: {line.strip()}")
-    # the three latest redesigns must not spill, nor flash_attention's
-    # head dim 96 instantiations
-    for name in TIMED:
+    # the three latest redesigns and the scans' backwards must not spill,
+    # nor flash_attention's head dim 96 instantiations
+    for name in NO_SPILL:
         log = libs[name].with_suffix(".log").read_text()
         spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
         if not spills or max(spills) > 0:
@@ -3651,9 +3965,13 @@ def main() -> int:
     print(f"segment memory reporter phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"reporter": reporter}))
     print(json.dumps({"spmd": run_spmd_phase(record, smi)}))
-    bwd_record, training = run_training_phase(smi)
+    bwd_records, training = run_training_phase(smi)
     record["launches_train_step"] = (
         training["launches_per_step"]["flash_attention"])
+    rwkv_record["launches_train_step"] = (
+        training["rwkv6"]["launches_per_step"]["rwkv6_scan"])
+    rglru_record["launches_train_step"] = (
+        training["recurrentgemma"]["launches_per_step"]["rglru_scan"])
     print(json.dumps({"training": training}))
 
     zoo_worst = check_cnn_zoo()
@@ -3680,8 +3998,9 @@ def main() -> int:
     ft["fleet"] = run_fleet_phase(members, dev)
     print(json.dumps({"ft": ft}, default=str))
 
-    kernels = [record, bwd_record, decode_record, rwkv_record, rglru_record,
-               qi8_record]
+    bwd_record, rwkv_bwd_record, rglru_bwd_record = bwd_records
+    kernels = [record, bwd_record, decode_record, rwkv_record,
+               rwkv_bwd_record, rglru_record, rglru_bwd_record, qi8_record]
     for rec in kernels:
         rec["design"] = DESIGNS[rec["name"]]
         if rec["name"] in tensor_ops:

@@ -9,11 +9,10 @@ the checkout are read.  A failed build raises; nothing falls back.
 
 Each wrapper calls :func:`count_launch` with its source's name where it
 launches the kernel, and nowhere else; :func:`launches` reads the counts
-and :func:`reset_launches` sets them to 0.  ``flash_attention`` has a
-backward kernel (``csrc/flash_attention_bwd.cu``, counted as
-``flash_attention_bwd``); ``flash_decode``, ``rwkv6_scan`` and
-``rglru_scan`` have none, so each of their wrappers calls
-:func:`refuse_grad` on its CUDA route.
+and :func:`reset_launches` sets them to 0.  ``flash_attention``,
+``rwkv6_scan`` and ``rglru_scan`` have backward kernels
+(``csrc/<name>_bwd.cu``, counted as ``<name>_bwd``); ``flash_decode`` has
+none, so its wrapper calls :func:`refuse_grad` on its CUDA route.
 """
 from __future__ import annotations
 
@@ -59,10 +58,10 @@ def reset_launches() -> None:
 
 def refuse_grad(name: str, *inputs: Optional[torch.Tensor]) -> None:
     """Raise ``RuntimeError`` when autograd records and an input requires
-    a gradient: the kernel of ``csrc/<name>.cu`` has no backward (only
-    ``flash_attention`` has one), so its output would carry no edge to its
-    inputs and every weight upstream would silently get no gradient.  The
-    CPU route differentiates through the plain version."""
+    a gradient: the kernel of ``csrc/<name>.cu`` has no backward (of the
+    float kernels only ``flash_decode``), so its output would carry no edge
+    to its inputs and every weight upstream would silently get no
+    gradient.  The CPU route differentiates through the plain version."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in inputs):
         raise RuntimeError(

@@ -141,6 +141,35 @@ def rglru_scan_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):
     return torch.stack(ys, 1).to(a.dtype), h
 
 
+def rglru_scan_bwd_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
+                       y: torch.Tensor, dy: Optional[torch.Tensor],
+                       dh_last: Optional[torch.Tensor]):
+    """The gradient of :func:`rglru_scan_ref` with respect to a, g and h0,
+    given its output ``y`` and the gradients ``dy`` of y and ``dh_last``
+    of h_last (None: zero), as the reverse recurrence per channel:
+
+        G_t  = dy_t + a_{t+1} G_{t+1},   G_{S-1} = dy_{S-1} + dh_last
+        dg_t = G_t,   da_t = G_t h_{t-1} (h_{-1} = h0),   dh0 = a_0 G_0
+
+    h_{t-1} is read from ``y`` when it is fp32 (then it is the carry);
+    otherwise the fp32 carry is recomputed from a, g and h0, not read from
+    the rounded y.  Returns (da, dg) in a's and g's dtype and dh0 fp32."""
+    af = a.float()
+    hs = (y if y.dtype == torch.float32
+          else rglru_scan_ref(af, g.float(), h0)[0])
+    prev = torch.cat([h0.float()[:, None], hs[:, :-1].float()], dim=1)
+    grad = (torch.zeros_like(h0, dtype=torch.float32) if dh_last is None
+            else dh_last.float())
+    da, dg = torch.empty_like(af), torch.empty_like(af)
+    for t in reversed(range(a.shape[1])):
+        if dy is not None:
+            grad = grad + dy[:, t].float()
+        dg[:, t] = grad
+        da[:, t] = grad * prev[:, t]
+        grad = af[:, t] * grad
+    return da.to(a.dtype), dg.to(g.dtype), grad
+
+
 def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor):
     """Per-head WKV recurrence with an fp32 state.  r/k/v/w: (B,H,S,D);
@@ -157,6 +186,54 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                state + uf * kv))
         state = wf[:, :, t, :, None] * state + kv
     return torch.stack(ys, 2).to(r.dtype), state
+
+
+def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                       dy: Optional[torch.Tensor],
+                       ds_last: Optional[torch.Tensor]):
+    """The gradient of :func:`rwkv6_scan_ref` with respect to r, k, v, w, u
+    and s0, given the gradients ``dy`` of y and ``ds_last`` of s_last
+    (None: zero), as the explicit reverse recurrence.  With S_t the state
+    after step t (S_{-1} = s0) and G_t = dL/dS_t (G_{S-1} = ds_last):
+
+        dr_t = S_{t-1} dy_t + (u * k_t)(v_t . dy_t)
+        dk_t = G_t v_t + (r_t * u)(v_t . dy_t)
+        dv_t = G_t^T k_t + (r_t . (u * k_t)) dy_t
+        dw_t = rowsum(G_t * S_{t-1})
+        du   = sum over batch and time of r_t * k_t (v_t . dy_t)
+        G_{t-1} = diag(w_t) G_t + r_t dy_t^T,   ds0 = G_{-1}
+
+    No step divides by a decay, so decays of 0 and 1 are exact.  Returns
+    (dr, dk, dv, dw) in the inputs' dtype and (du, ds0) fp32."""
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None]                                   # (1, H, D)
+    state = s0.float()
+    states = []                                            # S_{t-1}
+    for t in range(r.shape[2]):
+        states.append(state)
+        state = (wf[:, :, t, :, None] * state
+                 + kf[:, :, t, :, None] * vf[:, :, t, None, :])
+    grad = (torch.zeros_like(state) if ds_last is None
+            else ds_last.float())
+    dyf = torch.zeros_like(vf) if dy is None else dy.float()
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf[0])
+    for t in reversed(range(r.shape[2])):
+        r_t, k_t, v_t, w_t, dy_t = (x[:, :, t] for x in (rf, kf, vf, wf,
+                                                         dyf))
+        vdy = (v_t * dy_t).sum(-1, keepdim=True)           # (B, H, 1)
+        dr[:, :, t] = (torch.einsum("bhkv,bhv->bhk", states[t], dy_t)
+                       + uf * k_t * vdy)
+        dk[:, :, t] = (torch.einsum("bhkv,bhv->bhk", grad, v_t)
+                       + r_t * uf * vdy)
+        dv[:, :, t] = (torch.einsum("bhkv,bhk->bhv", grad, k_t)
+                       + (r_t * uf * k_t).sum(-1, keepdim=True) * dy_t)
+        dw[:, :, t] = (grad * states[t]).sum(-1)
+        du = du + (r_t * k_t * vdy).sum(0)
+        grad = w_t[..., None] * grad + r_t[..., None] * dy_t[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du, grad)
 
 
 def matmul_qi8_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -16,17 +16,26 @@ piece by piece along S into shared memory, several pieces in flight, and
 walks each piece in order.  Both routes run the step recurrence's FMAs in
 the same order, so their results are equal bit for bit, and either is one
 CUDA launch a call.
+
+While autograd records and an input requires grad, the call goes through
+a :class:`torch.autograd.Function` whose forward is the same launch and
+saves a, g, h0 and y; its backward is :func:`rglru_scan_bwd`, the
+hand-written backward kernel ``csrc/rglru_scan_bwd.cu`` (counted as
+``rglru_scan_bwd``; it reads the carry from an fp32 y and recomputes it
+for bf16 inputs), or on CPU tensors the plain
+:func:`~repro_torch.kernels.ref.rglru_scan_bwd_ref`.  Otherwise (serving,
+``torch.no_grad``) nothing is saved.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
-from .ref import rglru_scan_ref
+from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -84,18 +93,93 @@ def _check(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor) -> None:
 
 
 def rglru_scan(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):
-    """a/g: (B, S, R); h0: (B, R) -> (y (B, S, R), h_last (B, R) fp32)."""
+    """a/g: (B, S, R); h0: (B, R) -> (y (B, S, R), h_last (B, R) fp32).
+    Differentiable in a, g and h0."""
     _check(a, g, h0)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (a, g, h0)):
+        return _RGLRUScan.apply(a, g, h0)
+    return _forward(a, g, h0)
+
+
+def _forward(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):
     if a.device.type == "cpu":
         return rglru_scan_ref(a, g, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan runs on CUDA or CPU tensors, not "
-                         f"{a.device}")
+    _cuda_check(a)
     _, s, r = a.shape
     out = launch(a, g, h0, scan_plan(s, r, a.element_size(),
                                      _aligned(a, g)))
     _build.count_launch("rglru_scan")
     return out
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The kernel with its backward; the CPU route's are the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, a, g, h0):
+        y, h_last = _forward(a, g, h0)
+        ctx.save_for_backward(a, g, h0, y)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        a, g, h0, y = ctx.saved_tensors
+        da, dg, dh0 = rglru_scan_bwd(a, g, h0, y, dy, dh_last)
+        return da, dg, dh0.to(h0.dtype)
+
+
+def _cuda_check(a: torch.Tensor) -> None:
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan runs on CUDA or CPU tensors, not "
+                         f"{a.device}")
+
+
+def rglru_scan_bwd(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
+                   y: torch.Tensor, dy: Optional[torch.Tensor],
+                   dh_last: Optional[torch.Tensor]):
+    """The gradient of :func:`rglru_scan` given its output ``y`` and the
+    gradients of y (``dy``) and h_last (``dh_last``; either None: zero) ->
+    (da, dg) in a's dtype, dh0 fp32.  CUDA tensors: one counted launch of
+    the backward kernel (fp32: the carry read from y; bf16: recomputed
+    into fp32 scratch first); CPU tensors: the plain
+    :func:`~repro_torch.kernels.ref.rglru_scan_bwd_ref`."""
+    _check(a, g, h0)
+    for name, x, shape in (("y", y, a.shape), ("dy", dy, a.shape),
+                           ("dh_last", dh_last, h0.shape)):
+        if x is not None and (x.shape != shape or x.device != a.device):
+            raise ValueError(f"rglru_scan_bwd wants {name} of shape "
+                             f"{tuple(shape)} on {a.device}; got "
+                             f"{tuple(x.shape)} on {x.device}")
+    if a.device.type == "cpu":
+        return rglru_scan_bwd_ref(a, g, h0, y, dy, dh_last)
+    _cuda_check(a)
+    b, s, r = a.shape
+    a, g = a.contiguous(), g.contiguous()
+    dy = (torch.zeros_like(a) if dy is None
+          else dy.to(a.dtype).contiguous())
+    recompute = a.dtype != torch.float32
+    hs = (torch.empty((b, s, r), dtype=torch.float32, device=a.device)
+          if recompute else y.float().contiguous())
+    h0_32 = h0.float().contiguous()
+    if dh_last is not None:
+        dh_last = dh_last.float().contiguous()
+    da, dg = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty((b, r), dtype=torch.float32, device=a.device)
+    fn = _bwd_kernel()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), g.data_ptr(), h0_32.data_ptr(),
+                 hs.data_ptr(), dy.data_ptr(),
+                 None if dh_last is None else dh_last.data_ptr(),
+                 da.data_ptr(), dg.data_ptr(), dh0.data_ptr(),
+                 _DTYPES[a.dtype], b, s, r, int(recompute), stream)
+    if err != 0:
+        raise RuntimeError(f"rglru_scan_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    _build.count_launch("rglru_scan_bwd")
+    return da, dg, dh0
 
 
 def launch(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
@@ -104,7 +188,6 @@ def launch(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
     (uncounted: :func:`rglru_scan` counts its calls)."""
     if not (a.is_contiguous() and g.is_contiguous()):
         raise ValueError("rglru_scan kernel needs contiguous a and g")
-    _build.refuse_grad("rglru_scan", a, g, h0)
     b, s, r = a.shape
     if plan.route == "staged" and not staged_fits(r, a.element_size(),
                                                   _aligned(a, g)):
@@ -129,6 +212,15 @@ def launch(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
 def _kernel():
     fn = _build.load("rglru_scan").rglru_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = _build.load("rglru_scan_bwd").rglru_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

@@ -17,6 +17,16 @@ e.g. the ``(B, H, S, D)`` view of a ``(B, S, H, D)`` buffer, so the caller
 reshapes it to ``(B, S, H * D)`` for free.  The kernel copies r/k/v/w rows
 16 bytes at a time, so their base pointers and strides must be 16-byte
 aligned (a contiguous projection's are).
+
+While autograd records and an input requires grad, the call goes through
+a :class:`torch.autograd.Function` whose forward is the same launch (on
+CUDA into a new ``(B, S, H, D)`` buffer returned as its ``(B, H, S, D)``
+view; ``out`` is not written) and saves r, k, v, w, u and s0; its backward
+is :func:`rwkv6_scan_bwd`, the hand-written backward kernel
+``csrc/rwkv6_scan_bwd.cu`` (counted as ``rwkv6_scan_bwd``), which
+recomputes the states from s0, or on CPU tensors the plain
+:func:`~repro_torch.kernels.ref.rwkv6_scan_bwd_ref`.  Otherwise (serving,
+``torch.no_grad``) nothing is saved.
 """
 from __future__ import annotations
 
@@ -27,9 +37,10 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import rwkv6_scan_ref
+from .ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
 
 HEAD_DIMS = (16, 32, 64)
+BWD_PIECE = 8       # steps between the backward kernel's saved states
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,30 +69,73 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
                out: Optional[torch.Tensor] = None):
     """r/k/v/w: (B, H, S, D); u: (H, D); s0: (B, H, D, D) -> (y, s_last).
-    ``out``: optional (B, H, S, D) tensor of r's dtype that receives y."""
+    ``out``: optional (B, H, S, D) tensor of r's dtype that receives y
+    when autograd does not record.  Differentiable in every input."""
     _check(r, k, v, w, u, s0, out)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, w, u, s0)):
+        return _RWKV6Scan.apply(r, k, v, w, u, s0)
     if r.device.type == "cpu":
         y, s_last = rwkv6_scan_ref(r, k, v, w, u, s0)
         if out is None:
             return y, s_last
         out.copy_(y)
         return out, s_last
+    return _forward(r, k, v, w, u, s0, out)
+
+
+class _RWKV6Scan(torch.autograd.Function):
+    """The kernel with its backward; the CPU route's are the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        if r.device.type == "cpu":
+            y, s_last = rwkv6_scan_ref(r, k, v, w, u, s0)
+        else:
+            b, h, s, d = r.shape
+            out = torch.empty((b, s, h, d), dtype=r.dtype,
+                              device=r.device).transpose(1, 2)
+            y, s_last = _forward(r, k, v, w, u, s0, out)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)
+        return y, s_last
+
+    @staticmethod
+    def backward(ctx, dy, ds_last):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        dr, dk, dv, dw, du, ds0 = rwkv6_scan_bwd(r, k, v, w, u, s0, dy,
+                                                 ds_last)
+        return dr, dk, dv, dw, du.to(u.dtype), ds0.to(s0.dtype)
+
+
+def _cuda_checks(r: torch.Tensor) -> None:
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan runs on CUDA or CPU tensors, not "
                          f"{r.device}")
-    b, h, s, d = r.shape
-    if d not in HEAD_DIMS:
+    if r.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan kernel takes head dims {HEAD_DIMS}, "
-                         f"got {d}")
-    _build.refuse_grad("rwkv6_scan", r, k, v, w, u, s0)
+                         f"got {r.shape[-1]}")
+
+
+def _rows_aligned(*xs: torch.Tensor) -> bool:
+    """Whether the kernels' 16-byte copies can read the rows of each x: the
+    head dim contiguous, the base pointer and the batch, head and sequence
+    strides on 16 bytes."""
+    return all(x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and not any(
+        st * x.element_size() % 16 for st in x.stride()[:3]) for x in xs)
+
+
+def _forward(r, k, v, w, u, s0, out):
+    """One counted launch of the forward kernel on checked CUDA inputs."""
+    _cuda_checks(r)
+    b, h, s, d = r.shape
     if out is None:
         out = torch.empty_like(r)
     if any(x.stride(-1) != 1 for x in (r, k, v, w, out)):
         raise ValueError("rwkv6_scan needs a contiguous head dim (stride 1 "
                          "on the last axis of r/k/v/w and out)")
-    size = r.element_size()
-    if any(x.data_ptr() % 16 or any(st * size % 16 for st in x.stride()[:3])
-           for x in (r, k, v, w)):
+    if not _rows_aligned(r, k, v, w):
         raise ValueError("rwkv6_scan needs 16-byte aligned r/k/v/w rows "
                          "(base pointer and batch/head/seq strides)")
     u32 = u.float().contiguous()
@@ -103,10 +157,77 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, s_last
 
 
+def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                   dy: Optional[torch.Tensor],
+                   ds_last: Optional[torch.Tensor]):
+    """The gradient of :func:`rwkv6_scan` given those of y (``dy``) and
+    s_last (``ds_last``; either None: zero) -> (dr, dk, dv, dw) in the
+    inputs' dtype and layouts, (du, ds0) fp32.  CUDA tensors: one counted
+    call of the backward kernel (two launches: the gradient, then du's
+    fixed-order sum over the batch rows); CPU tensors: the plain
+    :func:`~repro_torch.kernels.ref.rwkv6_scan_bwd_ref`."""
+    _check(r, k, v, w, u, s0, None)
+    for name, x, shape in (("dy", dy, r.shape), ("ds_last", ds_last,
+                                                 s0.shape)):
+        if x is not None and (x.shape != shape or x.device != r.device):
+            raise ValueError(f"rwkv6_scan_bwd wants {name} of shape "
+                             f"{tuple(shape)} on {r.device}; got "
+                             f"{tuple(x.shape)} on {x.device}")
+    if r.device.type == "cpu":
+        return rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dy, ds_last)
+    _cuda_checks(r)
+    b, h, s, d = r.shape
+    if not _rows_aligned(r, k, v, w):
+        raise ValueError("rwkv6_scan_bwd needs 16-byte aligned r/k/v/w rows "
+                         "(base pointer and batch/head/seq strides)")
+    if dy is None:
+        dy = torch.zeros_like(r)
+    elif dy.dtype != r.dtype or not _rows_aligned(dy):
+        dy = dy.to(r.dtype).contiguous()
+    if ds_last is not None:
+        ds_last = ds_last.float().contiguous()
+    # r/k/v/w's layouts (or contiguous ones): rows aligned as theirs are
+    grads = [torch.empty_like(x) for x in (r, k, v, w)]
+    dev = r.device
+    du_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+    du = torch.empty((h, d), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((b, h, -(-s // BWD_PIECE), d, d),
+                       dtype=torch.float32, device=dev)
+    u32 = u.float().contiguous()
+    s0_32 = s0.float().contiguous()
+    strides = (ctypes.c_longlong * 27)(
+        *(st for x in (r, k, v, w, dy, *grads) for st in x.stride()[:3]))
+    fn = _bwd_kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                 u32.data_ptr(), s0_32.data_ptr(), dy.data_ptr(),
+                 None if ds_last is None else ds_last.data_ptr(),
+                 *(x.data_ptr() for x in grads), du_part.data_ptr(),
+                 du.data_ptr(), ds0.data_ptr(), ckpt.data_ptr(),
+                 _DTYPES[r.dtype], b, h, s, d, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    _build.count_launch("rwkv6_scan_bwd")
+    return (*grads, du, ds0)
+
+
 @functools.cache
 def _kernel():
     fn = _build.load("rwkv6_scan").rwkv6_scan_fwd
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = _build.load("rwkv6_scan_bwd").rwkv6_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

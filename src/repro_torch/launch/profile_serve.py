@@ -31,11 +31,11 @@ a numpy seed), and one of ``--max-new-tokens`` greedy decode steps of
 (rwkv6: in one call; recurrentgemma and whisper: token by token; whisper's
 cache built from its encoder's memory of the same clips).
 
-Training (``--train-steps N``, the attention families and whisper): one
-window of N train steps (``launch/steps.py``'s ``make_train_step``, the
-driver's AdamW) of ``--requests`` rows x ``--seq`` tokens from
+Training (``--train-steps N``, every family but vlm): one window of N
+train steps (``launch/steps.py``'s ``make_train_step``, the AdamW settings of
+``launch/train.py``) of ``--requests`` rows x ``--seq`` tokens from
 ``SyntheticLMDataset`` (loss chunks of min(512, seq)), after one
-unprofiled step; the backward kernel's launches are their own kind.
+unprofiled step; each backward kernel's launches are their own kind.
 
 A CNN of the paper's zoo (``--model cnn:<Name>`` or
 ``synthetic-cnn:<f>``; fp32, TF32 off as the reference's function): one
@@ -53,7 +53,7 @@ thread and CUDA stream per stage), after an unprofiled round.
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --model cnn:ResNet50 --requests 64
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-        --train-steps 3 --requests 8 --seq 1024
+        --train-steps 3 --requests 8 --seq 1024 [--arch rwkv6-1.6b]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --workload decode --decode-concurrency 8 --max-context 2048 \\
         --prompt-len 1024 --max-new-tokens 64 --requests 16 \\
@@ -79,6 +79,10 @@ KINDS = (("flash_attention", ("flash_attention",)),
          # flash_attention_bwd's kernels (dK/dV, dQ; fp32 and mma routes)
          ("flash_attention_bwd", ("dkdv_", "dq_kernel<", "dq_mma_kernel<")),
          ("flash_decode", ("flash_decode",)),
+         # the scans' backward kernels (rwkv6's gradient and du passes)
+         # before their forwards, whose keys the rglru one also holds
+         ("rwkv6_scan_bwd", ("rwkv6_bwd", "rwkv6_du")),
+         ("rglru_scan_bwd", ("rglru_bwd",)),
          ("rwkv6_scan", ("rwkv6_scan",)),
          # rglru_scan's step and staged kernels
          ("rglru_scan", ("rglru_",)),

@@ -22,6 +22,9 @@ of any length, its keys masked to the last ``local_window`` positions;
 ``attn_block_decode`` over the ring cache of min(max_len, window) rows for
 a decode token).
 
+``cfg.remat`` checkpoints each super-block and each tail layer of a
+forward that autograd records, as the reference's.
+
 Decode state: the conv tail (W - 1 inputs) and the fp32 LRU h per rec
 layer, a ring KV cache per attention layer.
 """
@@ -31,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rglru_scan import rglru_scan
 from . import attention as A
@@ -164,21 +168,46 @@ def _attn_layer(cfg: LMConfig, ab: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
+def super_block(cfg: LMConfig, sb: Params, x: torch.Tensor,
+                positions: torch.Tensor, zero: Params) -> torch.Tensor:
+    """One (rec1, rec2, attn) super-block of the full-sequence forward
+    (the reference's ``super_fn``)."""
+    x, _ = rec_layer(cfg, sb["rec1"], x, zero)
+    x, _ = rec_layer(cfg, sb["rec2"], x, zero)
+    return _attn_layer(cfg, sb["attn"], x, lambda h: lm.attn_block(
+        cfg, sb["attn"]["attn"], h, positions, window=cfg.local_window))
+
+
+def tail_layer(cfg: LMConfig, bp: Params, x: torch.Tensor,
+               zero: Params) -> torch.Tensor:
+    """One trailing rec layer of the full-sequence forward (the
+    reference's ``tail_fn``)."""
+    return rec_layer(cfg, bp, x, zero)[0]
+
+
 def forward_hidden(cfg: LMConfig, params: Params,
                    batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Post-block hidden states (B, S, D): pair with :func:`unembed`."""
+    """Post-block hidden states (B, S, D): pair with :func:`unembed`.
+
+    With ``cfg.remat``, while autograd records (grad mode on and the hidden
+    state requiring grad), each super-block and each tail layer runs under
+    :func:`torch.utils.checkpoint.checkpoint` (non-reentrant), as the
+    reference's ``jax.checkpoint`` of ``super_fn`` and ``tail_fn``."""
     require_ported(cfg, "hybrid")
     x = lm.embed_tokens(cfg, params, batch["tokens"])
     positions = lm.positions_for(cfg, x)
     zero = _zero_rec_state(cfg, x.shape[0], x.device)
+    remat = cfg.remat and torch.is_grad_enabled() and x.requires_grad
+
+    def run(fn, *args):
+        if remat:
+            return checkpoint(fn, cfg, *args, use_reentrant=False)
+        return fn(cfg, *args)
+
     for sb in params["super"]:
-        x, _ = rec_layer(cfg, sb["rec1"], x, zero)
-        x, _ = rec_layer(cfg, sb["rec2"], x, zero)
-        x = _attn_layer(cfg, sb["attn"], x, lambda h, ab=sb["attn"]:
-                        lm.attn_block(cfg, ab["attn"], h, positions,
-                                      window=cfg.local_window))
+        x = run(super_block, sb, x, positions, zero)
     for bp in params.get("tail", []):
-        x, _ = rec_layer(cfg, bp, x, zero)
+        x = run(tail_layer, bp, x, zero)
     return x
 
 

@@ -15,7 +15,10 @@ Every layer's WKV, over a prompt (S > 1) and for one decode token (S = 1),
 goes through :func:`repro_torch.kernels.rwkv6_scan.rwkv6_scan` (the CUDA
 kernel on the card, its plain version on the CPU): r/k/v/w in fp32 as
 ``(B, H, S, D)`` views of the ``(B, S, H, D)`` projections, y written into a
-``(B, S, H, D)`` buffer.  The reference evaluates the same recurrence by
+``(B, S, H, D)`` buffer (under autograd into the kernel's own buffer of
+that layout, with its backward kernel behind it).  ``cfg.remat``
+checkpoints each block of a forward that autograd records, as the
+reference's.  The reference evaluates the same recurrence by
 its chunked-parallel form for S > 1 (``wkv_chunked``) and by a per-token
 scan for S = 1; the kernel computes the recurrence itself.
 
@@ -29,6 +32,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rwkv6_scan import rwkv6_scan
 from . import attention as A
@@ -137,11 +141,11 @@ def time_mix(cfg: LMConfig, tm: Params, x: torch.Tensor,
                for xi, name in ((x_r, "wr"), (x_k, "wk"), (x_v, "wv")))
     g = F.silu(x_g @ tm["wg"])
     w = _decay(tm, x_w).reshape(b, s, h, hd)
-    y = torch.empty((b, s, h, hd), dtype=torch.float32, device=x.device)
-    _, state = rwkv6_scan(*(t.transpose(1, 2) for t in (r, k, v, w)),
-                          tm["u"], state, out=y.transpose(1, 2))
-    y = A.layer_norm(y.reshape(b, s, d).to(x.dtype), tm["ln_x"]["scale"],
-                     tm["ln_x"]["bias"])
+    buf = torch.empty((b, s, h, hd), dtype=torch.float32, device=x.device)
+    y, state = rwkv6_scan(*(t.transpose(1, 2) for t in (r, k, v, w)),
+                          tm["u"], state, out=buf.transpose(1, 2))
+    y = A.layer_norm(y.transpose(1, 2).reshape(b, s, d).to(x.dtype),
+                     tm["ln_x"]["scale"], tm["ln_x"]["bias"])
     return (y * g) @ tm["wo"], x[:, -1], state
 
 
@@ -183,14 +187,33 @@ def block(cfg: LMConfig, bp: Params, x: torch.Tensor, st: Params):
     return x + out, {"wkv": wkv, "shift_tm": sh_tm, "shift_cm": sh_cm}
 
 
+def _block_hidden(cfg: LMConfig, bp: Params, x: torch.Tensor,
+                  st: Params) -> torch.Tensor:
+    return block(cfg, bp, x, st)[0]
+
+
 def _run_blocks(cfg: LMConfig, params: Params, tokens: torch.Tensor,
                 states: Optional[List[Params]]):
+    """The blocks from the embedding, each from its state in ``states``
+    (None: zero states, the full-sequence forward).  With ``cfg.remat``,
+    while autograd records a full-sequence forward (grad mode on and the
+    hidden state requiring grad), each block runs under
+    :func:`torch.utils.checkpoint.checkpoint` (non-reentrant), as the
+    reference's ``jax.checkpoint`` of its scan body: only its input is
+    kept, the backward recomputes its forward, scan kernel included, and
+    its new state is not returned (None)."""
     embed = params["embed"]
     x = embed[tokens.to(embed.device)]
+    remat = (states is None and cfg.remat and torch.is_grad_enabled()
+             and x.requires_grad)
     if states is None:
         states = [_zero_layer_state(cfg, x.shape[0], x.device)] * cfg.n_layers
     new_states = []
     for bp, st in zip(params["blocks"], states):
+        if remat:
+            x = checkpoint(_block_hidden, cfg, bp, x, st, use_reentrant=False)
+            new_states.append(None)
+            continue
         x, st = block(cfg, bp, x, st)
         new_states.append(st)
     return x, new_states

@@ -19,7 +19,8 @@ flash-attention backward: each of dq, dk and dv within 1e-4 (fp32) or
 its scale max(1, max |plain|), within 1e-5 (fp32) or 1e-2 (bf16)
 relative L2 error (which a wrong bulk of rows moves even where causal
 attention's first rows set the scale), and equal bit for bit from call
-to call.
+to call.  The scans' backwards: each gradient within the same two bounds
+(fp32: summation order; bf16: one rounding of each gradient).
 """
 import time
 
@@ -41,7 +42,8 @@ from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.checkpoint.store import tree_map
 from repro_torch.kernels.ref import (flash_attention_bwd_ref,
                                      flash_attention_ref, flash_decode_ref,
-                                     matmul_qi8_ref, rglru_scan_ref,
+                                     matmul_qi8_ref, rglru_scan_bwd_ref,
+                                     rglru_scan_ref, rwkv6_scan_bwd_ref,
                                      rwkv6_scan_ref)
 from repro_torch.launch import serve
 from repro_torch.models import api, cnn, lm, whisper
@@ -726,12 +728,12 @@ def _grad_inputs(name, dev):
             r(2, 64))
 
 
-@pytest.mark.parametrize("name", ["flash_decode", "rwkv6_scan",
-                                  "rglru_scan"])
+@pytest.mark.parametrize("name", ["flash_decode"])
 def test_kernels_refuse_a_gradient_on_card(sm90, name):
     """Asked for a gradient, a kernel with no backward raises instead of
     returning an output with no autograd edge; under no_grad it runs.
-    (flash_attention has a backward: the tests below.)"""
+    (flash_attention, rwkv6_scan and rglru_scan have backwards: the tests
+    below.)"""
     fn = {"flash_decode": fd.flash_decode, "rwkv6_scan": rw.rwkv6_scan,
           "rglru_scan": rg.rglru_scan}[name]
     args = _grad_inputs(name, sm90)
@@ -842,8 +844,152 @@ def test_flash_attention_differentiates_on_card(sm90, dtype, window):
     _assert_grads_close(grads[0], grads[1], dtype)
 
 
+# ---------------------------------------------------------------------------
+# the scans' backwards
+# ---------------------------------------------------------------------------
+def _assert_scan_grads(got, expect, dtype):
+    """Each gradient finite, its largest deviation within BWD_TOL of its
+    scale max(1, max |plain|) and its relative L2 error within
+    BWD_L2_TOL."""
+    for a, e in zip(got, expect):
+        assert a.shape == e.shape and a.dtype == e.dtype
+        a, e = a.float(), e.float()
+        assert bool(torch.isfinite(a).all())
+        scale = max(1.0, e.abs().max().item())
+        assert (a - e).abs().max().item() <= BWD_TOL[dtype] * scale
+        norm = torch.linalg.vector_norm(e).item()
+        l2 = torch.linalg.vector_norm(a - e).item() / (norm or 1.0)
+        assert l2 <= BWD_L2_TOL[dtype], l2
+
+
+def _rwkv6_bwd_case(dev, b, h, s, d, dtype, layout, extreme=False):
+    g = torch.Generator(dev).manual_seed(5)
+
+    def x(scale=1.0, uniform=False):
+        shape = (b, s, h, d) if layout else (b, h, s, d)
+        t = (0.7 + 0.3 * torch.rand(shape, generator=g, device=dev)
+             if uniform else
+             scale * torch.randn(shape, generator=g, device=dev))
+        t = t.to(DTYPES[dtype])
+        return t.transpose(1, 2) if layout else t
+
+    r, k, v, w = x(), x(0.2), x(), x(uniform=True)
+    if extreme:           # alternate steps at the two ends of [0, 1]
+        w[:, :, 0::2] = 1e-30
+        w[:, :, 1::2] = 1.0
+    u = 0.2 * torch.randn(h, d, generator=g, device=dev)
+    s0 = 0.1 * torch.randn(b, h, d, d, generator=g, device=dev)
+    dy = x()
+    ds_last = torch.randn(b, h, d, d, generator=g, device=dev)
+    return (r, k, v, w, u, s0), dy, ds_last
+
+
+@pytest.mark.parametrize("b,h,s,d,dtype,layout,extreme", [
+    (8, 32, 1024, 64, "float32", True, False),   # rwkv6-1.6b's training
+    (2, 32, 300, 64, "float32", True, False),    # ragged S
+    (2, 4, 257, 32, "float32", False, False),
+    (2, 4, 100, 16, "float32", True, False),
+    (4, 32, 1, 64, "float32", True, False),      # S = 1
+    (2, 32, 31, 64, "float32", True, True),      # decays 1e-30 and 1
+    (2, 32, 300, 64, "bfloat16", True, False),
+    (2, 4, 70, 16, "bfloat16", False, False),
+])
+def test_rwkv6_scan_bwd_matches_plain(sm90, b, h, s, d, dtype, layout,
+                                      extreme):
+    xs, dy, ds_last = _rwkv6_bwd_case(sm90, b, h, s, d, dtype, layout,
+                                      extreme)
+    _build.reset_launches()
+    got = rw.rwkv6_scan_bwd(*xs, dy, ds_last)
+    again = rw.rwkv6_scan_bwd(*xs, dy, ds_last)
+    torch.cuda.synchronize()
+    assert _build.launches("rwkv6_scan_bwd") == 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    # the gradients keep their inputs' layouts
+    for a, x in zip(got[:4], xs[:4]):
+        assert a.stride() == x.stride()
+    _assert_scan_grads(got, rwkv6_scan_bwd_ref(*xs, dy, ds_last), dtype)
+
+
+def test_rwkv6_scan_bwd_takes_absent_cotangents(sm90):
+    xs, dy, ds_last = _rwkv6_bwd_case(sm90, 2, 4, 40, 64, "float32", True)
+    for args in ((dy, None), (None, ds_last)):
+        _assert_scan_grads(rw.rwkv6_scan_bwd(*xs, *args),
+                           rwkv6_scan_bwd_ref(*xs, *args), "float32")
+
+
+@pytest.mark.parametrize("b,s,r,dtype,extreme", [
+    (8, 1024, 4096, "float32", False),        # recurrentgemma's training
+    (2, 40, 4096, "float32", False),          # a short S
+    (2, 1, 4096, "float32", False),           # S = 1
+    (3, 300, 1000, "float32", True),          # ragged R, decays 1e-30 / 1
+    (8, 1024, 4096, "bfloat16", False),
+    (2, 77, 1001, "bfloat16", True),
+])
+def test_rglru_scan_bwd_matches_plain(sm90, b, s, r, dtype, extreme):
+    a, x, h0 = (t.to(sm90) for t in _rglru_bwd_inputs(b, s, r, dtype,
+                                                      extreme))
+    g = torch.Generator(sm90).manual_seed(9)
+    y, _ = rg.rglru_scan(a, x, h0)
+    dy = torch.randn(b, s, r, generator=g, device=sm90).to(DTYPES[dtype])
+    dh_last = torch.randn(b, r, generator=g, device=sm90)
+    _build.reset_launches()
+    got = rg.rglru_scan_bwd(a, x, h0, y, dy, dh_last)
+    torch.cuda.synchronize()
+    assert _build.launches("rglru_scan_bwd") == 1
+    _assert_scan_grads(got, rglru_scan_bwd_ref(a, x, h0, y, dy, dh_last),
+                       dtype)
+
+
+def _rglru_bwd_inputs(b, s, r, dtype, extreme):
+    g = torch.Generator().manual_seed(8)
+    a = 0.3 + 0.7 * torch.rand(b, s, r, generator=g)
+    if extreme:
+        a[:, 0::2] = 1e-30
+        a[:, 1::2, 0::2] = 1.0
+    x = 0.2 * torch.randn(b, s, r, generator=g)
+    return a.to(DTYPES[dtype]), x.to(DTYPES[dtype]), torch.randn(
+        b, r, generator=g)
+
+
+@pytest.mark.parametrize("name", ["rwkv6_scan", "rglru_scan"])
+def test_scan_differentiates_on_card(sm90, name):
+    """Inputs that require grad: one forward launch and one backward
+    launch, every input's gradient that of autograd through the plain
+    version on the same card."""
+    fn, plain = {"rwkv6_scan": (rw.rwkv6_scan, rwkv6_scan_ref),
+                 "rglru_scan": (rg.rglru_scan, rglru_scan_ref)}[name]
+    args = _grad_inputs(name, sm90)
+    g = torch.Generator(sm90).manual_seed(4)
+    grads = []
+    for f in (fn, plain):
+        leaves = [x.detach().clone().requires_grad_() for x in args]
+        _build.reset_launches()
+        y, last = f(*leaves)
+        torch.autograd.backward(
+            (y, last), (torch.randn(y.shape, generator=g, device=sm90),
+                        torch.randn(last.shape, generator=g, device=sm90)))
+        torch.cuda.synchronize()
+        launched = (_build.launches(name), _build.launches(name + "_bwd"))
+        assert launched == ((1, 1) if f is fn else (0, 0))
+        grads.append([x.grad for x in leaves])
+        g.manual_seed(4)
+    _assert_scan_grads(grads[0], grads[1], "float32")
+
+
+TRAIN_COUNTS = {  # per smoke config: kernel -> launches of one train step
+    "rwkv6-1.6b": lambda cfg: {"rwkv6_scan": cfg.n_layers,
+                               "rwkv6_scan_bwd": cfg.n_layers},
+    "recurrentgemma-9b": lambda cfg: {
+        "rglru_scan": cfg.n_layers - cfg.n_layers // cfg.attn_every,
+        "rglru_scan_bwd": cfg.n_layers - cfg.n_layers // cfg.attn_every,
+        "flash_attention": cfg.n_layers // cfg.attn_every,
+        "flash_attention_bwd": cfg.n_layers // cfg.attn_every},
+}
+
+
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
-                                  "whisper-tiny"])
+                                  "whisper-tiny", "rwkv6-1.6b",
+                                  "recurrentgemma-9b"])
 def test_smoke_train_step_on_card_matches_cpu(sm90, arch):
     """The smoke config (fp32, TF32 off) from the same weights, state and
     batch: each gradient leaf within 1e-4 relative L2 of the CPU's, every
@@ -872,8 +1018,12 @@ def test_smoke_train_step_on_card_matches_cpu(sm90, arch):
     # decoder's self- and cross-attention
     n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers
               if cfg.family == "encdec" else cfg.n_layers)
-    assert _build.launches("flash_attention") == n_attn
-    assert _build.launches("flash_attention_bwd") == n_attn
+    expect = TRAIN_COUNTS.get(arch, lambda cfg: {
+        "flash_attention": n_attn, "flash_attention_bwd": n_attn})(cfg)
+    for name in ("flash_attention", "flash_attention_bwd", "flash_decode",
+                 "rwkv6_scan", "rwkv6_scan_bwd", "rglru_scan",
+                 "rglru_scan_bwd"):
+        assert _build.launches(name) == expect.get(name, 0), name
     loss_cpu, grads_cpu = steps.loss_and_grads(cfg, params, batch, 32)
     torch.testing.assert_close(loss.cpu(), loss_cpu, rtol=1e-5, atol=0)
     for a, e in zip(tree_flatten(grads)[0], tree_flatten(grads_cpu)[0]):

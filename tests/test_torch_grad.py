@@ -1,16 +1,17 @@
 """The kernels' gradients on the CPU route, and the refusal of a
 gradient a kernel cannot give.
 
-``flash_attention`` has a backward kernel (``csrc/flash_attention_bwd.cu``;
-held against its plain version on the card in ``tests/test_torch_cuda.py``
-and against ``jax.vjp`` in ``tests/test_torch_flash_attention_bwd.py``).
-The CUDA kernels of ``flash_decode``, ``rwkv6_scan`` and ``rglru_scan`` have
-none, so on the card each of their wrappers raises when autograd records
-and an input requires grad (``kernels._build.refuse_grad``; pinned on the
-card in ``tests/test_torch_cuda.py``).  On the CPU every wrapper
-differentiates (``flash_attention`` through its autograd function's plain
-backward, the others through their plain versions): every input gets a
-finite gradient.
+``flash_attention``, ``rwkv6_scan`` and ``rglru_scan`` have backward
+kernels (``csrc/<name>_bwd.cu``; held against their plain versions on the
+card in ``tests/test_torch_cuda.py`` and against ``jax.vjp`` in
+``tests/test_torch_flash_attention_bwd.py`` and
+``tests/test_torch_scan_bwd.py``).  Only ``flash_decode``'s CUDA kernel has
+none, so on the card its wrapper raises when autograd records and an input
+requires grad (``kernels._build.refuse_grad``; pinned on the card in
+``tests/test_torch_cuda.py``).  On the CPU every wrapper differentiates
+(the three through their autograd functions' plain backwards,
+``flash_decode`` through its plain version): every input gets a finite
+gradient.
 """
 import pytest
 

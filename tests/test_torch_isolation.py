@@ -108,7 +108,9 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
 @pytest.mark.parametrize("module", ["repro_torch.data",
                                     "repro_torch.optim",
                                     "repro_torch.launch.steps",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.models.rwkv6",
+                                    "repro_torch.models.rglru"])
 def test_training_path_loads_neither_jax_nor_repro(module):
     code = (f"import sys, {module}; "
             "bad = sorted(m for m in sys.modules "

@@ -1,0 +1,219 @@
+"""The scans' backward plain versions and the CPU routes of the
+differentiable wrappers, against ``jax.vjp`` of the JAX reference.
+
+``rwkv6_scan_bwd_ref`` and ``rglru_scan_bwd_ref`` (the explicit reverse
+recurrences the CUDA backward kernels are held against on the card,
+``tests/test_torch_cuda.py``) must equal ``jax.vjp`` of the reference's
+jnp oracles (``repro/kernels/ref.py`` ``rwkv6_scan_ref`` and
+``rglru_scan_ref``) with cotangents on both outputs, and so must autograd
+through the wrappers' CPU routes (their autograd Functions).  Inputs are
+drawn with numpy and handed to both packages; decays are drawn near 1 and
+set to exactly 0 and 1 on some steps and channels (no route divides by a
+decay).  Tolerances, the relative L2 error of each gradient: fp32 1e-5
+(sums in another order); bf16 1e-2 (both packages compute in fp32 from the
+same bf16 inputs and round each gradient once).
+"""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import ref as jref
+from repro_torch.kernels.ref import (rglru_scan_bwd_ref, rglru_scan_ref,
+                                     rwkv6_scan_bwd_ref, rwkv6_scan_ref)
+from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+L2_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _np_dtype(dtype):
+    return ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+
+
+def _torch(a):
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _np32(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _rel_l2(got, expect):
+    g, e = _np32(got), _np32(expect)
+    norm = float(np.linalg.norm(e))
+    return float(np.linalg.norm(g - e)) / (norm if norm > 0 else 1.0)
+
+
+def _assert_grads(got, expect, dtype, names):
+    assert len(got) == len(expect) == len(names)
+    for name, g, e in zip(names, got, expect):
+        assert tuple(g.shape) == tuple(e.shape), name
+        assert np.isfinite(_np32(g)).all(), name
+        err = _rel_l2(g, e)
+        assert err <= L2_TOL[dtype], (name, err)
+
+
+# ---------------------------------------------------------------------------
+# rwkv6_scan
+# ---------------------------------------------------------------------------
+def _rwkv6_inputs(seed, b, h, s, d, dtype):
+    """r, k, v, w (B, H, S, D) in ``dtype``, u (H, D), s0 (B, H, D, D) fp32,
+    and the cotangents dy (``dtype``) and ds_last (fp32), as numpy.  w in
+    (0.8, 1), then exactly 0 on every third step's even channels and
+    exactly 1 on the steps after them."""
+    rng = np.random.default_rng(seed)
+    dt = _np_dtype(dtype)
+    r, k, v = (rng.normal(size=(b, h, s, d)) * sc for sc in (1.0, 0.3, 1.0))
+    w = 0.8 + 0.2 * rng.random((b, h, s, d))
+    w[:, :, 0::3, 0::2] = 0.0
+    w[:, :, 1::3, :] = 1.0
+    u = (0.3 * rng.normal(size=(h, d))).astype(np.float32)
+    s0 = (0.2 * rng.normal(size=(b, h, d, d))).astype(np.float32)
+    dy = rng.normal(size=(b, h, s, d)).astype(dt)
+    ds_last = rng.normal(size=(b, h, d, d)).astype(np.float32)
+    return ([x.astype(dt) for x in (r, k, v, w)] + [u, s0]), dy, ds_last
+
+
+def _rwkv6_vjp(xs, dy, ds_last):
+    _, vjp = jax.vjp(jref.rwkv6_scan_ref, *map(jnp.asarray, xs))
+    return vjp((jnp.asarray(dy), jnp.asarray(ds_last)))
+
+
+RWKV6_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("s", [1, 7, 64, 130])
+def test_rwkv6_scan_bwd_ref_matches_jax_vjp(s, d, dtype):
+    xs, dy, ds_last = _rwkv6_inputs(s * 10 + d, 2, 2, s, d, dtype)
+    expect = _rwkv6_vjp(xs, dy, ds_last)
+    got = rwkv6_scan_bwd_ref(*map(_torch, xs), _torch(dy), _torch(ds_last))
+    for g, x in zip(got[:4], xs[:4]):
+        assert g.dtype == _torch(x).dtype
+    assert got[4].dtype == got[5].dtype == torch.float32
+    _assert_grads(got, expect, dtype, RWKV6_NAMES)
+
+
+def test_rwkv6_scan_bwd_ref_takes_absent_cotangents():
+    """A cotangent that autograd does not pass (None) counts as zero."""
+    xs, dy, ds_last = _rwkv6_inputs(0, 1, 2, 9, 16, "float32")
+    expect = _rwkv6_vjp(xs, dy, np.zeros_like(ds_last))
+    got = rwkv6_scan_bwd_ref(*map(_torch, xs), _torch(dy), None)
+    _assert_grads(got, expect, "float32", RWKV6_NAMES)
+    expect = _rwkv6_vjp(xs, np.zeros_like(dy), ds_last)
+    got = rwkv6_scan_bwd_ref(*map(_torch, xs), None, _torch(ds_last))
+    _assert_grads(got, expect, "float32", RWKV6_NAMES)
+
+
+@pytest.mark.parametrize("dtype,s,d", [("float32", 7, 16),
+                                       ("float32", 70, 64),
+                                       ("bfloat16", 33, 32)])
+def test_rwkv6_scan_cpu_route_gradients_match_jax_vjp(dtype, s, d):
+    """Autograd through ``rwkv6_scan`` (its Function's CPU route: the plain
+    forward, then ``rwkv6_scan_bwd_ref``), with r/k/v/w as (B, H, S, D)
+    views of (B, S, H, D) tensors, as the model passes them."""
+    xs, dy, ds_last = _rwkv6_inputs(5, 2, 3, s, d, dtype)
+    expect = _rwkv6_vjp(xs, dy, ds_last)
+    leaves = [_torch(np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+                     ).requires_grad_() for x in xs[:4]]
+    leaves += [_torch(x).requires_grad_() for x in xs[4:]]
+    args = [x.transpose(1, 2) for x in leaves[:4]] + leaves[4:]
+    y, s_last = rwkv6_scan(*args)
+    torch.autograd.backward((y, s_last), (_torch(dy), _torch(ds_last)))
+    got = [x.grad.transpose(1, 2) for x in leaves[:4]]
+    got += [x.grad for x in leaves[4:]]
+    _assert_grads(got, expect, dtype, RWKV6_NAMES)
+
+
+def test_rwkv6_scan_out_still_written_under_no_grad():
+    xs, _, _ = _rwkv6_inputs(1, 2, 2, 12, 16, "float32")
+    args = [_torch(x).requires_grad_() for x in xs]
+    out = torch.empty(2, 12, 2, 16).transpose(1, 2)
+    with torch.no_grad():
+        y, s_last = rwkv6_scan(*args, out=out)
+    assert y is out and not y.requires_grad
+    y_ref, s_ref = rwkv6_scan_ref(*(x.detach() for x in args))
+    torch.testing.assert_close(out, y_ref, rtol=0, atol=0)
+    torch.testing.assert_close(s_last, s_ref, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# rglru_scan
+# ---------------------------------------------------------------------------
+def _rglru_inputs(seed, b, s, r, dtype):
+    """a, g (B, S, R) in ``dtype``, h0 (B, R) fp32 and the cotangents dy
+    (``dtype``) and dh_last (fp32), as numpy.  a in (0.3, 1), then
+    exactly 0 on every third step's even channels and exactly 1 on the
+    steps after them."""
+    rng = np.random.default_rng(seed)
+    dt = _np_dtype(dtype)
+    a = 0.3 + 0.7 * rng.random((b, s, r))
+    a[:, 0::3, 0::2] = 0.0
+    a[:, 1::3, :] = 1.0
+    g = 0.5 * rng.normal(size=(b, s, r))
+    h0 = rng.normal(size=(b, r)).astype(np.float32)
+    dy = rng.normal(size=(b, s, r)).astype(dt)
+    dh_last = rng.normal(size=(b, r)).astype(np.float32)
+    return [a.astype(dt), g.astype(dt), h0], dy, dh_last
+
+
+def _rglru_vjp(xs, dy, dh_last):
+    _, vjp = jax.vjp(jref.rglru_scan_ref, *map(jnp.asarray, xs))
+    return vjp((jnp.asarray(dy), jnp.asarray(dh_last)))
+
+
+RGLRU_NAMES = ("da", "dg", "dh0")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 7, 64, 130])
+def test_rglru_scan_bwd_ref_matches_jax_vjp(s, dtype):
+    xs, dy, dh_last = _rglru_inputs(s, 2, s, 12, dtype)
+    expect = _rglru_vjp(xs, dy, dh_last)
+    a, g, h0 = map(_torch, xs)
+    y, _ = rglru_scan_ref(a, g, h0)
+    got = rglru_scan_bwd_ref(a, g, h0, y, _torch(dy), _torch(dh_last))
+    assert got[0].dtype == got[1].dtype == a.dtype
+    assert got[2].dtype == torch.float32
+    _assert_grads(got, expect, dtype, RGLRU_NAMES)
+
+
+def test_rglru_scan_bwd_ref_recomputes_the_carry_of_bf16_inputs():
+    """For bf16 inputs h_{t-1} is the fp32 carry, not the rounded y: the
+    same gradients whether the bf16 y or the fp32 carry is passed."""
+    xs, dy, dh_last = _rglru_inputs(3, 2, 40, 12, "bfloat16")
+    a, g, h0 = map(_torch, xs)
+    y16, _ = rglru_scan_ref(a, g, h0)
+    y32, _ = rglru_scan_ref(a.float(), g.float(), h0)
+    for x, z in zip(rglru_scan_bwd_ref(a, g, h0, y16, _torch(dy),
+                                       _torch(dh_last)),
+                    rglru_scan_bwd_ref(a, g, h0, y32, _torch(dy),
+                                       _torch(dh_last))):
+        torch.testing.assert_close(x, z, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,s", [("float32", 9), ("bfloat16", 70)])
+def test_rglru_scan_cpu_route_gradients_match_jax_vjp(dtype, s):
+    """Autograd through ``rglru_scan`` (its Function's CPU route), with a
+    cotangent on h_last only for the fp32 case (dy then counts as zero in
+    the backward) and on both for bf16."""
+    xs, dy, dh_last = _rglru_inputs(7, 3, s, 20, dtype)
+    if dtype == "float32":
+        dy = np.zeros_like(dy)
+    expect = _rglru_vjp(xs, dy, dh_last)
+    leaves = [_torch(x).requires_grad_() for x in xs]
+    y, h_last = rglru_scan(*leaves)
+    if dtype == "float32":
+        h_last.backward(_torch(dh_last))
+    else:
+        torch.autograd.backward((y, h_last), (_torch(dy), _torch(dh_last)))
+    _assert_grads([x.grad for x in leaves], expect, dtype, RGLRU_NAMES)

@@ -1,6 +1,7 @@
 """The port's training path against the JAX reference: the synthetic data
 stream, AdamW with its schedule and clipping, the losses, the chunked loss,
-remat, one train step of three families, and the fault-tolerant driver.
+remat, one train step of five families, and the fault-tolerant
+``launch/train.py``.
 
 Inputs are drawn with numpy and handed to both packages; weights come from
 the reference's init (``params_from_numpy``) and optimizer states through
@@ -35,12 +36,15 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.models import api as tapi
 from repro_torch.models import lm as tlm
+from repro_torch.models import rglru as trglru
+from repro_torch.models import rwkv6 as trwkv6
 from repro_torch.models.convert import (opt_state_from_numpy,
                                         params_from_numpy, tensor_from_numpy)
 from repro_torch.optim import adamw as tadamw
 
 CPU = torch.device("cpu")
-TRAIN_ARCHS = ["qwen3-1.7b", "granite-moe-1b-a400m", "whisper-tiny"]
+TRAIN_ARCHS = ["qwen3-1.7b", "granite-moe-1b-a400m", "whisper-tiny",
+               "rwkv6-1.6b", "recurrentgemma-9b"]
 
 
 def _np32(x):
@@ -290,7 +294,8 @@ def test_chunked_loss_needs_a_dividing_chunk():
                                torch.zeros(1, 12, dtype=torch.long), chunk=8)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
+                                  "rwkv6-1.6b", "recurrentgemma-9b"])
 def test_remat_gives_the_same_loss_and_grads(arch):
     _, cfg, _, params = _models(arch)
     b = _tbatch(_batch(cfg, 16))
@@ -314,6 +319,60 @@ def test_remat_recomputes_each_block_in_the_backward(monkeypatch):
     calls.clear()
     tsteps.loss_and_grads(cfg, params, b, 8)
     assert len(calls) == cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_recurrent_remat_recomputes_each_block_in_the_backward(monkeypatch,
+                                                               arch):
+    """rwkv6 checkpoints each block, recurrentgemma each (rec1, rec2, attn)
+    super-block and each tail layer, as the reference's scan bodies: each
+    runs once forward and once in the backward under remat, once without."""
+    calls = []
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, **k: (calls.append(name),
+                                                        fn(*a, **k))[1])
+    if arch == "rwkv6-1.6b":
+        counted(trwkv6, "block")
+    else:
+        counted(trglru, "super_block")
+        counted(trglru, "tail_layer")
+    _, cfg, _, params = _models(arch)
+    units = (cfg.n_layers if arch == "rwkv6-1.6b"
+             else len(params["super"]) + len(params["tail"]))
+    assert units >= 3
+    b = _tbatch(_batch(cfg, 16))
+    tsteps.loss_and_grads(dataclasses.replace(cfg, remat=True), params, b, 8)
+    assert len(calls) == 2 * units
+    calls.clear()
+    tsteps.loss_and_grads(cfg, params, b, 8)
+    assert len(calls) == units
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_recurrent_remat_leaves_serving_alone(monkeypatch, arch):
+    """No checkpoint on a forward whose weights require no grad, nor on a
+    prefill into a cache."""
+    calls = []
+    mod = trwkv6 if arch == "rwkv6-1.6b" else trglru
+    monkeypatch.setattr(mod, "checkpoint", lambda *a, **k: calls.append(1))
+    _, cfg, _, params = _models(arch)
+    cfg = dataclasses.replace(cfg, remat=True)
+    frozen = [x.detach() for x in _leaves(params)]
+    params = tree_unflatten(tree_flatten(params)[1], frozen)
+    b = _tbatch(_batch(cfg, 16))
+    logits = tapi.forward(cfg, params, {"tokens": b["tokens"]})
+    assert torch.is_grad_enabled() and not logits.requires_grad
+    if arch == "rwkv6-1.6b":
+        live = tree_unflatten(tree_flatten(params)[1],
+                              [x.requires_grad_() for x in
+                               [y.clone() for y in frozen]])
+        cache = tapi.init_cache(cfg, 2, 16, CPU)
+        logits, _ = trwkv6.forward(cfg, live, {"tokens": b["tokens"]},
+                                   cache=cache)
+        assert logits.requires_grad
+    assert calls == []
 
 
 def test_remat_leaves_a_forward_without_grads_alone(monkeypatch):
@@ -439,6 +498,22 @@ def test_driver_cli_on_cpu(tmp_path, capsys):
                  "--ckpt-every", "5", "--fail-at", "7", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "training qwen3-1.7b-smoke (dense) for 12 steps" in out
+    assert "restarts=1" in out
+    assert "loss decreased" in out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-9b"])
+def test_train_cli_on_cpu_trains_the_recurrent_families(tmp_path, capsys,
+                                                        arch):
+    """30 steps at lr 1e-2: the last batch's loss below the first's (12
+    steps at the default lr leave rwkv6's within one batch's noise)."""
+    ttrain.main(["--arch", arch, "--steps", "30", "--lr", "1e-2",
+                 "--batch", "2", "--seq", "16", "--ckpt-dir",
+                 str(tmp_path / "ck"), "--ckpt-every", "5", "--fail-at", "7",
+                 "--device", "cpu"])
+    out = capsys.readouterr().out
+    family = "ssm" if arch == "rwkv6-1.6b" else "hybrid"
+    assert f"training {arch}-smoke ({family}) for 30 steps" in out
     assert "restarts=1" in out
     assert "loss decreased" in out
 
