@@ -4,10 +4,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
-The second form only builds and times flash_decode, rwkv6_scan and
-rglru_scan at the points below (one JSON line), importing the port from
-DIR/src (another checkout, such as the parent commit's) when ``--tree`` is
-given, so two trees' kernels are timed by the same code on one card.
+The second form only builds and times flash_decode, rwkv6_scan,
+rglru_scan and the backwards of flash_attention and rwkv6_scan at the
+points below (one JSON line), importing the port from DIR/src (another
+checkout, such as the parent commit's) when ``--tree`` is given, so two
+trees' kernels are timed by the same code on one card.
 With no arguments:
 
 1. prints the card's name and power limit (nvidia-smi);
@@ -16,12 +17,12 @@ With no arguments:
    rwkv6_scan, rwkv6_scan_bwd, rglru_scan, rglru_scan_bwd, matmul_qi8;
    one nvcc per source, started together), prints ptxas's
    registers and spills of each kernel (failing if flash_decode,
-   rwkv6_scan, rglru_scan or either scan's backward spills) and the
+   rwkv6_scan, rglru_scan or any of the three backwards spills) and the
    tensor-core instructions in
-   the SASS of bf16 flash_attention and flash_decode (HMMA) and
-   matmul_qi8 (IMMA), failing if any of their instantiations has none
-   (the head dim 96 ones named; flash_attention's D 96 instantiations
-   must not spill either);
+   the SASS of bf16 flash_attention, its backward and flash_decode
+   (HMMA) and matmul_qi8 (IMMA), failing if any of their instantiations
+   has none (the head dim 96 ones named, and the backward's head dim 256
+   ones; flash_attention's D 96 instantiations must not spill either);
 3. holds each kernel against its plain PyTorch version at the shapes the
    model paths give it (the flash kernels also at recurrentgemma's head dim
    256 with 16 q heads per kv head and at phi3-mini's head dim 96 with 32
@@ -141,15 +142,18 @@ With no arguments:
    plain version (``flash_attention_bwd_ref``) at qwen3-1.7b's training
    shape (8, 16/8, 1024, 128), whisper's encoder (16, 6/6, 1500, 64) and
    cross-attention (S 448, T 1500), recurrentgemma's D 256 group 16 with
-   window 2048 at S = T = 4096, granite-moe's D 64, phi3-mini's D 96 and a
-   ragged S, bf16 and fp32, each gradient within its tolerances (largest
-   deviation and relative L2) and equal bit for bit from call to call,
-   the output and lse of the forward launch that writes lse against the
-   plain forward, the first three timed beside the plain
-   version, SDPA's backward (the yardstick) and the bound; the scans'
-   backward kernels against their plain versions (``rwkv6_scan_bwd_ref``
-   at rwkv6-1.6b's training shape (8, 32, 1024, 64) in the model layout,
-   ragged S, D 16 and 32, S = 1, decays of 1e-30 and 1, bf16;
+   window 2048 at S = T = 4096 and at its training shape (8, 16/1, 1024),
+   granite-moe's D 64, phi3-mini's D 96 and a ragged S, bf16 and fp32,
+   each gradient within its tolerances (largest deviation and relative
+   L2) and equal bit for bit from call to call, the output and lse of the
+   forward launch that writes lse against the plain forward, the first
+   four timed beside the plain version, SDPA's backward (the yardstick)
+   and the bound; the scans' backward kernels against their plain
+   versions (``rwkv6_scan_bwd_ref`` from the piece states of the forward
+   kernel's checkpoint epilogue, those states against
+   ``rwkv6_scan_states_ref`` and its output equal to the launch without
+   it, at rwkv6-1.6b's training shape (8, 32, 1024, 64) in the model
+   layout, ragged S, D 16 and 32, S = 1, decays of 1e-30 and 1, bf16;
    ``rglru_scan_bwd_ref`` at (8, 1024, 4096), a short S, S = 1, ragged R
    with decays of 1e-30 and 1, bf16), each gradient within its
    tolerances and equal bit for bit from call to call, the training
@@ -220,6 +224,7 @@ outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
 import dataclasses
+import inspect
 import json
 import os
 import pathlib
@@ -261,6 +266,7 @@ from repro_torch.decode.engine import PipelineDecodeEngine  # noqa: E402
 from repro_torch.fleet import (FleetMemberSpec, FleetSpec,  # noqa: E402
                                deploy_fleet)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ref as kernel_ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import matmul_qi8 as mq  # noqa: E402
@@ -292,9 +298,10 @@ KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
            "rwkv6_scan", "rwkv6_scan_bwd", "rglru_scan", "rglru_scan_bwd",
            "matmul_qi8")
 # the kernels --kernel-times builds and times (the latest redesigns)
-TIMED = ("flash_decode", "rwkv6_scan", "rglru_scan")
+TIMED = ("flash_decode", "rwkv6_scan", "rglru_scan", "flash_attention_bwd",
+         "rwkv6_scan_bwd")
 # kernels whose ptxas report must show no spill
-NO_SPILL = TIMED + ("rwkv6_scan_bwd", "rglru_scan_bwd")
+NO_SPILL = TIMED + ("rglru_scan_bwd",)
 # each kernel's design, as its source note sets it out
 DESIGNS = {
     "flash_attention": "bf16: mma.sync m16n8k16 (fp32 accumulate), "
@@ -303,16 +310,25 @@ DESIGNS = {
                        "x 16 q rows, heavy and light causal tiles paired "
                        "on each SM; fp32: CUDA cores, 64 x 64 tiles, 256 "
                        "threads",
-    "flash_attention_bwd": "three launches, no atomics (deterministic): "
+    "flash_attention_bwd": "three launches (four at D 256), no atomics "
+                           "(deterministic): "
                            "D = rowsum(P * dP) over the recomputed fp32 P; "
-                           "dK/dV one block per (64-key tile, kv head, "
-                           "batch) over its group's q heads and visible "
-                           "query tiles; dQ one block per (64-row q tile, "
-                           "q head, batch); bf16 up to D 128: mma.sync "
-                           "m16n8k16, 4 warps x 16 rows, cp.async 2-stage "
-                           "rings, P and dS rounded to bf16 in registers as "
-                           "A operands; fp32 and D 256: CUDA cores, 256 "
-                           "threads, tiles staged as fp32 in shared memory",
+                           "bf16 at every head dim on mma.sync m16n8k16, "
+                           "cp.async 2-stage rings: D one block per (64-row "
+                           "q tile, q head, batch); dK/dV one block per "
+                           "(64-key block, kv head, batch), a warp 16 keys, "
+                           "over its group's q heads and visible query "
+                           "tiles, P and dS rounded to bf16 in registers as "
+                           "A operands; from D 96 dS^T stored as bf16 "
+                           "tiles in a band per q tile and dQ one block per "
+                           "(q tile, q head, batch) as dS K over them in key "
+                           "order, no S or dP recomputed (D <= 64: dQ "
+                           "recomputes S and dP); D 256: 32-key blocks, dV "
+                           "in registers, then a second sweep of dK over "
+                           "the stored dS^T, a kv head's q heads split over "
+                           "4 blocks whose fp32 dK/dV parts a fourth launch "
+                           "sums in order; fp32: CUDA cores, 256 threads, "
+                           "dQ recomputing S and dP",
     "flash_decode": "bf16: mma.sync m16n8k16 (fp32 accumulate), one block "
                     "of 4 warps per (split, kv head, row) serving up to 16 "
                     "q heads, a cp.async ring per warp of 16-key tiles, P "
@@ -330,18 +346,21 @@ DESIGNS = {
                   "of shared memory; S < 64 (the decode step) one thread "
                   "per channel; both routes the same FMAs in the same "
                   "order",
-    "rwkv6_scan_bwd": "CUDA cores: 256 threads per (head, row), a thread "
-                      "holding D^2 / 256 columns of one row of S and of G "
-                      "in registers; phase 1 walks the forward and saves "
-                      "the state every 8 steps, phase 2 walks the 8-step "
-                      "pieces in reverse: recomputes a piece's states into "
-                      "shared memory, then steps G back (dr, dk, dw by "
-                      "shuffles over the row's threads, dv by a "
-                      "reduce-scatter over the warp's rows and a "
-                      "fixed-order sum over the warps); rows and start "
-                      "states double-buffered by cp.async; du summed over "
-                      "the batch by a second launch; no atomics, no "
-                      "division by a decay",
+    "rwkv6_scan_bwd": "CUDA cores: starts each 8-step piece from the "
+                      "state the forward's checkpoint epilogue wrote; each "
+                      "(head, row) split over D / 16 blocks of 16 state "
+                      "columns, 2 threads a row, a thread holding 8 "
+                      "columns of S and of G and the piece's 8 recomputed "
+                      "states in registers; the blocks of a (head, row) a "
+                      "thread block cluster: dr, dk, dw (and v . dy) summed "
+                      "over its blocks' parts in rank order through "
+                      "distributed shared memory after each round of two "
+                      "pieces, dv by a reduce-scatter over a warp's rows "
+                      "and a fixed-order sum over the warps; three "
+                      "barriers a round; r, k, w rows, the block's v and "
+                      "dy columns and checkpoint columns double-buffered "
+                      "by cp.async; du summed over the batch by a second "
+                      "launch; no atomics, no division by a decay",
     "rglru_scan_bwd": "CUDA cores: one thread per (row, channel), 128 a "
                       "block, walking S backwards with 16 steps' a, dy and "
                       "h_{t-1} loaded ahead of their FMAs; fp32 reads the "
@@ -468,7 +487,8 @@ SPMD_FILL_REPS = 5
 SPMD_CALLS = 3
 SPMD_TOL = 1e-4         # relative to max |logit| or max |y| (fp32)
 # the training path: the backward kernel's shapes (name, B, Hq, Hkv, S, T,
-# D, causal, window), in bf16 and fp32, the first three also timed;
+# D, causal, window), in bf16 and fp32, the first four also timed (and by
+# --kernel-times);
 # its tolerances per gradient: the largest deviation, of max(1, max
 # |plain|) (fp32: summation order; bf16: one rounding of each gradient),
 # and the relative L2 error ||g - e|| / ||e||, which a wrong bulk of rows
@@ -482,6 +502,8 @@ BWD_SHAPES = (
      None),
     ("recurrentgemma (1, 16/1, 4096, 256) window 2048", 1, 16, 1, 4096,
      4096, 256, True, 2048),
+    ("recurrentgemma training (8, 16/1, 1024, 256) window 2048", 8, 16, 1,
+     1024, 1024, 256, True, 2048),
     ("granite-moe (8, 16/8, 1024, 64) causal", 8, 16, 8, 1024, 1024, 64,
      True, None),
     ("phi3-mini (2, 32/32, 1024, 96) causal", 2, 32, 32, 1024, 1024, 96,
@@ -491,7 +513,7 @@ BWD_SHAPES = (
     ("ragged (2, 16/8, 1000, 128) causal", 2, 16, 8, 1000, 1000, 128, True,
      None),
 )
-BWD_TIMED = 3
+BWD_TIMED = 4
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BWD_L2_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 FWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -562,6 +584,11 @@ RWKV_FT_DEMO = {"steps": 60, "batch": 8, "seq": 64, "lr": 3e-3,
                 "warmup": 10, "ckpt_every": 20, "fail_at": 25}
 CARD = "cuda"
 D96_TAG = "ILi96E"      # a mangled template argument of 96 (the head dim)
+D256_TAG = "ILi256E"
+# bf16 kernels of one head dim: the forward's with and without the lse
+# epilogue, the backward's D, dK/dV and dQ, flash_decode's one
+BF16_KERNELS = {"flash_attention": 2, "flash_attention_bwd": 3,
+                "flash_decode": 1}
 
 
 def cuda_ms(fns, reps=20, backlog=True):
@@ -3204,10 +3231,7 @@ def check_flash_attention_bwd():
     for dtype in (torch.bfloat16, torch.float32):
         for i, (name, b, hq, hkv, s, t, d, causal, window) in enumerate(
                 BWD_SHAPES):
-            q, k, v = attention_inputs(b, hq, hkv, s, t, d, dtype,
-                                       model_layout=True)
-            g = torch.Generator("cuda").manual_seed(1)
-            do = torch.randn(q.shape, generator=g, device="cuda", dtype=dtype)
+            q, k, v, do = bwd_inputs(b, hq, hkv, s, t, d, dtype)
             o, lse = fa._forward(q, k, v, causal, window, with_lse=True)
             o_serve = fa._forward(q, k, v, causal, window, with_lse=False)
             got = fa.flash_attention_bwd(q, k, v, lse, do, causal, window)
@@ -3282,6 +3306,41 @@ def check_flash_attention_bwd():
     return record, worst_l2
 
 
+def bwd_inputs(b, hq, hkv, s, t, d, dtype):
+    """q/k/v as (B, S, H, D) views on the card (the model's layout) and
+    dO."""
+    q, k, v = attention_inputs(b, hq, hkv, s, t, d, dtype, model_layout=True)
+    g = torch.Generator("cuda").manual_seed(1)
+    do = torch.randn(q.shape, generator=g, device="cuda", dtype=dtype)
+    return q, k, v, do
+
+
+def time_flash_attention_bwd_points():
+    """The backward kernel alone (ms) at the first BWD_TIMED shapes of
+    BWD_SHAPES in bf16 and fp32, beside its bound (--kernel-times: the
+    same code times two trees)."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, hq, hkv, s, t, d, causal, window in (
+                BWD_SHAPES[:BWD_TIMED]):
+            q, k, v, do = bwd_inputs(b, hq, hkv, s, t, d, dtype)
+            _, lse = fa._forward(q, k, v, causal, window, with_lse=True)
+            ms = cuda_ms([lambda: fa.flash_attention_bwd(
+                q, k, v, lse, do, causal, window)],
+                reps=10 if dtype == torch.bfloat16 else 3)
+            bound_ms, bound_by, flops = attention_bwd_bound(q, k, causal,
+                                                            window)
+            key = name + (" fp32" if dtype == torch.float32 else "")
+            out[key] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "tflops": flops / (ms * 1e-3) / 1e12}
+            print(f"flash_attention_bwd timing {dtype} {name}: kernel "
+                  f"{ms:.4f} ms ({out[key]['tflops']:.1f} TFLOP/s), bound "
+                  f"{bound_ms:.4f} ms ({bound_by})")
+            del q, k, v, lse, do
+            torch.cuda.empty_cache()
+    return out
+
+
 def scan_grad_errs(got, expect):
     """Each gradient's largest deviation over its scale max(1, max |plain|)
     and its relative L2 error ||g - e|| / ||e||, and whether all are
@@ -3317,13 +3376,12 @@ def check_scan_grads(kernel, label, names, got, again, expect, dtype):
     return max(errs), max(l2)
 
 
-def time_scan_bwd(kernel, label, run, plain, nbytes, flops, shape):
+def time_scan_bwd(kernel, label, run, plain, bound_ms, bound_by, shape):
     """Kernel and plain version (ms, the card asleep while the host queues
     the kernel's calls) beside the bound; no single PyTorch call computes
     either backward, so library_ms is null."""
     ms = cuda_ms([run], reps=10)
     plain_ms = cuda_ms([plain], reps=1)
-    bound_ms, bound_by = scan_bound(nbytes, flops)
     print(f"{kernel} timing {label}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); no "
           f"single PyTorch call computes it")
@@ -3331,39 +3389,114 @@ def time_scan_bwd(kernel, label, run, plain, nbytes, flops, shape):
             "bound_by": bound_by, "library_ms": None, "shape": shape}
 
 
+def rwkv6_bwd_case(b, h, s, d, dtype, layout, extreme=False):
+    """rwkv6_scan_bwd's inputs on the card (decays 1e-30 and 1 on
+    alternate steps with ``extreme``), dy in the inputs' layout and
+    ds_last."""
+    x = rwkv6_inputs(b, h, s, d, dtype, layout, seed=2)
+    if extreme:
+        x[3][:, :, 0::2] = 1e-30
+        x[3][:, :, 1::2] = 1.0
+    g = torch.Generator("cuda").manual_seed(3)
+    dy = (torch.randn(b, s, h, d, generator=g, device="cuda")
+          .transpose(1, 2) if layout else
+          torch.randn(b, h, s, d, generator=g, device="cuda")).to(dtype)
+    ds_last = torch.randn(b, h, d, d, generator=g, device="cuda")
+    return x, dy, ds_last
+
+
+def rwkv6_bwd_bound(x):
+    """The backward's bound: r/k/v/w/dy read and dr/dk/dv/dw written once,
+    s0, ds_last and ds0, u and du; 8 operations per state element per
+    step."""
+    b, h, s, d = x[0].shape
+    size = x[0].element_size()
+    return scan_bound(9 * b * h * s * d * size + 3 * b * h * d * d * 4
+                      + 2 * h * d * 4, 8 * b * h * s * d * d)
+
+
+def time_rwkv6_bwd_points():
+    """rwkv6_scan_bwd at rwkv6-1.6b's training shape (8, 32, 1024, 64) in
+    the model layout, fp32 and bf16, beside the bound: ``ms`` the backward
+    as a train step calls it (given the piece states that the forward's
+    checkpoint epilogue saved, where the tree's backward takes them; a
+    tree whose backward takes none: the call, which walks the forward
+    itself), ``ms_from_inputs`` the call without them (a forward launch
+    with the epilogue first)."""
+    out = {}
+    takes_states = "states" in inspect.signature(
+        rw.rwkv6_scan_bwd).parameters
+    b, h, s, d = RWKV_BWD_CASES[0][1:5]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy, ds_last = rwkv6_bwd_case(b, h, s, d, dtype, True)
+        rec = {}
+        if takes_states:
+            states = rw._forward(*x, None, with_states=True)[2]
+            rec["ms"] = cuda_ms([lambda: rw.rwkv6_scan_bwd(
+                *x, dy, ds_last, states)], reps=10)
+            rec["ms_from_inputs"] = cuda_ms([lambda: rw.rwkv6_scan_bwd(
+                *x, dy, ds_last)], reps=10)
+            del states
+        else:
+            rec["ms"] = cuda_ms([lambda: rw.rwkv6_scan_bwd(
+                *x, dy, ds_last)], reps=10)
+        rec["bound_ms"], rec["bound_by"] = rwkv6_bwd_bound(x)
+        out[str(dtype)] = rec
+        extra = (f", from the inputs {rec['ms_from_inputs']:.4f} ms"
+                 if takes_states else " (walks the forward itself)")
+        print(f"rwkv6_scan_bwd timing {dtype} (8, 32, 1024, 64): kernel "
+              f"{rec['ms']:.4f} ms{extra}, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})")
+        del x, dy, ds_last
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_rwkv6_scan_bwd():
     """The rwkv6_scan backward kernel against ``rwkv6_scan_bwd_ref`` at
-    RWKV_BWD_CASES (cotangents on y and s_last), the training shape timed
-    in fp32 and bf16.  Returns its record."""
+    RWKV_BWD_CASES (cotangents on y and s_last), from the piece states of
+    the forward's checkpoint epilogue (those within 2e-4 (1 + |plain|) of
+    ``rwkv6_scan_states_ref``, its y equal to the launch's without the
+    epilogue; the call without states equal bit for bit), the training
+    shape timed in fp32 and bf16.  Returns its record."""
     record, worst = None, {}
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
     for label, b, h, s, d, dtype, layout, extreme in RWKV_BWD_CASES:
-        x = rwkv6_inputs(b, h, s, d, dtype, layout, seed=2)
-        if extreme:
-            x[3][:, :, 0::2] = 1e-30
-            x[3][:, :, 1::2] = 1.0
-        g = torch.Generator("cuda").manual_seed(3)
-        dy = (torch.randn(b, s, h, d, generator=g, device="cuda")
-              .transpose(1, 2) if layout else
-              torch.randn(b, h, s, d, generator=g, device="cuda")).to(dtype)
-        ds_last = torch.randn(b, h, d, d, generator=g, device="cuda")
-        got = rw.rwkv6_scan_bwd(*x, dy, ds_last)
-        again = rw.rwkv6_scan_bwd(*x, dy, ds_last)
+        x, dy, ds_last = rwkv6_bwd_case(b, h, s, d, dtype, layout, extreme)
+        y, _, states = rw._forward(*x, None, with_states=True)
+        y_serve = rw._forward(*x, None)[0]
+        st_err, st_ok = allclose_err(
+            states, kernel_ref.rwkv6_scan_states_ref(*x[1:4], x[5]), 2e-4)
+        got = rw.rwkv6_scan_bwd(*x, dy, ds_last, states)
+        again = rw.rwkv6_scan_bwd(*x, dy, ds_last, states)
+        alone = rw.rwkv6_scan_bwd(*x, dy, ds_last)
         expect = rwkv6_scan_bwd_ref(*x, dy, ds_last)
         torch.cuda.synchronize()
+        y_same = torch.equal(y, y_serve)
+        alone_same = all(torch.equal(a, c) for a, c in zip(got, alone))
+        print(f"rwkv6_scan checkpoint epilogue {label}: states max_abs_err "
+              f"{st_err:.3e} (within 2e-4 (1 + |plain|): {st_ok}), y equal "
+              f"to the launch without it {y_same}; the backward without "
+              f"states equal {alone_same}")
+        if not (st_ok and y_same and alone_same):
+            raise SystemExit(f"rwkv6_scan's checkpoint epilogue disagrees "
+                             f"on {label}")
         err, l2 = check_scan_grads("rwkv6_scan_bwd", label, names, got,
                                    again, expect, dtype)
         worst[str(dtype)] = max(worst.get(str(dtype), 0.0), l2)
-        del got, again, expect
+        del got, again, alone, expect, y, y_serve
         if s == 1024:
-            size = x[0].element_size()
             times = time_scan_bwd(
                 "rwkv6_scan_bwd", label,
-                lambda: rw.rwkv6_scan_bwd(*x, dy, ds_last),
+                lambda: rw.rwkv6_scan_bwd(*x, dy, ds_last, states),
                 lambda: rwkv6_scan_bwd_ref(*x, dy, ds_last),
-                9 * b * h * s * d * size + 3 * b * h * d * d * 4
-                + 2 * h * d * 4, 8 * b * h * s * d * d,
+                *rwkv6_bwd_bound(x),
                 {"b": b, "h": h, "s": s, "d": d, "dtype": str(dtype)})
+            times["ms_from_inputs"] = cuda_ms(
+                [lambda: rw.rwkv6_scan_bwd(*x, dy, ds_last)], reps=10)
+            print(f"rwkv6_scan_bwd timing {label}: the call without the "
+                  f"forward's states (a forward launch with the epilogue "
+                  f"first) {times['ms_from_inputs']:.4f} ms")
             if record is None:
                 record = {"name": "rwkv6_scan_bwd", "route": "cuda",
                           "source": "src/repro_torch/kernels/csrc/"
@@ -3372,7 +3505,7 @@ def check_rwkv6_scan_bwd():
                           **times, "max_abs_err": err}
             else:
                 record["bf16"] = times
-        del x, dy, ds_last
+        del x, dy, ds_last, states
         torch.cuda.empty_cache()
     record["worst_rel_l2"] = worst
     return record
@@ -3408,8 +3541,8 @@ def check_rglru_scan_bwd():
                 "rglru_scan_bwd", label,
                 lambda: rg.rglru_scan_bwd(a, gx, h0, y, dy, dh_last),
                 lambda: rglru_scan_bwd_ref(a, gx, h0, y, dy, dh_last),
-                5 * b * s * r * a.element_size() + 3 * b * r * 4,
-                3 * b * s * r,
+                *scan_bound(5 * b * s * r * a.element_size() + 3 * b * r * 4,
+                            3 * b * s * r),
                 {"b": b, "s": s, "r": r, "dtype": str(dtype)})
             if record is None:
                 record = {"name": "rglru_scan_bwd", "route": "cuda",
@@ -3801,15 +3934,17 @@ def device_line():
 
 
 def kernel_times() -> int:
-    """Build and time flash_decode, rwkv6_scan and rglru_scan of the
-    imported tree at this script's timing points."""
+    """Build and time TIMED of the imported tree at this script's timing
+    points."""
     t0 = time.perf_counter()
     _build.build(TIMED)
     print(f"built {', '.join(TIMED)} from {TREE} in "
           f"{time.perf_counter() - t0:.1f} s")
     times = {"flash_decode": time_decode_points(),
              "rwkv6_scan": time_rwkv6_points(),
-             "rglru_scan": time_rglru_points()}
+             "rglru_scan": time_rglru_points(),
+             "flash_attention_bwd": time_flash_attention_bwd_points(),
+             "rwkv6_scan_bwd": time_rwkv6_bwd_points()}
     print(json.dumps({"kernel_times": times, "tree": str(TREE)}))
     print(device_line())
     return 0
@@ -3852,10 +3987,11 @@ def main() -> int:
           f"{sorted(d96_spills.values())}")
     if not d96_spills or max(d96_spills.values()) > 0:
         raise SystemExit(f"flash_attention D 96 spills: {d96_spills}")
-    # the tensor-core kernels: every bf16 flash_attention and
+    # the tensor-core kernels: every bf16 flash_attention, backward and
     # flash_decode and every matmul_qi8 instantiation holds mma.sync
     tensor_ops = {}
     for name, op, kernel in (("flash_attention", "HMMA", "bf16_kernel"),
+                             ("flash_attention_bwd", "HMMA", "mma_kernel"),
                              ("flash_decode", "HMMA", "bf16_kernel"),
                              ("matmul_qi8", "IMMA", "matmul_qi8_kernel")):
         counts = tensor_core_ops(libs[name], op, kernel)
@@ -3868,13 +4004,22 @@ def main() -> int:
                             "count": sum(counts.values())}
         if op == "HMMA":                # the head dim 96 instantiations
             d96 = [n for fn, n in counts.items() if D96_TAG in fn]
-            # flash_attention's with and without the lse epilogue
-            want = 2 if name == "flash_attention" else 1
+            # flash_attention's with and without the lse epilogue; the
+            # backward's D, dK/dV and dQ kernels
+            want = BF16_KERNELS[name]
             print(f"{name} SASS: {op} in the D 96 bf16 instantiations {d96}")
             if len(d96) != want or min(d96) == 0:
                 raise SystemExit(f"{name}: not {want} D 96 bf16 kernels "
                                  f"with {op}: {d96}")
             tensor_ops[name]["d96"] = d96[0]
+        if name == "flash_attention_bwd":   # no longer on CUDA cores
+            d256 = [n for fn, n in counts.items() if D256_TAG in fn]
+            print(f"{name} SASS: {op} in the D 256 bf16 instantiations "
+                  f"{d256}")
+            if len(d256) != BF16_KERNELS[name] or min(d256) == 0:
+                raise SystemExit(f"{name}: not {BF16_KERNELS[name]} D 256 "
+                                 f"bf16 kernels with {op}: {d256}")
+            tensor_ops[name]["d256"] = d256
 
     t0 = time.perf_counter()
     record = check_flash_attention()

@@ -45,6 +45,14 @@
 // writes y a row at a time.  The decode step (S = 1) runs an
 // instantiation that stages one step (3 KB of shared memory, not 192).
 // fp32 arithmetic throughout, bf16 inputs widened on load.
+//
+// Checkpoint epilogue (training): given `ckpt`, an instantiation of its
+// own also writes the state at the start of every kPiece-step piece, S
+// after 8p steps (s0 for p = 0), to ckpt (B, H, ceil(S / 8), D, D) fp32,
+// the same values its FMAs carry, so equal bit for bit to the s_last of
+// the kernel run on the first 8p steps.  The backward kernel
+// (rwkv6_scan_bwd.cu) starts from them instead of walking the forward
+// again.  Serving (ckpt null) runs the instantiation without it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -55,6 +63,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunkSteps = 64;       // steps staged a chunk
+constexpr int kPiece = 8;             // steps between checkpoints
 
 struct Args {
   const void* r;
@@ -65,6 +74,7 @@ struct Args {
   const float* s0;                    // (B, H, D, D) contiguous
   void* y;
   float* s_last;                      // (B, H, D, D) contiguous
+  float* ckpt;                        // (B, H, ceil(S / 8), D, D) or null
   int s;
   long long rs[3], ks[3], vs[3], ws[3], ys[3];   // (batch, head, seq)
 };
@@ -97,7 +107,7 @@ __device__ __forceinline__ void load_n<4, __nv_bfloat16>(
   f[3] = b.y;
 }
 
-template <typename T, int D, int kChunk>
+template <typename T, int D, int kChunk, bool kCkpt>
 __global__ void __launch_bounds__(kThreads) rwkv6_scan_kernel(Args a) {
   constexpr int kKs = kThreads / D;   // threads a column
   constexpr int kPer = D / kKs;       // k-rows a thread holds
@@ -130,6 +140,9 @@ __global__ void __launch_bounds__(kThreads) rwkv6_scan_kernel(Args a) {
   const long long sbase =
       (static_cast<long long>(b) * gridDim.x + h) * D * D;
   const int n_chunks = (a.s + kChunk - 1) / kChunk;
+  // this (b, h)'s checkpoints: ceil(S / kPiece) states of D x D
+  float* ck = kCkpt ? a.ckpt + sbase * ((a.s + kPiece - 1) / kPiece)
+                    : nullptr;
 
   // chunk c's rows -> buffer c & 1, 16 bytes a copy (the array index is
   // a constant of the unrolled loop, so src and sstep stay in registers)
@@ -169,6 +182,13 @@ __global__ void __launch_bounds__(kThreads) rwkv6_scan_kernel(Args a) {
     const T (*buf)[kChunk][D] = rows[c & 1];
 #pragma unroll 2
     for (int t = 0; t < steps; ++t) {
+      if constexpr (kCkpt) {
+        if ((t0 + t) % kPiece == 0) {   // the state after t0 + t steps
+          float* out = ck + (t0 + t) / kPiece * D * D;
+#pragma unroll
+          for (int i = 0; i < kPer; ++i) out[kidx(i) * D + col] = st[i];
+        }
+      }
       const float v = to_float(buf[3][t][col]);
       float y4[kVw];
 #pragma unroll
@@ -209,10 +229,10 @@ __global__ void __launch_bounds__(kThreads) rwkv6_scan_kernel(Args a) {
   for (int i = 0; i < kPer; ++i) a.s_last[sbase + kidx(i) * D + col] = st[i];
 }
 
-template <typename T, int D, int kChunk>
+template <typename T, int D, int kChunk, bool kCkpt>
 cudaError_t launch_chunk(const Args& a, int b, int h, cudaStream_t stream) {
   constexpr int smem = (2 * 4 * D * sizeof(T) + kThreads * 4) * kChunk;
-  auto kernel = rwkv6_scan_kernel<T, D, kChunk>;
+  auto kernel = rwkv6_scan_kernel<T, D, kChunk, kCkpt>;
   static bool configured = false;     // set once; a repeat is harmless
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -225,10 +245,16 @@ cudaError_t launch_chunk(const Args& a, int b, int h, cudaStream_t stream) {
 }
 
 // the decode step (S = 1) stages one step: 3 KB of shared memory, not 192
+template <typename T, int D, bool kCkpt>
+cudaError_t launch_ckpt(const Args& a, int b, int h, cudaStream_t stream) {
+  return a.s == 1 ? launch_chunk<T, D, 1, kCkpt>(a, b, h, stream)
+                  : launch_chunk<T, D, kChunkSteps, kCkpt>(a, b, h, stream);
+}
+
 template <typename T, int D>
 cudaError_t launch(const Args& a, int b, int h, cudaStream_t stream) {
-  return a.s == 1 ? launch_chunk<T, D, 1>(a, b, h, stream)
-                  : launch_chunk<T, D, kChunkSteps>(a, b, h, stream);
+  return a.ckpt ? launch_ckpt<T, D, true>(a, b, h, stream)
+                : launch_ckpt<T, D, false>(a, b, h, stream);
 }
 
 template <typename T>
@@ -244,16 +270,18 @@ cudaError_t dispatch_d(const Args& a, int b, int h, int d,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (r, k, v, w and y; u, s0 and s_last are
-// fp32).  strides: 15 element strides, the (batch, head, seq) strides of r,
-// k, v, w and y in that order; r/k/v/w's base pointers and strides 16-byte
-// aligned (the caller checks).  Returns the launch's cudaError_t (0 on
-// success); the caller raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16 (r, k, v, w and y; u, s0, s_last and
+// ckpt are fp32).  strides: 15 element strides, the (batch, head, seq)
+// strides of r, k, v, w and y in that order; r/k/v/w's base pointers and
+// strides 16-byte aligned (the caller checks).  ckpt: null, or (B, H,
+// ceil(S / 8), D, D) contiguous, which receives the state at the start of
+// every 8-step piece.  Returns the launch's cudaError_t (0 on success);
+// the caller raises on anything else.
 extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v,
                               const void* w, const float* u, const float* s0,
-                              void* y, float* s_last, int dtype, int b, int h,
-                              int s, int d, const long long* strides,
-                              void* stream) {
+                              void* y, float* s_last, float* ckpt, int dtype,
+                              int b, int h, int s, int d,
+                              const long long* strides, void* stream) {
   Args a;
   a.r = r;
   a.k = k;
@@ -263,6 +291,7 @@ extern "C" int rwkv6_scan_fwd(const void* r, const void* k, const void* v,
   a.s0 = s0;
   a.y = y;
   a.s_last = s_last;
+  a.ckpt = ckpt;
   a.s = s;
   long long* dst[5] = {a.rs, a.ks, a.vs, a.ws, a.ys};
   for (int i = 0; i < 5; ++i)

@@ -15,64 +15,98 @@
 //   G_{t-1} = diag(w_t) G_t + r_t dy_t^T,   ds0 = G_{-1}
 // r/k/v/w/dy (B, H, S, D) fp32 or bf16 (one dtype) with element strides
 // for the batch, head and sequence axes (rows 16-byte aligned), u (H, D),
-// s0 and ds_last (B, H, D, D) fp32 -> dr/dk/dv/dw in the inputs' dtype
-// with their own strides, du (H, D) and ds0 (B, H, D, D) fp32.  Any S.
+// s0 and ds_last (B, H, D, D) fp32, and the forward's checkpoints: the
+// state at the start of every 8-step piece, (B, H, ceil(S/8), D, D) fp32,
+// written by the forward kernel's checkpoint epilogue -> dr/dk/dv/dw in the
+// inputs' dtype with their own strides, du (H, D) and ds0 (B, H, D, D)
+// fp32.  Any S.
 //
 // S_{t-1} and G_t are needed at the same step, one walked forward and one
 // backward.  Going back from S_t to S_{t-1} would divide by w_t, and decays
 // of 0 and 1 are legal (w 1e-30 underflows the quotient), so nothing here
-// divides: the kernel recomputes S in pieces of kSub (8) steps.  Phase 1
-// walks the forward recurrence (the forward kernel's FMAs) and writes the
-// state at the start of every piece to a scratch buffer (B, H, ceil(S/8),
-// D, D) fp32.  Phase 2 walks the pieces in reverse: it loads a piece's
-// start, recomputes its kSub states into shared memory, then walks the
-// piece's steps backwards with G in registers.
+// divides: the kernel walks the pieces in reverse, recomputes a piece's
+// states from its checkpoint (the forward kernel's FMAs), then walks the
+// piece's steps backwards with G.
 //
 // Bound at rwkv6-1.6b's training shape (B 8, H 32, S 1024, D 64, fp32):
 // r/k/v/w/dy read and dr/dk/dv/dw written once, 9 x 67.1 MB, plus s0 and
 // ds0, 612 MB -> 0.18 ms at 3.35 TB/s; about 8 operations per state
 // element per step, 8.6 GFLOP -> 0.13 ms at the 67 TFLOP/s fp32 CUDA-core
-// peak.  So the bound is bytes; what sets the time is the walk over S
-// dependent steps (three times: phase 1, the recompute, the reverse walk)
-// and the checkpoints' 537 MB written and read once.
+// peak.  So the bound is bytes (the checkpoints, 537 MB read here, are
+// the forward's to write).
 //
-// Design: one block of 256 threads per (head, batch row), grid (H, B).
-// Thread (row k, part q), k = tid / (256 / D), holds the D^2 / 256 columns
-// v = 4 (256 / D) m + 4 q + c of row k of S and of G in registers (16 at
-// D 64), so the reductions over v (dr, dk, dw) are a thread's own FMAs
-// and a shuffle over the 256 / D threads of the row, and the reduction
-// over k (dv) a reduce-scatter over the warp's rows by shuffles, then a
-// fixed-order sum over the 8 warps through shared memory after each
-// piece.  A piece's rows (r, k, v, w, dy) and its start state are copied
-// by 16-byte cp.async, double-buffered: piece p - 1 is in flight while p
-// is walked.  The recomputed states sit in shared memory thread by thread
-// (each thread reads back only its own), 128 KB at D 64.  du: each (b, h)
-// block writes its partial sum over time; a second launch sums the batch
-// rows in order.  No atomics, so the gradients are equal bit for bit from
-// call to call.  fp32 arithmetic throughout, bf16 widened on load and
-// rounded on store.
+// What held the previous design back: it walked S's 1024
+// dependent steps three times (phase 1 replayed the forward to save the
+// checkpoints, 537 MB written and read back; phase 2 recomputed each
+// piece; then G stepped back), and its grid of (H, B) = 256 blocks of 8
+// warps, each with 200 KB of shared memory, put one block on an SM in two
+// waves: 8 warps could not hide a dependent chain with shuffle reductions
+// every step.  Now:
+//   - the forward writes the checkpoints (the remat's second forward runs
+//     anyway), so one walk and its 1.07 GB of traffic are gone;
+//   - S and G scale rows, so their columns are independent: each
+//     (head, row) is split over D / 16 blocks of 16 columns, grid (D / 16,
+//     H, B), 1024 blocks at the training shape, each 2D threads: thread
+//     (row k, half q) holds 8 columns of row k of S and of G in registers,
+//     and a piece's 8 recomputed states too (64 registers), so shared
+//     memory holds only the staged rows (73 KB a block at D 64 fp32) and
+//     three blocks share an SM;
+//   - dr, dk and dw sum over all D columns: a thread's 8 FMAs and one
+//     shuffle give its block's 16-column part, and the D / 16 blocks of a
+//     (head, row) form a thread block cluster that exchanges the parts
+//     through distributed shared memory; block g sums rows [16 g, 16 g +
+//     16) over the cluster's parts in rank order (no atomics: equal bits
+//     from call to call) and adds the u terms, whose v_t . dy_t is the
+//     cluster's sum of each block's 16 columns too.  dv sums over rows: a
+//     reduce-scatter over the warp's 16 rows, then a fixed-order sum over
+//     the warps.  du: each block its rows' sum over time; a second launch
+//     sums the batch rows in order;
+//   - no barrier a step: a round of two pieces (16 steps) has the ring's,
+//     the cluster's and one for r_t . (u * k_t), which is only added in the
+//     combine and so is summed between the cluster barrier's arrive and its
+//     wait, while the other blocks catch up.
+// A round's rows (r, k, w whole; the block's 16 columns of v and dy) and
+// its two checkpoints' 16 columns are copied by 16-byte cp.async,
+// double-buffered: round m - 1 is in flight while m is walked.  fp32
+// arithmetic throughout, bf16 widened on load and rounded on store.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "async_copy.cuh"
 #include "convert.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSub = 8;               // steps a piece (checkpoint interval)
-static_assert(kSub <= kWarps, "one warp a step for the per-step scalars");
+// the two halves of a cluster barrier (release, acquire): work between
+// them overlaps the wait for the cluster's other blocks
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+constexpr int kSub = 8;               // steps a piece (the forward's)
+constexpr int kPieces = 2;            // pieces a round: one exchange
+constexpr int kRound = kPieces * kSub;  // steps a round
+constexpr int kCols = 16;             // state columns a block
+constexpr int kTpr = 2;               // threads a row
+constexpr int kCpt = kCols / kTpr;    // columns a thread
+// after dv's reduce-scatter over a warp's rows, lanes that differ only in
+// these bits hold the same sums
+constexpr int kSameSums = (32 / kCpt - 1) & ~(kTpr - 1);
 
 struct Args {
   const void* x[5];                   // r, k, v, w, dy
   const float* u;                     // (H, D) contiguous
-  const float* s0;                    // (B, H, D, D) contiguous
+  const float* ckpt;                  // (B, H, pieces, D, D) contiguous
   const float* ds_last;               // (B, H, D, D) contiguous, or null
   void* dx[4];                        // dr, dk, dv, dw
   float* du_part;                     // (B, H, D)
   float* ds0;                         // (B, H, D, D)
-  float* ckpt;                        // (B, H, pieces, D * D)
   int s;
   long long xs[5][3];                 // (batch, head, seq) strides
   long long ds[4][3];
@@ -87,25 +121,30 @@ __device__ __forceinline__ void load_n(const T* p, float* f) {
   for (int i = 0; i < N; ++i) f[i] = to_float(p[i]);
 }
 template <>
-__device__ __forceinline__ void load_n<4, float>(const float* p, float* f) {
+__device__ __forceinline__ void load_n<8, float>(const float* p, float* f) {
   const float4 x = *reinterpret_cast<const float4*>(p);
+  const float4 y = *reinterpret_cast<const float4*>(p + 4);
   f[0] = x.x;
   f[1] = x.y;
   f[2] = x.z;
   f[3] = x.w;
+  f[4] = y.x;
+  f[5] = y.y;
+  f[6] = y.z;
+  f[7] = y.w;
 }
 template <>
-__device__ __forceinline__ void load_n<4, __nv_bfloat16>(
+__device__ __forceinline__ void load_n<8, __nv_bfloat16>(
     const __nv_bfloat16* p, float* f) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&x.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&x.y));
-  f[0] = a.x;
-  f[1] = a.y;
-  f[2] = b.x;
-  f[3] = b.y;
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
 }
 
 // Sum of x over the lanes that differ in the bits of [STOP, MASK]
@@ -121,8 +160,8 @@ __device__ __forceinline__ float lane_sum(float x) {
 // Reduce-scatter of vals[0, N) over the lanes that differ in the bits of
 // [STOP, MASK]: at each bit a lane keeps half of its values (the upper
 // half where the bit is set) plus its partner's same half, until one value
-// is left; below that the lanes add.  vals[0, N >> levels) then hold sums
-// over all those lanes, of the indices from scatter_offset.
+// is left; below that the lanes add.  vals[0] then holds a sum over all
+// those lanes, of the index scatter_offset.
 template <int N, int MASK, int STOP>
 __device__ __forceinline__ void reduce_scatter(float* vals, int lane) {
   if constexpr (MASK >= STOP) {
@@ -151,234 +190,284 @@ __device__ __forceinline__ int scatter_offset(int lane) {
   return 0;
 }
 
+// a round's slot of the staging ring: the full rows of r, k, w, the
+// block's 16 columns of v and dy, and its columns of the two pieces'
+// checkpoints
 template <typename T, int D>
-struct Layout {
-  static constexpr int kTpr = kThreads / D;          // threads a row
-  static constexpr int kCpt = D / kTpr;              // columns a thread
-  static constexpr int kVw = kCpt < 4 ? kCpt : 4;    // consecutive columns
-  static constexpr int kRpw = 32 / kTpr;             // rows a warp
-  // lane sums left after the reduce-scatter over a warp's rows
-  static constexpr int kLeft = kCpt >= kRpw ? kCpt / kRpw : 1;
-  static constexpr int kRowPieces = D * sizeof(T) / 16;
-  // shared memory: states [kSub][kCpt][kThreads] f32, two slots of rows
-  // [5][kSub][D] T and a start state [D * D] f32, dv partials
-  // [kSub][kWarps][D] f32, per-step scalars [2][kSub] f32
-  static constexpr int kStates = kSub * D * D * 4;
-  static constexpr int kRows = 5 * kSub * D * sizeof(T);
-  static constexpr int kSlot = kRows + D * D * 4;
-  static constexpr int kDvp = kSub * kWarps * D * 4;
-  static constexpr int kSmem = kStates + 2 * kSlot + kDvp + 2 * kSub * 4;
-  static_assert(kCpt % kVw == 0 && kRowPieces >= 1, "whole pieces");
-  static_assert(kSmem <= 232448, "shared memory of one block");
-  // column of a thread's j-th value
-  __device__ static int col(int q, int j) {
-    return kVw * kTpr * (j / kVw) + kVw * q + j % kVw;
-  }
+struct Slot {
+  T full[3][kRound][D];               // r, k, w
+  T own[2][kRound][kCols];            // v, dy
+  float ck[kPieces][D][kCols];
+};
+enum { kFr = 0, kFk = 1, kFw = 2, kOv = 0, kOdy = 1 };
+
+// what the cluster reads of a block after a round: its parts of dr, dk, dw
+// (rows) and of v_t . dy_t
+template <int D>
+struct Parts {
+  float x[3][kRound][D];
+  float vdy[kRound];
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) rwkv6_bwd_kernel(Args a) {
+struct Layout {
+  static constexpr int kGroups = D / kCols;          // blocks a (head, row)
+  static constexpr int kThreads = D * kTpr;
+  static constexpr int kWarps = kThreads / 32;       // 32 / kTpr rows each
+  static constexpr int kRowPieces = D * sizeof(T) / 16;
+  static constexpr int kColPieces = kCols * sizeof(T) / 16;
+  // shared memory: two slots, two buffers of parts, dv partials
+  // [kRound][kWarps][kCols] f32, r_t . (u * k_t) [kRound] f32 and du's
+  // partials [kThreads] f32
+  static constexpr int kSlot = sizeof(Slot<T, D>);
+  static constexpr int kPart = sizeof(Parts<D>);
+  static constexpr int kDvp = kRound * kWarps * kCols * 4;
+  static constexpr int kSmem =
+      2 * kSlot + 2 * kPart + kDvp + kRound * 4 + kThreads * 4;
+  static_assert(D % kCols == 0 && kWarps >= 1 && kColPieces >= 1,
+                "whole warps and 16-byte pieces");
+  static_assert(kSlot % 16 == 0 && kPart % 16 == 0, "16-byte copies");
+  static_assert(kThreads % kCols == 0, "the combine's threads");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(Layout<T, D>::kThreads)
+    rwkv6_bwd_kernel(Args a) {
   using L = Layout<T, D>;
-  constexpr int kCpt = L::kCpt, kVw = L::kVw, kTpr = L::kTpr;
+  using S = Slot<T, D>;
+  constexpr int kThreads = L::kThreads, kWarps = L::kWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* states = reinterpret_cast<float*>(smem_raw);
-  unsigned char* slots = smem_raw + L::kStates;
-  float (*dvp)[kWarps][D] = reinterpret_cast<float (*)[kWarps][D]>(
-      slots + 2 * L::kSlot);
-  float (*scal)[kSub] = reinterpret_cast<float (*)[kSub]>(
-      slots + 2 * L::kSlot + L::kDvp);
-  auto rows = [&](int slot) {
-    return reinterpret_cast<T (*)[kSub][D]>(slots + slot * L::kSlot);
-  };
-  auto start = [&](int slot) {
-    return reinterpret_cast<float*>(slots + slot * L::kSlot + L::kRows);
-  };
+  S* slots = reinterpret_cast<S*>(smem_raw);
+  Parts<D>* parts = reinterpret_cast<Parts<D>*>(smem_raw + 2 * L::kSlot);
+  float (*dvp)[kWarps][kCols] = reinterpret_cast<float (*)[kWarps][kCols]>(
+      smem_raw + 2 * L::kSlot + 2 * L::kPart);
+  float* ruk = reinterpret_cast<float*>(smem_raw + 2 * L::kSlot +
+                                        2 * L::kPart + L::kDvp);
+  float* du_red = ruk + kRound;
+  cg::cluster_group cluster = cg::this_cluster();
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int row = tid / kTpr, q = tid % kTpr;
-  const int h = blockIdx.x, b = blockIdx.y, nh = gridDim.x;
+  const int grp = blockIdx.x;         // columns [16 grp, 16 grp + 16)
+  const int h = blockIdx.y, b = blockIdx.z, nh = gridDim.y;
+  const int c0 = q * kCpt;            // this thread's first column (block)
+  const int col0 = grp * kCols + c0;  // ... of the state
   const int n_pieces = (a.s + kSub - 1) / kSub;
+  const int n_rounds = (a.s + kRound - 1) / kRound;
   const long long bh = static_cast<long long>(b) * nh + h;
   const long long sbase = bh * D * D;
-  float* ck = a.ckpt + bh * n_pieces * D * D;
+  const float* ck = a.ckpt + bh * n_pieces * D * D;
   const T* src[5];
 #pragma unroll
   for (int i = 0; i < 5; ++i)
     src[i] = static_cast<const T*>(a.x[i]) + b * a.xs[i][0] + h * a.xs[i][1];
-
-  // rows [t0, t0 + n) of the arrays in `mask` (and, with `with_start`, the
-  // start state of piece p) -> slot, 16 bytes a copy
-  constexpr int kRowT = 16 / sizeof(T);
-  auto stage = [&](int p, int slot, unsigned mask, bool with_start) {
-    if (p >= 0 && p < n_pieces) {
-      const int t0 = p * kSub;
-      const int n = min(kSub, a.s - t0);
-      T (*dst)[kSub][D] = rows(slot);
+  T* dst[4];
 #pragma unroll
-      for (int arr = 0; arr < 5; ++arr) {
-        if (!(mask & (1u << arr))) continue;
+  for (int i = 0; i < 4; ++i)
+    dst[i] = static_cast<T*>(a.dx[i]) + b * a.ds[i][0] + h * a.ds[i][1];
+
+  // round m's rows and checkpoint columns -> slot, 16 bytes a copy
+  constexpr int kRowT = 16 / sizeof(T);
+  auto stage = [&](int m, int slot) {
+    if (m >= 0) {
+      const int t0 = m * kRound;
+      const int n = min(kRound, a.s - t0);
+      S* to = &slots[slot];
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        const int x = f == kFr ? kR : f == kFk ? kK : kW;
         for (int i = tid; i < n * L::kRowPieces; i += kThreads) {
           const int t = i / L::kRowPieces, e = (i % L::kRowPieces) * kRowT;
-          cp_async16(&dst[arr][t][e], src[arr] + (t0 + t) * a.xs[arr][2] + e,
+          cp_async16(&to->full[f][t][e], src[x] + (t0 + t) * a.xs[x][2] + e,
                      16);
         }
       }
-      if (with_start) {
-        float* st = start(slot);
-        const float* from = ck + static_cast<long long>(p) * D * D;
-        for (int i = tid; i < D * D / 4; i += kThreads)
-          cp_async16(st + 4 * i, from + 4 * i, 16);
+#pragma unroll
+      for (int o = 0; o < 2; ++o) {
+        const int x = o == kOv ? kV : kDy;
+        for (int i = tid; i < n * L::kColPieces; i += kThreads) {
+          const int t = i / L::kColPieces, e = (i % L::kColPieces) * kRowT;
+          cp_async16(&to->own[o][t][e],
+                     src[x] + (t0 + t) * a.xs[x][2] + grp * kCols + e, 16);
+        }
+      }
+      const int np = min(kPieces, n_pieces - kPieces * m);
+      constexpr int kCk = D * kCols / 4;          // copies a checkpoint
+      for (int i = tid; i < np * kCk; i += kThreads) {
+        const int pc = i / kCk, r = i % kCk / (kCols / 4);
+        const int e = i % (kCols / 4) * 4;
+        cp_async16(&to->ck[pc][r][e],
+                   ck + static_cast<long long>(kPieces * m + pc) * D * D +
+                       r * D +
+                       grp * kCols + e,
+                   16);
       }
     }
     cp_async_commit();
   };
 
-  // one forward step of this thread's columns: the forward kernel's FMAs
-  auto step = [&](float* st, const T (*buf)[kSub][D], int t) {
-    const float kk = to_float(buf[kK][t][row]);
-    const float ww = to_float(buf[kW][t][row]);
+  // this block's combine: rows [16 grp, 16 grp + 16) of dr, dk, dw and its
+  // 16 columns of dv, (row or column, step) pairs spread over the threads
+  constexpr int kStride = kThreads / kCols;       // steps apart
+  const int cl = tid % kCols;
+  const int crow = grp * kCols + cl;
+  const float u_row = a.u[h * D + crow];
+  // the scalars' lanes: elements lane and lane + 32 of a row
+  float u_lane[D > 32 ? 2 : 1];
 #pragma unroll
-    for (int j0 = 0; j0 < kCpt; j0 += kVw) {
-      float vv[kVw];
-      load_n<kVw>(&buf[kV][t][L::col(q, j0)], vv);
-#pragma unroll
-      for (int c = 0; c < kVw; ++c)
-        st[j0 + c] = fmaf(ww, st[j0 + c], kk * vv[c]);
-    }
-  };
+  for (int i = 0; i < (D > 32 ? 2 : 1); ++i)
+    u_lane[i] = lane + 32 * i < D ? a.u[h * D + lane + 32 * i] : 0.f;
 
-  // phase 1: the forward recurrence from s0, each piece's start state
-  // written to the scratch ([j][tid] order, so the writes coalesce)
-  float st[kCpt];
-#pragma unroll
-  for (int j = 0; j < kCpt; ++j) st[j] = a.s0[sbase + row * D + L::col(q, j)];
-  constexpr unsigned kFwdRows = (1u << kK) | (1u << kV) | (1u << kW);
-  stage(0, 0, kFwdRows, false);
-  for (int p = 0; p < n_pieces; ++p) {
-    stage(p + 1, (p + 1) & 1, kFwdRows, false);   // its slot was freed
-    cp_async_wait<1>();
-    __syncthreads();
-    float* out = ck + static_cast<long long>(p) * D * D;
-#pragma unroll
-    for (int j = 0; j < kCpt; ++j) out[j * kThreads + tid] = st[j];
-    if (p + 1 < n_pieces) {           // the last piece's end is not needed
-      const int n = min(kSub, a.s - p * kSub);
-      for (int t = 0; t < n; ++t) step(st, rows(p & 1), t);
-    }
-    __syncthreads();                  // slot p & 1 is free
-  }
-  cp_async_wait<0>();
-  __threadfence();                    // the start states, for cp.async
-  __syncthreads();
-
-  // phase 2: the pieces in reverse, G in registers
   float g[kCpt];
 #pragma unroll
   for (int j = 0; j < kCpt; ++j)
-    g[j] = a.ds_last ? a.ds_last[sbase + row * D + L::col(q, j)] : 0.f;
-  const float uu = a.u[h * D + row];
+    g[j] = a.ds_last ? a.ds_last[sbase + row * D + col0 + j] : 0.f;
   float du = 0.f;
-  T* dst[4];
+
+  // the piece of `count` steps from round step `base`: its states S_{t-1}
+  // from its checkpoint, in registers, then G back over it; this block's
+  // parts of dr, dk, dw by rows, dv's warp sums by columns
+  auto walk = [&](const S* sl, int base, int count, const float (*ckp)[kCols],
+                  Parts<D>* part) {
+    float sp[kSub][kCpt];
+    load_n<kCpt>(&ckp[row][c0], sp[0]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    dst[i] = static_cast<T*>(a.dx[i]) + b * a.ds[i][0] + h * a.ds[i][1];
-  constexpr unsigned kAllRows = 0x1fu;
-  stage(n_pieces - 1, 0, kAllRows, true);
-  for (int i = 0; i < n_pieces; ++i) {
-    const int p = n_pieces - 1 - i;
-    stage(p - 1, (i + 1) & 1, kAllRows, true);    // its slot was freed
-    cp_async_wait<1>();
-    __syncthreads();
-    const T (*buf)[kSub][D] = rows(i & 1);
-    const int t0 = p * kSub;
-    const int n = min(kSub, a.s - t0);
-    // the per-step scalars v_t . dy_t and r_t . (u * k_t), a warp a step
-    if (warp < n) {
-      float vdy = 0.f, ruk = 0.f;
-      for (int e = lane; e < D; e += 32) {
-        vdy = fmaf(to_float(buf[kV][warp][e]), to_float(buf[kDy][warp][e]),
-                   vdy);
-        ruk = fmaf(to_float(buf[kR][warp][e]) * a.u[h * D + e],
-                   to_float(buf[kK][warp][e]), ruk);
-      }
-      vdy = lane_sum<16, 1>(vdy);
-      ruk = lane_sum<16, 1>(ruk);
-      if (lane == 0) {
-        scal[0][warp] = vdy;
-        scal[1][warp] = ruk;
+    for (int t = 1; t < kSub; ++t) {
+      if (t < count) {
+        const float kk = to_float(sl->full[kFk][base + t - 1][row]);
+        const float ww = to_float(sl->full[kFw][base + t - 1][row]);
+        float vv[kCpt];
+        load_n<kCpt>(&sl->own[kOv][base + t - 1][c0], vv);
+#pragma unroll
+        for (int j = 0; j < kCpt; ++j)
+          sp[t][j] = fmaf(ww, sp[t - 1][j], kk * vv[j]);
       }
     }
-    // the piece's states S_{t-1}, from its start, each thread its own
-    const float* from = start(i & 1);
 #pragma unroll
-    for (int j = 0; j < kCpt; ++j) st[j] = from[j * kThreads + tid];
-    for (int t = 0; t < n; ++t) {
+    for (int t = kSub - 1; t >= 0; --t) {
+      if (t < count) {
+        const int ts = base + t;
+        const float rr = to_float(sl->full[kFr][ts][row]);
+        const float kk = to_float(sl->full[kFk][ts][row]);
+        const float ww = to_float(sl->full[kFw][ts][row]);
+        float vv[kCpt], dy[kCpt], dv[kCpt];
+        load_n<kCpt>(&sl->own[kOv][ts][c0], vv);
+        load_n<kCpt>(&sl->own[kOdy][ts][c0], dy);
+        float dr = 0.f, dk = 0.f, dw = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCpt; ++j)
-        states[(t * kCpt + j) * kThreads + tid] = st[j];
-      if (t + 1 < n) step(st, buf, t);
-    }
-    __syncthreads();                  // the scalars
-    for (int t = n - 1; t >= 0; --t) {
-      const float rr = to_float(buf[kR][t][row]);
-      const float kk = to_float(buf[kK][t][row]);
-      const float ww = to_float(buf[kW][t][row]);
-      const float vdy = scal[0][t];
-      float dr = 0.f, dk = 0.f, dw = 0.f;
-      float dv[kCpt];
-#pragma unroll
-      for (int j0 = 0; j0 < kCpt; j0 += kVw) {
-        float vv[kVw], dy[kVw];
-        load_n<kVw>(&buf[kV][t][L::col(q, j0)], vv);
-        load_n<kVw>(&buf[kDy][t][L::col(q, j0)], dy);
-#pragma unroll
-        for (int c = 0; c < kVw; ++c) {
-          const int j = j0 + c;
-          const float sp = states[(t * kCpt + j) * kThreads + tid];
-          dr = fmaf(sp, dy[c], dr);
-          dk = fmaf(g[j], vv[c], dk);
-          dw = fmaf(g[j], sp, dw);
+        for (int j = 0; j < kCpt; ++j) {
+          dr = fmaf(sp[t][j], dy[j], dr);
+          dk = fmaf(g[j], vv[j], dk);
+          dw = fmaf(g[j], sp[t][j], dw);
           dv[j] = g[j] * kk;
-          g[j] = fmaf(ww, g[j], rr * dy[c]);       // G_{t-1}
+          g[j] = fmaf(ww, g[j], rr * dy[j]);     // G_{t-1}
         }
-      }
-      dr = lane_sum<kTpr / 2, 1>(dr);
-      dk = lane_sum<kTpr / 2, 1>(dk);
-      dw = lane_sum<kTpr / 2, 1>(dw);
-      if (q == 0) {
-        const long long tt = t0 + t;
-        dst[kR][tt * a.ds[kR][2] + row] = from_float<T>(fmaf(uu * kk, vdy,
-                                                             dr));
-        dst[kK][tt * a.ds[kK][2] + row] = from_float<T>(fmaf(rr * uu, vdy,
-                                                             dk));
-        dst[kW][tt * a.ds[kW][2] + row] = from_float<T>(dw);
-        du = fmaf(rr * kk, vdy, du);
-      }
-      // dv: the sum over the warp's rows, then the warps' partials below
-      reduce_scatter<kCpt, 16, kTpr>(dv, lane);
-      const int off = scatter_offset<kCpt, 16, kTpr>(lane);
-      if ((lane / kTpr) % (L::kRpw / (kCpt / L::kLeft)) == 0) {
-#pragma unroll
-        for (int j = 0; j < L::kLeft; ++j) dvp[t][warp][L::col(q, off + j)] =
-            dv[j];
+        dr = lane_sum<kTpr / 2, 1>(dr);
+        dk = lane_sum<kTpr / 2, 1>(dk);
+        dw = lane_sum<kTpr / 2, 1>(dw);
+        if (q == 0) {
+          part->x[0][ts][row] = dr;
+          part->x[1][ts][row] = dk;
+          part->x[2][ts][row] = dw;
+        }
+        // dv: the sum over the warp's rows (the lane bits from kTpr up), a
+        // value a lane
+        reduce_scatter<kCpt, 16, kTpr>(dv, lane);
+        if (!(lane & kSameSums))
+          dvp[ts][warp][c0 + scatter_offset<kCpt, 16, kTpr>(lane)] = dv[0];
       }
     }
-    __syncthreads();                  // dv's partials
-    for (int e = tid; e < n * D; e += kThreads) {
-      const int t = e / D, c = e % D;
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += dvp[t][w][c];
-      sum = fmaf(scal[1][t], to_float(buf[kDy][t][c]), sum);
-      dst[kV][(t0 + t) * a.ds[kV][2] + c] = from_float<T>(sum);
+  };
+
+  stage(n_rounds - 1, 0);
+  for (int i = 0; i < n_rounds; ++i) {
+    const int m = n_rounds - 1 - i;
+    const int slot = i & 1;
+    cp_async_wait<0>();
+    // round m has landed everywhere and every thread is done with round
+    // m + 1's combine, so slot ^ 1 takes round m - 1
+    __syncthreads();
+    stage(m - 1, slot ^ 1);
+    const S* sl = &slots[slot];
+    Parts<D>* part = &parts[slot];
+    const int t0 = m * kRound;
+    const int n = min(kRound, a.s - t0);
+
+    // this block's part of v_t . dy_t (its 16 columns), a warp a step
+    for (int t = warp; t < n; t += kWarps) {
+      float vdy = lane < kCols ? to_float(sl->own[kOv][t][lane]) *
+                                     to_float(sl->own[kOdy][t][lane])
+                               : 0.f;
+      vdy = lane_sum<kCols / 2, 1>(vdy);
+      if (lane == 0) part->vdy[t] = vdy;
     }
-    __syncthreads();                  // slot i & 1, dvp and scal are free
+    // the round's pieces, the last first
+#pragma unroll
+    for (int pc = kPieces - 1; pc >= 0; --pc)
+      if (n > pc * kSub)
+        walk(sl, pc * kSub, min(n - pc * kSub, kSub), sl->ck[pc], part);
+
+    // every block's parts and this block's dv partials; r_t . (u * k_t)
+    // while the cluster's other blocks arrive
+    cluster_arrive();
+    for (int t = warp; t < n; t += kWarps) {
+      float x = 0.f;
+#pragma unroll
+      for (int i2 = 0; i2 < (D > 32 ? 2 : 1); ++i2) {
+        const int e = lane + 32 * i2;
+        if (e < D)
+          x = fmaf(to_float(sl->full[kFr][t][e]) * u_lane[i2],
+                   to_float(sl->full[kFk][t][e]), x);
+      }
+      x = lane_sum<16, 1>(x);
+      if (lane == 0) ruk[t] = x;
+    }
+    __syncthreads();                  // ruk, block-wide
+    cluster_wait();
+
+    // rows [16 grp, 16 grp + 16): the parts of the cluster's blocks in
+    // rank order, then the u terms
+    for (int t = tid / kCols; t < n; t += kStride) {
+      float sum[3] = {0.f, 0.f, 0.f};
+      float vdy = 0.f;
+      for (int r = 0; r < L::kGroups; ++r) {
+        const Parts<D>* other = cluster.map_shared_rank(part, r);
+#pragma unroll
+        for (int x = 0; x < 3; ++x) sum[x] += other->x[x][t][crow];
+        vdy += other->vdy[t];
+      }
+      const float rr = to_float(sl->full[kFr][t][crow]);
+      const float kk = to_float(sl->full[kFk][t][crow]);
+      const long long tt = t0 + t;
+      dst[kR][tt * a.ds[kR][2] + crow] =
+          from_float<T>(fmaf(u_row * kk, vdy, sum[0]));
+      dst[kK][tt * a.ds[kK][2] + crow] =
+          from_float<T>(fmaf(rr * u_row, vdy, sum[1]));
+      dst[kW][tt * a.ds[kW][2] + crow] = from_float<T>(sum[2]);
+      du = fmaf(rr * kk, vdy, du);
+      // dv of column 16 grp + cl: the warps' sums in order, the u term
+      float dv = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) dv += dvp[t][w][cl];
+      dv = fmaf(ruk[t], to_float(sl->own[kOdy][t][cl]), dv);
+      dst[kV][tt * a.ds[kV][2] + grp * kCols + cl] = from_float<T>(dv);
+    }
   }
   cp_async_wait<0>();
 #pragma unroll
-  for (int j = 0; j < kCpt; ++j) a.ds0[sbase + row * D + L::col(q, j)] = g[j];
-  if (q == 0) a.du_part[bh * D + row] = du;
+  for (int j = 0; j < kCpt; ++j) a.ds0[sbase + row * D + col0 + j] = g[j];
+  // du of the block's rows: the sums of the kStride threads of a row, in
+  // order
+  du_red[tid] = du;
+  __syncthreads();
+  if (tid < kCols) {
+    float sum = 0.f;
+    for (int m = 0; m < kStride; ++m) sum += du_red[m * kCols + tid];
+    a.du_part[bh * D + crow] = sum;
+  }
+  // no block leaves while another may still read its parts
+  cluster.sync();
 }
 
 // du[h, k] = sum over batch rows, in order, of du_part[b, h, k]
@@ -393,17 +482,29 @@ __global__ void rwkv6_du_kernel(const float* __restrict__ part,
 
 template <typename T, int D>
 cudaError_t launch(const Args& a, int b, int h, cudaStream_t stream) {
-  constexpr int smem = Layout<T, D>::kSmem;
+  using L = Layout<T, D>;
   auto kernel = rwkv6_bwd_kernel<T, D>;
   static bool configured = false;     // set once; a repeat is harmless
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  kernel<<<dim3(h, b), kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  // the D / 16 column blocks of a (head, batch row) form a cluster
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(L::kGroups, h, b);
+  cfg.blockDim = dim3(L::kThreads);
+  cfg.dynamicSmemBytes = L::kSmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L::kGroups;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 template <typename T>
@@ -420,21 +521,22 @@ cudaError_t dispatch_d(const Args& a, int b, int h, int d,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, w, dy and dr, dk, dv, dw; u,
-// s0, ds_last, du, ds0 and the scratch are fp32).  strides: 27 element
+// ckpt, ds_last, du, ds0 and the scratch are fp32).  strides: 27 element
 // strides, the (batch, head, seq) strides of r, k, v, w, dy, dr, dk, dv and
 // dw in that order; r/k/v/w/dy's base pointers and strides 16-byte aligned
-// (the caller checks).  ds_last may be null (a zero gradient).  du_part is
-// (B, H, D) fp32 and ckpt (B, H, ceil(S / 8), D, D) fp32 scratch.  Two
-// launches (the gradient, then du's sum over the batch); returns the first
-// failing launch's cudaError_t (0 on success); the caller raises on
-// anything else.
+// (the caller checks).  ckpt: (B, H, ceil(S / 8), D, D), the state at the
+// start of every 8-step piece (rwkv6_scan_fwd's checkpoint epilogue).
+// ds_last may be null (a zero gradient).  du_part is (B, H, D) fp32
+// scratch.  Two launches (the gradient, then du's sum over the batch);
+// returns the first failing launch's cudaError_t (0 on success); the
+// caller raises on anything else.
 extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v,
-                              const void* w, const float* u, const float* s0,
-                              const void* dy, const float* ds_last, void* dr,
-                              void* dk, void* dv, void* dw, float* du_part,
-                              float* du, float* ds0, float* ckpt, int dtype,
-                              int b, int h, int s, int d,
-                              const long long* strides, void* stream) {
+                              const void* w, const float* u,
+                              const float* ckpt, const void* dy,
+                              const float* ds_last, void* dr, void* dk,
+                              void* dv, void* dw, float* du_part, float* du,
+                              float* ds0, int dtype, int b, int h, int s,
+                              int d, const long long* strides, void* stream) {
   Args a;
   const void* xs[5] = {r, k, v, w, dy};
   void* dxs[4] = {dr, dk, dv, dw};
@@ -447,11 +549,10 @@ extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v,
     for (int j = 0; j < 3; ++j) a.ds[i][j] = strides[15 + 3 * i + j];
   }
   a.u = u;
-  a.s0 = s0;
+  a.ckpt = ckpt;
   a.ds_last = ds_last;
   a.du_part = du_part;
   a.ds0 = ds0;
-  a.ckpt = ckpt;
   a.s = s;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch_d<float>(a, b, h, d, st)

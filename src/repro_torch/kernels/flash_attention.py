@@ -14,7 +14,8 @@ While autograd records and an input requires grad, the call goes through
 a :class:`torch.autograd.Function`: its forward also writes each row's
 log-sum-exp (the kernel's ``lse`` epilogue) and saves q, k, v and lse;
 its backward is :func:`flash_attention_bwd`, the hand-written backward
-kernel (three launches: each row's rowsum(P * dP), dK/dV, dQ), or on CPU
+kernel (three launches: each row's rowsum(P * dP), dK/dV, dQ; a fourth
+sums head dim 256's dK/dV parts), or on CPU
 tensors the plain :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`.
 Otherwise (serving, ``torch.no_grad``) nothing is saved and no lse is
 written.
@@ -24,9 +25,11 @@ tensor cores (``mma.sync``, its K/V tiles filled by 16-byte ``cp.async``),
 fp32 on CUDA cores (tensor cores would mean TF32, a different function).
 The bf16 route needs 16-byte aligned rows (:func:`aligned`); a bf16 input
 that is not raises ``ValueError`` and falls back to nothing.  The backward
-runs bf16 on the tensor cores up to head dim 128 (the same alignment
-rule; a misaligned ``do`` is copied contiguous first), fp32 and head dim
-256 on CUDA cores.
+runs bf16 on the tensor cores at every head dim (the same alignment rule;
+a misaligned ``do`` is copied contiguous first), from head dim 96 its
+dK/dV launch handing dS to the dQ launch through a scratch buffer (batch
+rows at most :data:`DS_SCRATCH_BYTES` of it a launch), and fp32 on CUDA
+cores.
 
 The kernels take element strides for the batch, head and sequence axes, so
 q/k/v may be transposed views of ``(B, S, H, D)`` projections as long as the
@@ -48,6 +51,10 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ALIGN = 16             # bytes of one cp.async
+# the bf16 backward's scratch (dS tiles, head dim 256's dK/dV parts): batch
+# rows are launched in groups whose scratch stays within this many bytes
+# (one row at a time at the least)
+DS_SCRATCH_BYTES = 1 << 30
 
 
 def aligned(data_ptr: int, strides, sizes, itemsize: int) -> bool:
@@ -212,19 +219,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, t = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty_like(lse)
+    xs = (q, k, v, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 21)(
-        *(st for x in (q, k, v, do, dq, dk, dv) for st in x.stride()[:3]))
+        *(st for x in xs for st in x.stride()[:3]))
+    chunk, scratch = b, None
+    per_row = (_bwd_scratch()(hq, hkv, s, t, d, int(causal), window or 0)
+               if q.dtype == torch.bfloat16 else 0)
+    if per_row > 0:
+        chunk = max(1, min(b, DS_SCRATCH_BYTES // per_row))
+        scratch = torch.empty(chunk * per_row, dtype=torch.uint8,
+                              device=q.device)
     fn = _bwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 _DTYPES[q.dtype], b, hq, hkv, s, t, d, strides,
-                 int(causal), window or 0, d ** -0.5, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
-                           f"error {err}")
+        for b0 in range(0, b, chunk):
+            # batch rows [b0, b0 + n): every pointer moved by b0 rows
+            n = min(chunk, b - b0)
+            ptr = [x.data_ptr() + b0 * x.stride(0) * x.element_size()
+                   for x in xs]
+            rows = b0 * hq * s * 4          # lse and delta are contiguous
+            err = fn(*ptr[:4], lse.data_ptr() + rows,
+                     delta.data_ptr() + rows,
+                     None if scratch is None else scratch.data_ptr(),
+                     *ptr[4:],
+                     _DTYPES[q.dtype], n, hq, hkv, s, t, d, strides,
+                     int(causal), window or 0, d ** -0.5, stream)
+            if err != 0:
+                raise RuntimeError(f"flash_attention_bwd kernel launch "
+                                   f"failed: CUDA error {err}")
     _build.count_launch("flash_attention_bwd")
     return dq, dk, dv
 
@@ -242,8 +264,16 @@ def _kernel():
 @functools.cache
 def _bwd_kernel():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                       ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_scratch():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
     return fn

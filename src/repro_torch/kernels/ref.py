@@ -188,10 +188,33 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(ys, 2).to(r.dtype), state
 
 
+RWKV6_PIECE = 8     # steps between the checkpoints of the backward
+
+
+def rwkv6_scan_states_ref(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                          s0: torch.Tensor) -> torch.Tensor:
+    """The state at the start of every piece of RWKV6_PIECE steps of
+    :func:`rwkv6_scan_ref`'s recurrence: (B, H, ceil(S / 8), D, D) fp32,
+    piece p the state after 8p steps (s0 for p = 0), each step
+    ``S <- w_t S + k_t^T v_t`` in the order :func:`rwkv6_scan_bwd_ref`
+    recomputes it.  The forward kernel's checkpoint epilogue writes the
+    same, and the backward starts each piece from them."""
+    kf, vf, wf = (x.float() for x in (k, v, w))
+    state = s0.float()
+    out = []
+    for t in range(k.shape[2]):
+        if t % RWKV6_PIECE == 0:
+            out.append(state)
+        state = (wf[:, :, t, :, None] * state
+                 + kf[:, :, t, :, None] * vf[:, :, t, None, :])
+    return torch.stack(out, 2)
+
+
 def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
                        dy: Optional[torch.Tensor],
-                       ds_last: Optional[torch.Tensor]):
+                       ds_last: Optional[torch.Tensor],
+                       states: Optional[torch.Tensor] = None):
     """The gradient of :func:`rwkv6_scan_ref` with respect to r, k, v, w, u
     and s0, given the gradients ``dy`` of y and ``ds_last`` of s_last
     (None: zero), as the explicit reverse recurrence.  With S_t the state
@@ -204,14 +227,20 @@ def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         du   = sum over batch and time of r_t * k_t (v_t . dy_t)
         G_{t-1} = diag(w_t) G_t + r_t dy_t^T,   ds0 = G_{-1}
 
-    No step divides by a decay, so decays of 0 and 1 are exact.  Returns
-    (dr, dk, dv, dw) in the inputs' dtype and (du, ds0) fp32."""
+    No step divides by a decay, so decays of 0 and 1 are exact.
+    ``states`` (:func:`rwkv6_scan_states_ref`'s, or the forward kernel's
+    checkpoints): each piece of 8 steps recomputes S from its own start,
+    as the backward kernel does, not from the previous piece's end; the
+    same values, since both take the same steps.  Returns (dr, dk, dv, dw)
+    in the inputs' dtype and (du, ds0) fp32."""
     rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
     uf = u.float()[None]                                   # (1, H, D)
     state = s0.float()
-    states = []                                            # S_{t-1}
+    before = []                                            # S_{t-1}
     for t in range(r.shape[2]):
-        states.append(state)
+        if states is not None and t % RWKV6_PIECE == 0:
+            state = states[:, :, t // RWKV6_PIECE].float()
+        before.append(state)
         state = (wf[:, :, t, :, None] * state
                  + kf[:, :, t, :, None] * vf[:, :, t, None, :])
     grad = (torch.zeros_like(state) if ds_last is None
@@ -223,13 +252,13 @@ def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         r_t, k_t, v_t, w_t, dy_t = (x[:, :, t] for x in (rf, kf, vf, wf,
                                                          dyf))
         vdy = (v_t * dy_t).sum(-1, keepdim=True)           # (B, H, 1)
-        dr[:, :, t] = (torch.einsum("bhkv,bhv->bhk", states[t], dy_t)
+        dr[:, :, t] = (torch.einsum("bhkv,bhv->bhk", before[t], dy_t)
                        + uf * k_t * vdy)
         dk[:, :, t] = (torch.einsum("bhkv,bhv->bhk", grad, v_t)
                        + r_t * uf * vdy)
         dv[:, :, t] = (torch.einsum("bhkv,bhk->bhv", grad, k_t)
                        + (r_t * uf * k_t).sum(-1, keepdim=True) * dy_t)
-        dw[:, :, t] = (grad * states[t]).sum(-1)
+        dw[:, :, t] = (grad * before[t]).sum(-1)
         du = du + (r_t * k_t * vdy).sum(0)
         grad = w_t[..., None] * grad + r_t[..., None] * dy_t[..., None, :]
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),

@@ -21,27 +21,59 @@ aligned (a contiguous projection's are).
 While autograd records and an input requires grad, the call goes through
 a :class:`torch.autograd.Function` whose forward is the same launch (on
 CUDA into a new ``(B, S, H, D)`` buffer returned as its ``(B, H, S, D)``
-view; ``out`` is not written) and saves r, k, v, w, u and s0; its backward
-is :func:`rwkv6_scan_bwd`, the hand-written backward kernel
-``csrc/rwkv6_scan_bwd.cu`` (counted as ``rwkv6_scan_bwd``), which
-recomputes the states from s0, or on CPU tensors the plain
-:func:`~repro_torch.kernels.ref.rwkv6_scan_bwd_ref`.  Otherwise (serving,
-``torch.no_grad``) nothing is saved.
+view; ``out`` is not written) with the kernel's checkpoint epilogue: it
+also writes the state at the start of every 8-step piece, (B, H, ceil(S /
+8), D, D) fp32 (537 MB at rwkv6-1.6b's training shape (8, 32, 1024, 64)).
+The Function saves r, k, v, w, u, s0 and those states; its backward is
+:func:`rwkv6_scan_bwd`, the hand-written backward kernel
+``csrc/rwkv6_scan_bwd.cu`` (counted as ``rwkv6_scan_bwd``), which starts
+each piece from its saved state.  On CPU tensors the forward and the
+states are the plain :func:`~repro_torch.kernels.ref.rwkv6_scan_ref` and
+:func:`~repro_torch.kernels.ref.rwkv6_scan_states_ref`, the backward the
+plain :func:`~repro_torch.kernels.ref.rwkv6_scan_bwd_ref`.  Otherwise
+(serving, ``torch.no_grad``) nothing is saved and no state is written.
+Under :func:`no_saved_states` (a remat's first forward, whose saved
+tensors ``torch.utils.checkpoint`` drops) the Function writes no states
+either and saves a zero-stride stand-in of their shape; the recompute
+that the backward runs writes them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
 
 from . import _build
-from .ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
+from .ref import (RWKV6_PIECE, rwkv6_scan_bwd_ref, rwkv6_scan_ref,
+                  rwkv6_scan_states_ref)
 
 HEAD_DIMS = (16, 32, 64)
-BWD_PIECE = 8       # steps between the backward kernel's saved states
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_skip = threading.local()
+
+
+@contextlib.contextmanager
+def no_saved_states():
+    """While active (in this thread), a recording forward writes no piece
+    states and saves a stand-in: for the first forward of a
+    ``torch.utils.checkpoint`` region, whose saved tensors are dropped and
+    recomputed (``checkpoint(..., context_fn=lambda: (no_saved_states(),
+    contextlib.nullcontext()))``)."""
+    before = getattr(_skip, "on", False)
+    _skip.on = True
+    try:
+        yield
+    finally:
+        _skip.on = before
+
+
+def _states_shape(r: torch.Tensor):
+    b, h, s, d = r.shape
+    return (b, h, -(-s // RWKV6_PIECE), d, d)
 
 
 def _check(r, k, v, w, u, s0, out) -> None:
@@ -81,31 +113,39 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return y, s_last
         out.copy_(y)
         return out, s_last
-    return _forward(r, k, v, w, u, s0, out)
+    return _forward(r, k, v, w, u, s0, out)[:2]
 
 
 class _RWKV6Scan(torch.autograd.Function):
-    """The kernel with its backward; the CPU route's are the plain
-    versions."""
+    """The kernel, its checkpoint epilogue and its backward; the CPU
+    route's are the plain versions."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, s0):
+        skip = getattr(_skip, "on", False)
         if r.device.type == "cpu":
             y, s_last = rwkv6_scan_ref(r, k, v, w, u, s0)
+            states = None if skip else rwkv6_scan_states_ref(k, v, w, s0)
         else:
             b, h, s, d = r.shape
             out = torch.empty((b, s, h, d), dtype=r.dtype,
                               device=r.device).transpose(1, 2)
-            y, s_last = _forward(r, k, v, w, u, s0, out)
-        ctx.save_for_backward(r, k, v, w, u, s0)
+            y, s_last, states = _forward(r, k, v, w, u, s0, out,
+                                         with_states=not skip)
+        if states is None:      # shape, dtype and device; never read
+            states = torch.empty((), dtype=torch.float32,
+                                 device=r.device).expand(_states_shape(r))
+        ctx.save_for_backward(r, k, v, w, u, s0, states)
         ctx.set_materialize_grads(False)
         return y, s_last
 
     @staticmethod
     def backward(ctx, dy, ds_last):
-        r, k, v, w, u, s0 = ctx.saved_tensors
+        r, k, v, w, u, s0, states = ctx.saved_tensors
+        if 0 in states.stride():    # the stand-in: recompute them
+            states = None
         dr, dk, dv, dw, du, ds0 = rwkv6_scan_bwd(r, k, v, w, u, s0, dy,
-                                                 ds_last)
+                                                 ds_last, states)
         return dr, dk, dv, dw, du.to(u.dtype), ds0.to(s0.dtype)
 
 
@@ -126,8 +166,10 @@ def _rows_aligned(*xs: torch.Tensor) -> bool:
         st * x.element_size() % 16 for st in x.stride()[:3]) for x in xs)
 
 
-def _forward(r, k, v, w, u, s0, out):
-    """One counted launch of the forward kernel on checked CUDA inputs."""
+def _forward(r, k, v, w, u, s0, out, with_states=False):
+    """One counted launch of the forward kernel on checked CUDA inputs ->
+    (y, s_last, states): the piece states of its checkpoint epilogue with
+    ``with_states``, else None (the launch without it)."""
     _cuda_checks(r)
     b, h, s, d = r.shape
     if out is None:
@@ -141,6 +183,8 @@ def _forward(r, k, v, w, u, s0, out):
     u32 = u.float().contiguous()
     s0_32 = s0.float().contiguous()
     s_last = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    states = (torch.empty(_states_shape(r), dtype=torch.float32,
+                          device=r.device) if with_states else None)
     strides = (ctypes.c_longlong * 15)(
         *(st for x in (r, k, v, w, out) for st in x.stride()[:3]))
     fn = _kernel()
@@ -148,39 +192,50 @@ def _forward(r, k, v, w, u, s0, out):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u32.data_ptr(), s0_32.data_ptr(), out.data_ptr(),
-                 s_last.data_ptr(), _DTYPES[r.dtype], b, h, s, d, strides,
-                 stream)
+                 s_last.data_ptr(),
+                 None if states is None else states.data_ptr(),
+                 _DTYPES[r.dtype], b, h, s, d, strides, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
                            f"{err}")
     _build.count_launch("rwkv6_scan")
-    return out, s_last
+    return out, s_last, states
 
 
 def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
                    dy: Optional[torch.Tensor],
-                   ds_last: Optional[torch.Tensor]):
+                   ds_last: Optional[torch.Tensor],
+                   states: Optional[torch.Tensor] = None):
     """The gradient of :func:`rwkv6_scan` given those of y (``dy``) and
     s_last (``ds_last``; either None: zero) -> (dr, dk, dv, dw) in the
-    inputs' dtype and layouts, (du, ds0) fp32.  CUDA tensors: one counted
-    call of the backward kernel (two launches: the gradient, then du's
-    fixed-order sum over the batch rows); CPU tensors: the plain
+    inputs' dtype and layouts, (du, ds0) fp32.  ``states``: the piece
+    states of the forward's checkpoint epilogue (or of
+    :func:`~repro_torch.kernels.ref.rwkv6_scan_states_ref`); None: a
+    forward launch with the epilogue writes them first (counted as
+    ``rwkv6_scan``).  CUDA tensors: one counted call of the backward kernel
+    (two launches: the gradient, then du's fixed-order sum over the batch
+    rows); CPU tensors: the plain
     :func:`~repro_torch.kernels.ref.rwkv6_scan_bwd_ref`."""
     _check(r, k, v, w, u, s0, None)
     for name, x, shape in (("dy", dy, r.shape), ("ds_last", ds_last,
-                                                 s0.shape)):
-        if x is not None and (x.shape != shape or x.device != r.device):
+                                                 s0.shape),
+                           ("states", states, _states_shape(r))):
+        if x is not None and (tuple(x.shape) != tuple(shape)
+                              or x.device != r.device):
             raise ValueError(f"rwkv6_scan_bwd wants {name} of shape "
                              f"{tuple(shape)} on {r.device}; got "
                              f"{tuple(x.shape)} on {x.device}")
     if r.device.type == "cpu":
-        return rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dy, ds_last)
+        return rwkv6_scan_bwd_ref(r, k, v, w, u, s0, dy, ds_last, states)
     _cuda_checks(r)
     b, h, s, d = r.shape
     if not _rows_aligned(r, k, v, w):
         raise ValueError("rwkv6_scan_bwd needs 16-byte aligned r/k/v/w rows "
                          "(base pointer and batch/head/seq strides)")
+    if states is None:
+        states = _forward(r, k, v, w, u, s0, None, with_states=True)[2]
+    states = states.float().contiguous()
     if dy is None:
         dy = torch.zeros_like(r)
     elif dy.dtype != r.dtype or not _rows_aligned(dy):
@@ -193,21 +248,18 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     du_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     du = torch.empty((h, d), dtype=torch.float32, device=dev)
     ds0 = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
-    ckpt = torch.empty((b, h, -(-s // BWD_PIECE), d, d),
-                       dtype=torch.float32, device=dev)
     u32 = u.float().contiguous()
-    s0_32 = s0.float().contiguous()
     strides = (ctypes.c_longlong * 27)(
         *(st for x in (r, k, v, w, dy, *grads) for st in x.stride()[:3]))
     fn = _bwd_kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                 u32.data_ptr(), s0_32.data_ptr(), dy.data_ptr(),
+                 u32.data_ptr(), states.data_ptr(), dy.data_ptr(),
                  None if ds_last is None else ds_last.data_ptr(),
                  *(x.data_ptr() for x in grads), du_part.data_ptr(),
-                 du.data_ptr(), ds0.data_ptr(), ckpt.data_ptr(),
-                 _DTYPES[r.dtype], b, h, s, d, strides, stream)
+                 du.data_ptr(), ds0.data_ptr(), _DTYPES[r.dtype], b, h, s,
+                 d, strides, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
@@ -218,7 +270,7 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @functools.cache
 def _kernel():
     fn = _build.load("rwkv6_scan").rwkv6_scan_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -227,7 +279,7 @@ def _kernel():
 @functools.cache
 def _bwd_kernel():
     fn = _build.load("rwkv6_scan_bwd").rwkv6_scan_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

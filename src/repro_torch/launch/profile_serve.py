@@ -76,8 +76,9 @@ from repro_torch.launch import serve
 from repro_torch.models import api, cnn, lm, rglru, whisper
 
 KINDS = (("flash_attention", ("flash_attention",)),
-         # flash_attention_bwd's kernels (dK/dV, dQ; fp32 and mma routes)
-         ("flash_attention_bwd", ("dkdv_", "dq_kernel<", "dq_mma_kernel<")),
+         # flash_attention_bwd's kernels (D, dK/dV, dQ; fp32 and mma routes)
+         ("flash_attention_bwd", ("dkdv_", "dq_kernel<", "dq_mma_kernel<",
+                                  "dsk_mma_kernel<")),
          ("flash_decode", ("flash_decode",)),
          # the scans' backward kernels (rwkv6's gradient and du passes)
          # before their forwards, whose keys the rglru one also holds

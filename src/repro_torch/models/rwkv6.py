@@ -18,7 +18,10 @@ kernel on the card, its plain version on the CPU): r/k/v/w in fp32 as
 ``(B, S, H, D)`` buffer (under autograd into the kernel's own buffer of
 that layout, with its backward kernel behind it).  ``cfg.remat``
 checkpoints each block of a forward that autograd records, as the
-reference's.  The reference evaluates the same recurrence by
+reference's; the block's first forward runs under
+:func:`~repro_torch.kernels.rwkv6_scan.no_saved_states`, so only the
+recompute of the backward writes the scan's piece states, one layer's at
+a time.  The reference evaluates the same recurrence by
 its chunked-parallel form for S > 1 (``wkv_chunked``) and by a per-token
 scan for S = 1; the kernel computes the recurrence itself.
 
@@ -28,13 +31,14 @@ token.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.rwkv6_scan import rwkv6_scan
+from ..kernels.rwkv6_scan import no_saved_states, rwkv6_scan
 from . import attention as A
 from .lm import LMConfig, _dense_init, require_ported
 
@@ -192,6 +196,12 @@ def _block_hidden(cfg: LMConfig, bp: Params, x: torch.Tensor,
     return block(cfg, bp, x, st)[0]
 
 
+def _remat_contexts():
+    """A checkpointed block's forward drops what it saves, so its scan
+    writes no piece states; its recompute writes them."""
+    return no_saved_states(), contextlib.nullcontext()
+
+
 def _run_blocks(cfg: LMConfig, params: Params, tokens: torch.Tensor,
                 states: Optional[List[Params]]):
     """The blocks from the embedding, each from its state in ``states``
@@ -201,7 +211,8 @@ def _run_blocks(cfg: LMConfig, params: Params, tokens: torch.Tensor,
     :func:`torch.utils.checkpoint.checkpoint` (non-reentrant), as the
     reference's ``jax.checkpoint`` of its scan body: only its input is
     kept, the backward recomputes its forward, scan kernel included, and
-    its new state is not returned (None)."""
+    its new state is not returned (None); the scan's piece states are
+    written by the recompute only (:func:`_remat_contexts`)."""
     embed = params["embed"]
     x = embed[tokens.to(embed.device)]
     remat = (states is None and cfg.remat and torch.is_grad_enabled()
@@ -211,7 +222,8 @@ def _run_blocks(cfg: LMConfig, params: Params, tokens: torch.Tensor,
     new_states = []
     for bp, st in zip(params["blocks"], states):
         if remat:
-            x = checkpoint(_block_hidden, cfg, bp, x, st, use_reentrant=False)
+            x = checkpoint(_block_hidden, cfg, bp, x, st, use_reentrant=False,
+                           context_fn=_remat_contexts)
             new_states.append(None)
             continue
         x, st = block(cfg, bp, x, st)

@@ -787,6 +787,7 @@ def _assert_grads_close(got, expect, dtype):
     (2, 16, 8, 1024, 1024, 64, True, None),     # granite-moe's D 64
     (2, 32, 32, 1024, 1024, 96, True, None),    # phi3-mini's D 96
     (1, 16, 1, 4096, 4096, 256, True, 2048),    # recurrentgemma's window
+    (8, 16, 1, 1024, 1024, 256, True, 2048),    # ... and its training
     (2, 6, 6, 1500, 1500, 64, False, None),     # whisper's encoder
     (2, 6, 6, 448, 1500, 64, False, None),      # whisper's cross
     (2, 4, 2, 1000, 1000, 128, True, None),     # ragged S = T
@@ -812,13 +813,33 @@ def test_flash_attention_bwd_matches_plain(sm90, b, hq, hkv, s, t, d,
         assert a.stride() == x.stride()
 
 
+@pytest.mark.parametrize("d", [128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_bwd_is_deterministic(sm90, dtype):
-    q, k, v, lse, do = _bwd_case(sm90, 2, 16, 2, 600, 600, 128, dtype,
+def test_flash_attention_bwd_is_deterministic(sm90, dtype, d):
+    """Equal bits from call to call: bf16's dQ sums each key block's dS
+    tile in key order, and no route uses atomics."""
+    q, k, v, lse, do = _bwd_case(sm90, 2, 16, 2, 600, 600, d, dtype,
                                  True, None)
     first = fa.flash_attention_bwd(q, k, v, lse, do)
     second = fa.flash_attention_bwd(q, k, v, lse, do)
     for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_attention_bwd_splits_its_scratch_over_batch_rows(
+        sm90, monkeypatch, d):
+    """A scratch cap below one batch row's (bf16 dS tiles; at head dim 256
+    also the dK/dV parts of two q-head shares): one row a launch, the same
+    bits as one launch over the batch."""
+    q, k, v, lse, do = _bwd_case(sm90, 3, 4, 2, 300, 300, d, "bfloat16",
+                                 True, None)
+    whole = fa.flash_attention_bwd(q, k, v, lse, do)
+    monkeypatch.setattr(fa, "DS_SCRATCH_BYTES", 1)
+    _build.reset_launches()
+    rows = fa.flash_attention_bwd(q, k, v, lse, do)
+    assert _build.launches("flash_attention_bwd") == 1
+    for a, c in zip(whole, rows):
         assert torch.equal(a, c)
 
 
@@ -891,6 +912,8 @@ def _rwkv6_bwd_case(dev, b, h, s, d, dtype, layout, extreme=False):
     (2, 4, 100, 16, "float32", True, False),
     (4, 32, 1, 64, "float32", True, False),      # S = 1
     (2, 32, 31, 64, "float32", True, True),      # decays 1e-30 and 1
+    (2, 4, 37, 16, "float32", True, True),       # ... one block a (b, h)
+    (2, 4, 45, 32, "bfloat16", False, True),     # ... a cluster of two
     (2, 32, 300, 64, "bfloat16", True, False),
     (2, 4, 70, 16, "bfloat16", False, False),
 ])
@@ -908,6 +931,68 @@ def test_rwkv6_scan_bwd_matches_plain(sm90, b, h, s, d, dtype, layout,
     for a, x in zip(got[:4], xs[:4]):
         assert a.stride() == x.stride()
     _assert_scan_grads(got, rwkv6_scan_bwd_ref(*xs, dy, ds_last), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,d", [(1, 64), (8, 16), (9, 32), (70, 64)])
+def test_rwkv6_scan_checkpoints_equal_prefix_s_last(sm90, s, d, dtype):
+    """The forward's checkpoint epilogue: piece p's state equal bit for
+    bit to the s_last of the same kernel run on the first 8p steps (s0
+    for p = 0), and y equal to the launch's without it."""
+    (r, k, v, w, u, s0), _, _ = _rwkv6_bwd_case(sm90, 2, 4, s, d, dtype,
+                                                True)
+    y, _, states = rw._forward(r, k, v, w, u, s0, None, with_states=True)
+    y_serve = rw._forward(r, k, v, w, u, s0, None)[0]
+    assert torch.equal(y, y_serve)
+    assert states.shape == (2, 4, -(-s // 8), d, d)
+    assert torch.equal(states[:, :, 0], s0)
+    for p in range(1, states.shape[2]):
+        s_last = rw._forward(*(x[:, :, :8 * p] for x in (r, k, v, w)),
+                             u, s0, None)[1]
+        assert torch.equal(states[:, :, p], s_last), p
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_scan_bwd_from_saved_states_equals_the_call_without(sm90,
+                                                                  dtype):
+    """Given the forward's states, one rwkv6_scan_bwd launch and no forward;
+    without them a forward launch with the epilogue first: the same
+    bits."""
+    xs, dy, ds_last = _rwkv6_bwd_case(sm90, 2, 32, 300, 64, dtype, True)
+    _, _, states = rw._forward(*xs, None, with_states=True)
+    _build.reset_launches()
+    given = rw.rwkv6_scan_bwd(*xs, dy, ds_last, states)
+    torch.cuda.synchronize()
+    assert (_build.launches("rwkv6_scan"),
+            _build.launches("rwkv6_scan_bwd")) == (0, 1)
+    alone = rw.rwkv6_scan_bwd(*xs, dy, ds_last)
+    torch.cuda.synchronize()
+    assert (_build.launches("rwkv6_scan"),
+            _build.launches("rwkv6_scan_bwd")) == (1, 2)
+    assert all(torch.equal(a, c) for a, c in zip(given, alone))
+
+
+def test_rwkv6_scan_under_no_saved_states_on_card(sm90):
+    """A remat's first forward: the kernel without its epilogue, a
+    zero-stride stand-in saved; the backward (here on that stand-in) runs
+    a forward with the epilogue first, and the gradients are those of the
+    recording forward."""
+    xs, dy, ds_last = _rwkv6_bwd_case(sm90, 2, 4, 70, 64, "float32", True)
+    grads = []
+    for skip in (True, False):
+        leaves = [x.detach().clone().requires_grad_() for x in xs]
+        _build.reset_launches()
+        with rw.no_saved_states() if skip else torch.enable_grad():
+            y, s_last = rw.rwkv6_scan(*leaves)
+        saved = y.grad_fn.saved_tensors[-1]
+        assert (set(saved.stride()) == {0}) == skip
+        torch.autograd.backward((y, s_last), (dy, ds_last))
+        torch.cuda.synchronize()
+        assert (_build.launches("rwkv6_scan"),
+                _build.launches("rwkv6_scan_bwd")) == (1 + skip, 1)
+        grads.append([x.grad for x in leaves])
+    for a, c in zip(*grads):
+        assert torch.equal(a, c)
 
 
 def test_rwkv6_scan_bwd_takes_absent_cotangents(sm90):

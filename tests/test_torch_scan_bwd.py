@@ -6,7 +6,11 @@ recurrences the CUDA backward kernels are held against on the card,
 ``tests/test_torch_cuda.py``) must equal ``jax.vjp`` of the reference's
 jnp oracles (``repro/kernels/ref.py`` ``rwkv6_scan_ref`` and
 ``rglru_scan_ref``) with cotangents on both outputs, and so must autograd
-through the wrappers' CPU routes (their autograd Functions).  Inputs are
+through the wrappers' CPU routes (their autograd Functions).  The piece
+states that rwkv6's backward starts from (``rwkv6_scan_states_ref``, the
+plain version of the forward kernel's checkpoint epilogue) must equal the
+reference's final state over each prefix of 8p steps, and the Function
+saves them only while autograd records.  Inputs are
 drawn with numpy and handed to both packages; decays are drawn near 1 and
 set to exactly 0 and 1 on some steps and channels (no route divides by a
 decay).  Tolerances, the relative L2 error of each gradient: fp32 1e-5
@@ -23,9 +27,10 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jref
 from repro_torch.kernels.ref import (rglru_scan_bwd_ref, rglru_scan_ref,
-                                     rwkv6_scan_bwd_ref, rwkv6_scan_ref)
+                                     rwkv6_scan_bwd_ref, rwkv6_scan_ref,
+                                     rwkv6_scan_states_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan import no_saved_states, rwkv6_scan
 
 L2_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
@@ -132,6 +137,69 @@ def test_rwkv6_scan_cpu_route_gradients_match_jax_vjp(dtype, s, d):
     got = [x.grad.transpose(1, 2) for x in leaves[:4]]
     got += [x.grad for x in leaves[4:]]
     _assert_grads(got, expect, dtype, RWKV6_NAMES)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("s", [1, 7, 64, 130])
+def test_rwkv6_scan_states_ref_matches_jax_prefix_s_last(s, d):
+    """Piece p's state is the reference's s_last over the first 8p steps
+    (fp32, 1e-5 relative L2), piece 0's exactly s0."""
+    xs, _, _ = _rwkv6_inputs(s + d, 2, 2, s, d, "float32")
+    r, k, v, w, u, s0 = xs
+    states = rwkv6_scan_states_ref(*map(_torch, (k, v, w, s0)))
+    assert states.shape == (2, 2, -(-s // 8), d, d)
+    assert states.dtype == torch.float32
+    torch.testing.assert_close(states[:, :, 0], _torch(s0), rtol=0, atol=0)
+    for p in range(1, states.shape[2]):
+        _, s_last = jref.rwkv6_scan_ref(
+            *(jnp.asarray(x[:, :, :8 * p]) for x in (r, k, v, w)),
+            jnp.asarray(u), jnp.asarray(s0))
+        assert _rel_l2(states[:, :, p], s_last) <= L2_TOL["float32"], p
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv6_scan_bwd_ref_from_states_equals_from_s0(dtype):
+    """Starting each piece from its state gives the bits of walking from
+    s0: both take the same steps."""
+    xs, dy, ds_last = _rwkv6_inputs(2, 2, 3, 29, 16, dtype)
+    args = [*map(_torch, xs), _torch(dy), _torch(ds_last)]
+    states = rwkv6_scan_states_ref(*args[1:4], args[5])
+    for a, c in zip(rwkv6_scan_bwd_ref(*args),
+                    rwkv6_scan_bwd_ref(*args, states)):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+def test_rwkv6_scan_saves_states_only_while_recording():
+    """No Function (so nothing saved) under ``torch.no_grad`` or when no
+    input requires grad; while recording, the piece states among the
+    saved tensors; under ``no_saved_states`` a zero-stride stand-in of
+    their shape, and the backward recomputes them (the same
+    gradients)."""
+    xs, dy, ds_last = _rwkv6_inputs(3, 2, 2, 20, 16, "float32")
+    with torch.no_grad():
+        y, s_last = rwkv6_scan(*(_torch(x).requires_grad_() for x in xs))
+    assert y.grad_fn is None and s_last.grad_fn is None
+    y, _ = rwkv6_scan(*map(_torch, xs))
+    assert y.grad_fn is None
+    grads = []
+    for skip in (False, True):
+        leaves = [_torch(x).requires_grad_() for x in xs]
+        with no_saved_states() if skip else torch.enable_grad():
+            y, s_last = rwkv6_scan(*leaves)
+        saved = y.grad_fn.saved_tensors[-1]
+        assert saved.shape == (2, 2, 3, 16, 16)
+        if skip:
+            assert set(saved.stride()) == {0}
+        else:
+            torch.testing.assert_close(
+                saved, rwkv6_scan_states_ref(*leaves[1:4], leaves[5]),
+                rtol=0, atol=0)
+        torch.autograd.backward((y, s_last), (_torch(dy), _torch(ds_last)))
+        grads.append([x.grad for x in leaves])
+    for a, c in zip(*grads):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+    _assert_grads(grads[0], _rwkv6_vjp(xs, dy, ds_last), "float32",
+                  RWKV6_NAMES)
 
 
 def test_rwkv6_scan_out_still_written_under_no_grad():
