@@ -148,7 +148,10 @@ With no arguments:
    L2) and equal bit for bit from call to call, the output and lse of the
    forward launch that writes lse against the plain forward, the first
    four timed beside the plain version, SDPA's backward (the yardstick)
-   and the bound; the scans' backward kernels against their plain
+   and the bound; both flash kernels at qwen2-vl-72b's training call
+   (8, 64/8, 2048, 128) causal bf16 against their plain versions, timed
+   beside them, SDPA's forward and backward and their bounds; the scans'
+   backward kernels against their plain
    versions (``rwkv6_scan_bwd_ref`` from the piece states of the forward
    kernel's checkpoint epilogue, those states against
    ``rwkv6_scan_states_ref`` and its output equal to the launch without
@@ -159,19 +162,33 @@ With no arguments:
    tolerances and equal bit for bit from call to call, the training
    shapes timed beside the plain versions and the bound; one train step
    of the smoke configs of qwen3-1.7b, granite-moe-1b-a400m, whisper-tiny,
-   rwkv6-1.6b and recurrentgemma-9b on the card against the CPU (fp32);
-   full-width qwen3-1.7b, rwkv6-1.6b and recurrentgemma-9b cut to 6 of
-   its 38 layers (bf16 weights from seed 0, remat) each trained 1 + 5
-   steps of 8 x 1024 tokens from ``SyntheticLMDataset`` with every
-   kernel's count set to 0 just before a step and read just after
+   rwkv6-1.6b, recurrentgemma-9b and qwen2-vl-72b on the card against the
+   CPU (fp32);
+   full-width qwen3-1.7b, rwkv6-1.6b, recurrentgemma-9b cut to 6 of
+   its 38 layers and qwen2-vl-72b cut to 3 of its 80 (bf16 weights from
+   seed 0, remat) each trained 1 + 5 steps of 8 x 1024 tokens (qwen2-vl:
+   after its 1024 stub patches), the update functional as the driver's
+   but where ``launch/steps.py``'s ``donate_update`` says it does not fit
+   (qwen2-vl: written into the state; qwen3's donated update held bit for
+   bit against the functional one once), from ``launch/train.py``'s
+   ``step_batch`` in loss chunks of its
+   ``loss_chunk``, with every kernel's count set to 0 just before a step
+   and read just after
    (flash_attention = 2 x 28, flash_attention_bwd = 28; rwkv6_scan = 2 x
    24, rwkv6_scan_bwd = 24; rglru_scan = 8, rglru_scan_bwd = 4,
-   flash_attention = 4, flash_attention_bwd = 2): loss, grad_norm, lr,
-   step time, tokens/s, the share of the bf16 peak and the allocator's
-   peak; one step's loss and gradients against the same step with the
-   plain versions in the kernels' places, in bf16 beside the bf16 noise
-   (the plain bf16 step against the plain step on the weights made fp32)
-   and in fp32; and the reference's fault-tolerance demo
+   flash_attention = 4, flash_attention_bwd = 2; flash_attention = 6,
+   flash_attention_bwd = 3): loss, grad_norm, lr, step time, tokens/s,
+   the share of the bf16 peak, the allocator's peak and its retries; one
+   step's loss and gradients against the same step with the plain
+   versions in the kernels' places (qwen2-vl: the plain steps over 4
+   slices of 2 of its 8 rows, averaged), in bf16 beside the bf16 noise (the plain bf16 step against the
+   plain step on the weights made fp32) and in fp32; the dry-run cell
+   table on one card (``launch/dryrun.py --all --mesh 1x1``: each cell's
+   device bytes and fit), launch/mesh.py's memory constant against the
+   card's, ``train_state_shapes``'s bytes against the allocator's for
+   qwen3-1.7b and the cut qwen2-vl (within 512 bytes a tensor), and the
+   cut qwen2-vl's modeled device bytes at (8, 2048) beside its step's
+   allocator peak; and the reference's fault-tolerance demo
    (``examples/train_lm.py``'s config, 200 steps, a failure at step 77)
    and the same on rwkv6-1.6b's smoke config (60 steps, a failure at step
    25) through ``launch/train.py`` (one JSON line);
@@ -278,13 +295,17 @@ from repro_torch.kernels.ref import (  # noqa: E402
     matmul_qi8_ref, rglru_scan_bwd_ref, rglru_scan_ref, rwkv6_scan_bwd_ref,
     rwkv6_scan_ref)
 from repro_torch.core.segmentation import segment_ranges  # noqa: E402
-from repro_torch.checkpoint.store import tree_flatten  # noqa: E402
+from repro_torch.checkpoint.store import (tree_flatten,  # noqa: E402
+                                         tree_unflatten)
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.launch import (pipeline_spmd, profile_serve,  # noqa: E402
                                 serve)
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as card_mesh  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
-from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_update  # noqa: E402
+from repro_torch.optim.adamw import PIECE  # noqa: E402
 from repro_torch.launch.cuda_reporter import (  # noqa: E402
     CudaSegmentReporter)
 from repro_torch.models import (api, cnn, lm, lm_graph,  # noqa: E402
@@ -441,11 +462,11 @@ FLEET = (("resnet50", "ResNet50", 3.0, 100.0),
          ("mobilenetv2", "MobileNetV2", 1.0, 50.0))
 FLEET_WINDOWS = 4
 FLEET_POOL = 16         # distinct images a member's requests cycle over
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, int8
-# tensor cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores (launch/mesh.py's),
+# fp32 CUDA cores, int8 tensor cores, HBM3 (launch/mesh.py's)
+PEAK_FLOPS = {torch.bfloat16: card_mesh.PEAK_FLOPS_BF16, torch.float32: 67e12,
               torch.int8: 1979e12}
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = card_mesh.HBM_BW
 # the LM-families slice: phi3-mini (head dim 96) and granite-moe served at
 # full width as qwen3; their smoke configs and those of the other new archs
 # card vs CPU; four archs through the model API, two cut in depth to fit
@@ -554,21 +575,41 @@ RGLRU_BWD_CASES = (
 # loss chunk, and the tolerance of loss, grad_norm and every updated
 # parameter (relative to max(1, max |CPU|))
 TRAIN_SMOKE = ("qwen3-1.7b", "granite-moe-1b-a400m", "whisper-tiny",
-               "rwkv6-1.6b", "recurrentgemma-9b")
+               "rwkv6-1.6b", "recurrentgemma-9b", "qwen2-vl-72b")
 TRAIN_SMOKE_SHAPE = (2, 64, 32)
 TRAIN_SMOKE_TOL = 1e-4
 # full-width qwen3-1.7b: batch x SEQ tokens from SyntheticLMDataset, the
-# loss in chunks of 512, 1 warm-up + 5 timed steps of the train step; the
+# loss in chunks of launch/train.py's loss_chunk (512), 1 warm-up + 5 timed
+# steps of the train step; the
 # driver's AdamW (lr 1e-3, 10 warm-up steps); the step against the same
 # step with the plain versions: loss within 1e-3 relative, each gradient
 # leaf's relative L2 error within 2e-2 in bf16 (where bf16 resolves the
 # leaf; see check_against_plain) and, on the weights made fp32, within 1e-4
 # rwkv6-1.6b trains at full width, recurrentgemma-9b at full width cut to
 # its first 6 of 38 layers (2 super-blocks: AdamW's state of all 38 alone
-# exceeds 80 GB)
+# exceeds 80 GB); qwen2-vl-72b at full width cut to its first 3 of 80
+# layers (the deepest whose step runs without the allocator running out:
+# 5.1e9 parameters, 51 GB of bf16 weights and fp32 moments, a 71.8 GB
+# peak of the card's 85.0; at 4 layers, 60 GB of state, the peak reached
+# 80.2 GB and the allocator retried 4 times, steps of 1.6 to 3.2 s), SEQ
+# text tokens after its 1024 stub patches; a step's update written into the
+# state only where launch/steps.py's donate_update says the functional one
+# does not fit (the vlm), and qwen3-1.7b's functional update held against
+# the donated one; in the vlm's check against the plain versions, the
+# plain steps run over slices of VLM_CHECK_ROWS rows (the plain
+# attention's fp32 scores of all 8 rows do not fit beside its weights),
+# their losses and gradients averaged on the host, against the kernels'
+# steps over all 8 rows
 TRAIN_BATCH = 8
-TRAIN_CHUNK = 512
 GEMMA_TRAIN_LAYERS = 6
+VLM_ARCH = "qwen2-vl-72b"
+VLM_TRAIN_LAYERS = 3
+VLM_CHECK_ROWS = 2
+# both flash kernels at qwen2-vl-72b's training call: B, Hq, Hkv, S = T, D
+# (1024 patches + 1024 text tokens, causal, bf16)
+VLM_ATTN = (8, 64, 8, 2048, 128)
+# the allocator rounds every tensor up to this many bytes
+ALLOC_ROUND = 512
 TRAIN_STEPS = 5
 TRAIN_LR = 1e-3
 TRAIN_LOSS_TOL = 1e-3
@@ -2389,6 +2430,11 @@ def token_gaps(rows, toks):
     return rows.max(-1).values - rows[torch.arange(len(toks)), tk]
 
 
+def to_host(tree):
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [x.cpu() for x in leaves])
+
+
 def to_fp32(tree):
     if isinstance(tree, dict):
         return {k: to_fp32(v) for k, v in tree.items()}
@@ -3245,13 +3291,7 @@ def check_flash_attention_bwd():
             o_err = (o.float() - o_ref.float()).abs().max().item()
             o_same = torch.equal(o, o_serve)
             del o, o_serve, o_ref, lse_ref
-            errs, l2 = {}, {}
-            for key, a, e in zip(("dq", "dk", "dv"), got, expect):
-                a, e = a.float(), e.float()
-                scale = max(1.0, e.abs().max().item())
-                errs[key] = (a - e).abs().max().item() / scale
-                l2[key] = (torch.linalg.vector_norm(a - e)
-                           / torch.linalg.vector_norm(e)).item()
+            errs, l2 = bwd_errs(got, expect)
             same = all(torch.equal(a, c) for a, c in zip(got, again))
             worst_l2[str(dtype)] = max(worst_l2.get(str(dtype), 0.0),
                                        *l2.values())
@@ -3270,24 +3310,9 @@ def check_flash_attention_bwd():
             del got, again, expect
             if i >= BWD_TIMED:
                 continue
-            ms = cuda_ms([lambda: fa.flash_attention_bwd(
-                q, k, v, lse, do, causal, window)], reps=10)
-            plain_ms = cuda_ms([lambda: flash_attention_bwd_ref(
-                q, k, v, lse, do, causal, window)], reps=5)
-            library_ms, backend = sdpa_bwd_ms(q, k, v, do, causal)
-            bound_ms, bound_by, flops = attention_bwd_bound(q, k, causal,
-                                                            window)
-            times = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     "library_backend": backend,
-                     "tflops": flops / (ms * 1e-3) / 1e12,
+            times = {**time_attention_bwd(f"{dtype} {name}", q, k, v, lse,
+                                          do, causal, window),
                      "max_abs_err": max(errs.values())}
-            lib = ("null" if library_ms is None
-                   else f"{library_ms:.4f} ms ({backend})")
-            print(f"flash_attention_bwd timing {dtype} {name}: kernel "
-                  f"{ms:.4f} ms ({times['tflops']:.1f} TFLOP/s), plain "
-                  f"{plain_ms:.4f} ms, SDPA backward {lib}, bound "
-                  f"{bound_ms:.4f} ms ({bound_by})")
             shape = {"b": b, "hq": hq, "hkv": hkv, "s": s, "t": t, "d": d,
                      "dtype": str(dtype), "causal": causal, "window": window}
             if record is None:
@@ -3304,6 +3329,91 @@ def check_flash_attention_bwd():
             del q, k, v, lse, do
             torch.cuda.empty_cache()
     return record, worst_l2
+
+
+def bwd_errs(got, expect):
+    """Each of dq, dk and dv: its largest deviation over max(1, max
+    |plain|), and its relative L2 error ||g - e|| / ||e||."""
+    errs, l2 = {}, {}
+    for key, a, e in zip(("dq", "dk", "dv"), got, expect):
+        a, e = a.float(), e.float()
+        scale = max(1.0, e.abs().max().item())
+        errs[key] = (a - e).abs().max().item() / scale
+        l2[key] = (torch.linalg.vector_norm(a - e)
+                   / torch.linalg.vector_norm(e)).item()
+    return errs, l2
+
+
+def time_attention_bwd(label, q, k, v, lse, do, causal, window=None):
+    """The backward kernel, its plain version and SDPA's backward (ms), and
+    the bound, on one input; printed under ``label``."""
+    ms = cuda_ms([lambda: fa.flash_attention_bwd(
+        q, k, v, lse, do, causal, window)], reps=10)
+    plain_ms = cuda_ms([lambda: flash_attention_bwd_ref(
+        q, k, v, lse, do, causal, window)], reps=5)
+    library_ms, backend = sdpa_bwd_ms(q, k, v, do, causal)
+    bound_ms, bound_by, flops = attention_bwd_bound(q, k, causal, window)
+    lib = "null" if library_ms is None else f"{library_ms:.4f} ms ({backend})"
+    tf = flops / (ms * 1e-3) / 1e12
+    print(f"flash_attention_bwd timing {label}: kernel {ms:.4f} ms "
+          f"({tf:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA backward "
+          f"{lib}, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_backend": backend, "tflops": tf}
+
+
+def check_vlm_attention():
+    """Both flash kernels at qwen2-vl-72b's training call VLM_ATTN (causal,
+    bf16, q/k/v in the model's layout) against their plain versions: the
+    forward within FWD_TOL, the backward's gradients within BWD_TOL of
+    their scale and BWD_L2_TOL relative L2 and equal bit for bit from call
+    to call; each timed beside its plain version, SDPA's forward or
+    backward and its bound.  Returns the forward's and the backward's
+    records."""
+    b, hq, hkv, s, d = VLM_ATTN
+    dtype = torch.bfloat16
+    label = f"qwen2-vl-72b training ({b}, {hq}/{hkv}, {s}, {d}) causal bf16"
+    shape = {"b": b, "hq": hq, "hkv": hkv, "s": s, "t": s, "d": d,
+             "dtype": str(dtype), "causal": True}
+    q, k, v, do = bwd_inputs(b, hq, hkv, s, s, d, dtype)
+    got = fa.flash_attention(q, k, v, causal=True)
+    err = (got.float() - flash_attention_ref(q, k, v, True).float()
+           ).abs().max().item()
+    del got
+    print(f"flash_attention {label}: max_abs_err {err:.3e} (tol "
+          f"{FWD_TOL[dtype]:g})")
+    if err > FWD_TOL[dtype]:
+        raise SystemExit(f"flash_attention disagrees with its plain version "
+                         f"at {label}")
+    fwd = {"max_abs_err": err, **time_attention(q, k, v), "shape": shape}
+    print(f"flash_attention timing at {label}: kernel {fwd['ms']:.4f} ms "
+          f"({fwd['tflops']:.1f} TFLOP/s), plain {fwd['plain_ms']:.4f} ms, "
+          f"sdpa {fwd['library_ms']:.4f} ms ({fwd['library_tflops']:.1f} "
+          f"TFLOP/s), bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
+    _, lse = fa._forward(q, k, v, True, None, with_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, lse, do, True, None)
+    again = fa.flash_attention_bwd(q, k, v, lse, do, True, None)
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    del again
+    errs, l2 = bwd_errs(got, flash_attention_bwd_ref(q, k, v, lse, do, True,
+                                                     None))
+    del got
+    print(f"flash_attention_bwd {label}: max err of the scale "
+          + " ".join(f"{key} {e:.3e}" for key, e in errs.items())
+          + f" (tol {BWD_TOL[dtype]:g}), rel L2 "
+          + " ".join(f"{key} {e:.3e}" for key, e in l2.items())
+          + f" (tol {BWD_L2_TOL[dtype]:g}), repeat equal {same}")
+    if (max(errs.values()) > BWD_TOL[dtype]
+            or max(l2.values()) > BWD_L2_TOL[dtype] or not same):
+        raise SystemExit(f"flash_attention_bwd disagrees with its plain "
+                         f"version at {label}")
+    bwd = {**time_attention_bwd(label, q, k, v, lse, do, True),
+           "max_abs_err": max(errs.values()), "rel_l2": max(l2.values()),
+           "shape": shape}
+    del q, k, v, do, lse
+    torch.cuda.empty_cache()
+    return fwd, bwd
 
 
 def bwd_inputs(b, hq, hkv, s, t, d, dtype):
@@ -3559,10 +3669,11 @@ def check_rglru_scan_bwd():
 
 
 def tree_rel_errs(got, expect):
-    """||g - e|| / ||e|| (fp32) of each leaf, in the trees' leaf order."""
+    """||g - e|| / ||e|| (fp32, on the card) of each leaf, in the trees'
+    leaf order."""
     out = []
     for a, e in zip(tree_flatten(got)[0], tree_flatten(expect)[0]):
-        a, e = a.float(), e.float()
+        a, e = a.to(CARD).float(), e.to(CARD).float()
         norm = torch.linalg.vector_norm(e).item()
         diff = torch.linalg.vector_norm(a - e).item()
         out.append(diff / norm if norm > 0 else diff)
@@ -3673,17 +3784,18 @@ def plain_rwkv6_scan(r, k, v, w, u, s0, out=None):
     return rwkv6_scan_ref(r, k, v, w, u, s0)
 
 
-def grads_of(cfg, params, batch, plain=False):
-    """``loss_and_grads`` of one step; ``plain``: with the plain versions
-    (``flash_attention_ref``, ``rwkv6_scan_ref``, ``rglru_scan_ref``,
-    differentiated by autograd) in the kernels' places."""
+def grads_of(cfg, params, batch, chunk, plain=False):
+    """``loss_and_grads`` of one step in loss chunks of ``chunk``;
+    ``plain``: with the plain versions (``flash_attention_ref``,
+    ``rwkv6_scan_ref``, ``rglru_scan_ref``, differentiated by autograd) in
+    the kernels' places."""
     if not plain:
-        return train_steps.loss_and_grads(cfg, params, batch, TRAIN_CHUNK)
+        return train_steps.loss_and_grads(cfg, params, batch, chunk)
     with unittest.mock.patch.object(lm, "flash_attention", plain_attention), \
             unittest.mock.patch.object(rwkv6, "rwkv6_scan",
                                        plain_rwkv6_scan), \
             unittest.mock.patch.object(rglru, "rglru_scan", rglru_scan_ref):
-        return train_steps.loss_and_grads(cfg, params, batch, TRAIN_CHUNK)
+        return train_steps.loss_and_grads(cfg, params, batch, chunk)
 
 
 def print_leaf_errs(label, names, errs):
@@ -3697,7 +3809,37 @@ def print_leaf_errs(label, names, errs):
             "median": float(np.median(errs))}
 
 
-def check_against_plain(cfg, params, batch):
+def row_slice(batch, lo, hi):
+    """Rows ``lo:hi`` of a batch (positions: (3, B, S))."""
+    return {k: v[:, lo:hi] if k == "positions" else v[lo:hi]
+            for k, v in batch.items()}
+
+
+def sliced_grads(cfg, params, batch, chunk, rows):
+    """The plain step's loss and gradients over ``batch`` as the mean of
+    its steps over slices of ``rows`` rows, summed on the host in fp32
+    (the loss is a mean over positions and every row has as many, so the
+    mean of the slices' is the whole batch's)."""
+    n = batch["tokens"].shape[0] // rows
+    loss, acc = 0.0, None
+    for i in range(n):
+        part_loss, grads = grads_of(cfg, params,
+                                    row_slice(batch, i * rows,
+                                              (i + 1) * rows),
+                                    chunk, plain=True)
+        leaves, treedef = tree_flatten(grads)
+        if acc is None:
+            acc = [x.cpu().float() for x in leaves]
+        else:
+            for a, x in zip(acc, leaves):
+                a.add_(x.cpu())
+        loss += part_loss.item()
+        del grads, leaves
+    return (torch.tensor(loss / n),
+            tree_unflatten(treedef, [a.div_(n) for a in acc]))
+
+
+def check_against_plain(cfg, params, batch, chunk, plain_rows=None):
     """One step's loss and gradients (bf16, the trained weights) against the
     same step with the plain versions in the kernels' places, beside both
     steps' distance to the plain step on the weights made fp32 (the bf16
@@ -3710,11 +3852,22 @@ def check_against_plain(cfg, params, batch):
     TRAIN_GRAD_TOL[bf16].  Then the kernels' own fp32 step (all layers,
     their fp32 routes) against that plain fp32 step, the loss within
     TRAIN_LOSS_TOL and each leaf within TRAIN_GRAD_TOL[fp32].  Each leaf's
-    relative L2 error is printed."""
+    relative L2 error is printed.  Each step's gradients wait in the
+    host's memory (the card holds the weights and one step's: a 4-layer
+    qwen2-vl-72b's fp32 weights and three gradient trees do not fit).
+    ``plain_rows``: the plain steps over slices of that many rows
+    (:func:`sliced_grads`); the kernels' steps always take the whole
+    batch."""
     names = [".".join(map(str, path)) for path in leaf_paths(params)]
     tol = TRAIN_GRAD_TOL[torch.bfloat16]
-    loss, grads = grads_of(cfg, params, batch)
-    loss_p, grads_p = grads_of(cfg, params, batch, plain=True)
+
+    def grads_of_step(*args, plain=False):
+        if plain and plain_rows is not None:
+            return sliced_grads(*args, plain_rows)
+        loss, grads = grads_of(*args, plain=plain)
+        return loss, to_host(grads)
+    loss, grads = grads_of_step(cfg, params, batch, chunk)
+    loss_p, grads_p = grads_of_step(cfg, params, batch, chunk, plain=True)
     loss_err = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
     print(f"bf16 step: loss {loss.item():.6f} vs the plain versions "
           f"{loss_p.item():.6f} (rel {loss_err:.2e}, tol "
@@ -3725,7 +3878,7 @@ def check_against_plain(cfg, params, batch):
                                            names, kp)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = to_fp32(params)
-    loss_f, grads_f = grads_of(cfg32, params32, batch, plain=True)
+    loss_f, grads_f = grads_of_step(cfg32, params32, batch, chunk, plain=True)
     kf = tree_rel_errs(grads, grads_f)
     pf = tree_rel_errs(grads_p, grads_f)
     del grads, grads_p
@@ -3750,7 +3903,7 @@ def check_against_plain(cfg, params, batch):
           f"the kernels' distance to the fp32 step beyond the plain bf16 "
           f"step's, worst {out['bf16_unresolved_worst_excess']:.3e} (tol "
           f"{tol:g})")
-    loss32, grads32 = grads_of(cfg32, params32, batch)
+    loss32, grads32 = grads_of(cfg32, params32, batch, chunk)
     out["fp32_loss_rel_err"] = abs(loss32.item() - loss_f.item()) / abs(
         loss_f.item())
     out["fp32_vs_plain"] = print_leaf_errs(
@@ -3780,37 +3933,78 @@ def leaf_paths(tree, prefix=()):
     return [prefix]
 
 
-def run_training_path(arch, smi, layers=None):
+def check_donated_update(opt_cfg, params, state, grads):
+    """One update of full-width weights both ways from the same gradients:
+    the functional one (fresh tensors), then the donated one (written into
+    ``params`` and ``state``, which hold its values after); every
+    parameter and moment, lr and grad_norm bit-equal.  Returns the
+    record."""
+    new_p, new_s, m = adamw_update(opt_cfg, params, grads, state)
+    got_p, got_s, m2 = adamw_update(opt_cfg, params, grads, state,
+                                    donate=True)
+    torch.cuda.synchronize()
+    got = tree_flatten((got_p, got_s["mu"], got_s["nu"]))[0]
+    new = tree_flatten((new_p, new_s["mu"], new_s["nu"]))[0]
+    differ = sum(not torch.equal(a, e) for a, e in zip(got, new))
+    differ += sum(not torch.equal(m[k], m2[k]) for k in ("lr", "grad_norm"))
+    out = {"tensors": len(got), "over_piece": sum(x.numel() > PIECE
+                                                  for x in got),
+           "elements": sum(x.numel() for x in got), "differ": differ}
+    print(f"donated update vs functional: {out['tensors']} parameter and "
+          f"moment tensors ({out['elements']} elements, "
+          f"{out['over_piece']} of them longer than a piece of {PIECE}), "
+          f"lr and grad_norm; {differ} differ (must be 0)")
+    if differ:
+        raise SystemExit("the donated update disagrees with the functional "
+                         "one")
+    return out
+
+
+def run_training_path(arch, smi, layers=None, plain_rows=None,
+                      check_donation=False):
     """``arch`` at full width (bf16 weights from seed 0, remat; ``layers``:
     cut to its first that many layers, said wherever its numbers are
     printed): 1 warm-up + TRAIN_STEPS timed train steps of TRAIN_BATCH x
-    SEQ tokens from SyntheticLMDataset, each with every kernel's count set
-    to 0 just before and read just after (:func:`step_counts`: forward and
-    remat, one backward); then one step's loss and gradients against the
-    step through the plain versions (:func:`check_against_plain`).
-    Returns the phase's record."""
+    SEQ tokens (the vlm: after its patches) from ``launch/train.py``'s
+    ``step_batch``, in loss chunks of its ``loss_chunk``, the update
+    functional as the driver's unless ``launch/steps.py``'s
+    ``donate_update`` says it does not fit on the card (then written into
+    the state), each with every kernel's count set to 0 just before and
+    read just after (:func:`step_counts`: forward and remat, one
+    backward).  ``check_donation``: then one more update of step 0's batch
+    both ways (:func:`check_donated_update`).  Then one step's loss and
+    gradients against the step through the plain versions
+    (:func:`check_against_plain`; ``plain_rows``: the plain steps over
+    slices of that many rows).  Returns the phase's record."""
     full = configs.get(arch).config()
     cfg = (full if layers is None
            else dataclasses.replace(full, n_layers=layers))
     cut = ("" if layers is None
            else f" ({layers} of {full.n_layers} layers)")
     n_params = api.param_count(cfg)
+    chunk = train_driver.loss_chunk(cfg, SEQ)
+    seq = SEQ + (cfg.n_patches if cfg.family == "vlm" else 0)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params, state = train_steps.init_train_state(
         cfg, CARD, torch.Generator(CARD).manual_seed(0))
     data = SyntheticLMDataset(DataConfig(global_batch=TRAIN_BATCH,
                                          seq_len=SEQ, vocab=cfg.vocab))
-    step = train_steps.make_train_step(
-        cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
-                         total_steps=TRAIN_STEPS + 1), TRAIN_CHUNK)
-    flops, formula = train_step_flops(cfg, params, TRAIN_BATCH, SEQ)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
+                          total_steps=TRAIN_STEPS + 1)
+    donate = train_steps.donate_update(
+        cfg, torch.cuda.get_device_properties(0).total_memory)
+    step = train_steps.make_train_step(cfg, opt_cfg, chunk, donate=donate)
+    flops, formula = train_step_flops(cfg, params, TRAIN_BATCH, seq)
     expect = step_counts(cfg)
     print(f"training {cfg.name}{cut} at full width: {n_params} parameters, "
-          f"{TRAIN_BATCH} x {SEQ} tokens a step, loss chunk {TRAIN_CHUNK}, "
-          f"remat={cfg.remat}; {flops / 1e12:.2f} TFLOP a step = {formula}")
+          f"{TRAIN_BATCH} x {seq} tokens a step, loss chunk {chunk}, "
+          f"remat={cfg.remat}, "
+          f"{'donated' if donate else 'functional'} update; "
+          f"{flops / 1e12:.2f} TFLOP a step = {formula}")
     rows, launches = [], dict.fromkeys(expect, 0)
     step_launches = None
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     for i in range(TRAIN_STEPS + 1):
         batch = train_driver.step_batch(cfg, data, i, TRAIN_BATCH, SEQ, CARD)
         if i == 0:
@@ -3837,26 +4031,45 @@ def run_training_path(arch, smi, layers=None):
             raise SystemExit(f"{arch} train step {i}: a loss or grad_norm "
                              f"that is not finite")
         rows.append(row)
+        del batch
     peak = torch.cuda.max_memory_allocated()
+    # allocations that found no free block until the allocator released
+    # its cached memory (a synchronizing retry)
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
     step_s = float(np.median([r["s"] for r in rows[1:]]))
     out = {"arch": arch, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
-           "seq": SEQ, "loss_chunk": TRAIN_CHUNK, "params": n_params,
+           "seq": seq, "loss_chunk": chunk, "params": n_params,
            "steps": rows, "step_s_median": step_s,
-           "tokens_per_s": TRAIN_BATCH * SEQ / step_s,
+           "tokens_per_s": TRAIN_BATCH * seq / step_s,
            "flops_per_step": flops, "flops_formula": formula,
            "peak_share": flops / (step_s * PEAK_FLOPS[torch.bfloat16]),
-           "peak_bytes": peak, "launches": launches,
-           "launches_per_step": step_launches, "card": smi}
+           "peak_bytes": peak, "alloc_retries": retries,
+           "launches": launches,
+           "launches_per_step": step_launches, "donated": donate,
+           "card": smi}
     print(f"{arch}{cut} full-width training: median step {step_s:.3f} s, "
           f"{out['tokens_per_s']:.0f} tokens/s, {flops / 1e12:.2f} TFLOP / "
           f"({step_s:.3f} s x 989 TFLOP/s) = {out['peak_share']:.2%} of the "
-          f"bf16 peak; allocator peak {peak / 1e9:.2f} GB")
+          f"bf16 peak; allocator peak {peak / 1e9:.2f} GB, {retries} "
+          f"allocation retries in {TRAIN_STEPS + 1} steps")
+    if check_donation:
+        out["donation"] = check_donated_update(
+            opt_cfg, params, state, grads_of(cfg, params, first, chunk)[1])
     del state
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out["vs_plain"] = check_against_plain(cfg, params, first)
+    if plain_rows is not None:
+        print(f"{arch}{cut}: the check against the plain versions on all "
+              f"{TRAIN_BATCH} rows of step 0's batch, the plain steps over "
+              f"slices of {plain_rows} rows")
+    out["vs_plain"] = check_against_plain(cfg, params, first, chunk,
+                                          plain_rows)
+    out["vs_plain"].update(plain_rows=plain_rows or TRAIN_BATCH,
+                           peak_bytes=torch.cuda.max_memory_allocated())
     print(f"{arch}{cut}: the steps against the plain versions took "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s, allocator peak "
+          f"{out['vs_plain']['peak_bytes'] / 1e9:.2f} GB")
     del params, first
     torch.cuda.empty_cache()
     return out
@@ -3895,23 +4108,96 @@ def run_ft_demo(arch, demo, **over):
     return out
 
 
+def state_bytes_on_card(cfg):
+    """The bytes the allocator holds for ``init_train_state``'s parameters
+    and AdamW state of ``cfg`` on the card, the bytes of
+    ``train_state_shapes``'s meta tensors, and their count."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    params, state = train_steps.init_train_state(
+        cfg, CARD, torch.Generator(CARD).manual_seed(0))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    del params, state
+    torch.cuda.empty_cache()
+    leaves = tree_flatten(train_steps.train_state_shapes(cfg))[0]
+    return held, sum(x.numel() * x.element_size() for x in leaves), len(leaves)
+
+
+def run_dryrun_phase(vlm_cfg, vlm_peak):
+    """The dry-run cell table on one card (``launch/dryrun.py --all --mesh
+    1x1``: every cell's device bytes and fit); launch/mesh.py's memory
+    constant against the card's; ``train_state_shapes``'s bytes against
+    the allocator's bytes of the state ``init_train_state`` builds, for
+    qwen3-1.7b and ``vlm_cfg`` (within ALLOC_ROUND bytes a tensor); the
+    vlm's modeled device bytes at its train shape beside its step's
+    measured allocator peak ``vlm_peak`` (a report: the activation model
+    is the reference's).  Returns the phase's record."""
+    t0 = time.perf_counter()
+    records = dryrun.main(["--all", "--mesh", "1x1"])
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"card memory {total} bytes, launch/mesh.py's HBM_BYTES "
+          f"{card_mesh.HBM_BYTES:.0f}")
+    if not card_mesh.HBM_BYTES <= total <= 1.1 * card_mesh.HBM_BYTES:
+        raise SystemExit("launch/mesh.py's HBM_BYTES is not this card's")
+    out = {"cells": len(records), "total_memory": total,
+           "fit": [f"{r['arch']} x {r['shape']}" for r in records
+                   if r.get("fits_hbm")]}
+    for cfg in (configs.get(ARCH).config(), vlm_cfg):
+        held, modeled, n = state_bytes_on_card(cfg)
+        label = f"{cfg.name} ({cfg.n_layers} layers)"
+        print(f"{label} train state: the allocator holds {held} bytes, "
+              f"train_state_shapes gives {modeled} in {n} tensors "
+              f"(difference {held - modeled}, at most {ALLOC_ROUND * n})")
+        if not 0 <= held - modeled <= ALLOC_ROUND * n:
+            raise SystemExit(f"{label}: train_state_shapes disagrees with "
+                             f"the allocator")
+        out[cfg.name] = {"layers": cfg.n_layers, "allocated": held,
+                         "modeled": modeled, "tensors": n}
+    seq = SEQ + vlm_cfg.n_patches
+    rec = dryrun.cell_record(vlm_cfg, configs.ShapeSpec(
+        f"train ({TRAIN_BATCH}, {seq})", seq, TRAIN_BATCH, "train"),
+        card_mesh.GRIDS["1x1"])
+    print(f"{vlm_cfg.name} ({vlm_cfg.n_layers} layers) at ({TRAIN_BATCH}, "
+          f"{seq}), modeled against measured: device_bytes "
+          f"{rec['device_bytes'] / 1e9:.2f} GB (state "
+          f"{rec['state_bytes_per_device'] / 1e9:.2f} + activations "
+          f"{rec['activation_bytes_per_device'] / 1e9:.2f}), the step's "
+          f"allocator peak {vlm_peak / 1e9:.2f} GB")
+    out["vlm_train"] = {**rec, "peak_bytes": vlm_peak}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"dry-run phase: {out['seconds']:.1f} s")
+    return out
+
+
 def run_training_phase(smi):
-    """The training slice: the backward kernels, the smoke configs' train
-    step card vs CPU, full-width qwen3-1.7b, rwkv6-1.6b and
-    recurrentgemma-9b (GEMMA_TRAIN_LAYERS of its layers), the
-    fault-tolerance demo on qwen3's and rwkv6's smoke configs.  Returns the
-    three backward kernels' records and the phase's record."""
+    """The training slice: the backward kernels (and both flash kernels at
+    qwen2-vl-72b's training call), the smoke configs' train step card vs
+    CPU, full-width qwen3-1.7b, rwkv6-1.6b, recurrentgemma-9b
+    (GEMMA_TRAIN_LAYERS of its layers) and qwen2-vl-72b (VLM_TRAIN_LAYERS),
+    the dry-run phase, the fault-tolerance demo on qwen3's and rwkv6's
+    smoke configs.  Returns the three backward kernels' records and the
+    phase's record."""
     t0 = time.perf_counter()
     record, worst_l2 = check_flash_attention_bwd()
+    vlm_kernels = check_vlm_attention()
     rwkv_bwd = check_rwkv6_scan_bwd()
     rglru_bwd = check_rglru_scan_bwd()
     print(f"backward kernel checks and timings: "
           f"{time.perf_counter() - t0:.1f} s")
     check_smoke_train_steps()
-    out = run_training_path(ARCH, smi)
+    out = run_training_path(ARCH, smi, check_donation=True)
     out["rwkv6"] = run_training_path(RWKV_ARCH, smi)
     out["recurrentgemma"] = run_training_path(GEMMA_ARCH, smi,
                                               layers=GEMMA_TRAIN_LAYERS)
+    out["vlm"] = run_training_path(VLM_ARCH, smi, layers=VLM_TRAIN_LAYERS,
+                                   plain_rows=VLM_CHECK_ROWS)
+    out["vlm"]["kernels"] = dict(zip(("flash_attention",
+                                      "flash_attention_bwd"), vlm_kernels))
+    out["dryrun"] = run_dryrun_phase(
+        dataclasses.replace(configs.get(VLM_ARCH).config(),
+                            n_layers=VLM_TRAIN_LAYERS),
+        out["vlm"]["peak_bytes"])
     out["bwd_worst_rel_l2"] = worst_l2
     out["ft_demo"] = run_ft_demo(ARCH, FT_DEMO, n_layers=2, d_model=128,
                                  d_ff=256)
@@ -3919,6 +4205,8 @@ def run_training_phase(smi):
     record["launches"] = out["launches"]["flash_attention_bwd"]
     record["launches_recurrentgemma"] = (
         out["recurrentgemma"]["launches"]["flash_attention_bwd"])
+    record["vlm"] = {**vlm_kernels[1], "launches_train_step": (
+        out["vlm"]["launches_per_step"]["flash_attention_bwd"])}
     rwkv_bwd["launches"] = out["rwkv6"]["launches"]["rwkv6_scan_bwd"]
     rglru_bwd["launches"] = (
         out["recurrentgemma"]["launches"]["rglru_scan_bwd"])
@@ -4117,6 +4405,10 @@ def main() -> int:
         training["rwkv6"]["launches_per_step"]["rwkv6_scan"])
     rglru_record["launches_train_step"] = (
         training["recurrentgemma"]["launches_per_step"]["rglru_scan"])
+    record["vlm"] = {**training["vlm"]["kernels"]["flash_attention"],
+                     "launches_train_step": (
+                         training["vlm"]["launches_per_step"]
+                         ["flash_attention"])}
     print(json.dumps({"training": training}))
 
     zoo_worst = check_cnn_zoo()

@@ -1,7 +1,8 @@
 """Architecture registry: ``get(arch_id)`` -> config module.
 
-Each module exposes ``config()`` (the exact assigned configuration) and
-``smoke_config()`` (reduced same-family variant for CPU tests).  Every
+Each module exposes ``config()`` (the exact assigned configuration),
+``smoke_config()`` (reduced same-family variant for CPU tests) and
+``SKIP_SHAPES`` (shape_name -> reason, per the long_500k rule).  Every
 reference architecture is registered, in the reference's order.
 """
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Dict, List
 from . import (granite_moe_1b, minitron_4b, phi3_5_moe_42b, phi3_mini_3_8b,
                qwen2_5_14b, qwen2_vl_72b, qwen3_1_7b, recurrentgemma_9b,
                rwkv6_1_6b, whisper_tiny)
-from .common import concrete_batch, shrink
+from .common import SHAPES, ShapeSpec, concrete_batch, input_specs, shrink
 
 _MODULES = (qwen2_5_14b, qwen3_1_7b, phi3_mini_3_8b, minitron_4b,
             qwen2_vl_72b, granite_moe_1b, phi3_5_moe_42b, whisper_tiny,
@@ -31,4 +32,17 @@ def arch_ids() -> List[str]:
     return list(ARCHS.keys())
 
 
-__all__ = ["ARCHS", "get", "arch_ids", "concrete_batch", "shrink"]
+def cells(include_skipped: bool = False):
+    """All (arch_id, shape_name, skip reason or None) dry-run cells; the
+    skipped ones only with ``include_skipped``."""
+    out = []
+    for aid, mod in ARCHS.items():
+        for sname in SHAPES:
+            skip = mod.SKIP_SHAPES.get(sname)
+            if skip is None or include_skipped:
+                out.append((aid, sname, skip))
+    return out
+
+
+__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "get", "arch_ids", "cells",
+           "input_specs", "concrete_batch", "shrink"]

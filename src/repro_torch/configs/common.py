@@ -1,5 +1,8 @@
-"""Shared config machinery: the smoke-test reduction helper and small
-materialized batches, as in ``repro/configs/common.py``."""
+"""Shared config machinery, as in ``repro/configs/common.py``: the four
+assigned input shapes of the dry-run and their input specs (``meta``
+tensors: shapes and dtypes, no storage; the vision and audio frontends are
+stubs providing precomputed embeddings), the smoke-test reduction helper
+and small materialized batches."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,6 +12,52 @@ import numpy as np
 import torch
 
 from ..models.lm import LMConfig, require_ported
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def input_specs(cfg: LMConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """``meta`` stand-ins for every model input, keyed and shaped as the
+    reference's ShapeDtypeStructs: tokens (and positions, labels) in the
+    port's int64, embeds and frames in the model dtype.
+
+    train/prefill: the full-sequence batch (+labels for train; vlm: the
+    text after ``n_patches`` patch embeddings).  decode: one new token;
+    the KV cache of ``seq_len`` is ``launch.steps.cache_shapes``'s."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(*dims, dtype=torch.int64):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": meta(b, 1)}
+    batch: Dict[str, torch.Tensor] = {}
+    if cfg.family == "vlm":
+        batch["tokens"] = meta(b, s - cfg.n_patches)
+        batch["embeds"] = meta(b, cfg.n_patches, cfg.d_model, dtype=cfg.dtype)
+        batch["positions"] = meta(3, b, s)
+    elif cfg.family == "encdec":
+        batch["frames"] = meta(b, cfg.n_frames, cfg.d_model, dtype=cfg.dtype)
+        batch["tokens"] = meta(b, s)
+    else:
+        batch["tokens"] = meta(b, s)
+    if shape.kind == "train":
+        batch["labels"] = meta(b, s)
+    return batch
 
 
 def concrete_batch(cfg: LMConfig, seq_len: int, batch: int,

@@ -4,6 +4,9 @@ from ..models.lm import LMConfig
 from .common import shrink
 
 ARCH_ID = "granite-moe-1b-a400m"
+SKIP_SHAPES = {"long_500k": "full-attention arch (MoE FFN does not change "
+                            "the KV cache); skipped per assignment "
+                            "(see DESIGN.md §6)"}
 
 
 def config() -> LMConfig:

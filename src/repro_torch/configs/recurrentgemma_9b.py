@@ -5,6 +5,7 @@ from ..models.lm import LMConfig
 from .common import shrink
 
 ARCH_ID = "recurrentgemma-9b"
+SKIP_SHAPES = {}            # RG-LRU state + 2048-window cache: long_500k OK
 
 
 def config() -> LMConfig:

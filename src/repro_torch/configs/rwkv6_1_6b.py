@@ -4,6 +4,7 @@ from ..models.lm import LMConfig
 from .common import shrink
 
 ARCH_ID = "rwkv6-1.6b"
+SKIP_SHAPES = {}            # O(1) state decode: long_500k OK
 
 
 def config() -> LMConfig:

@@ -31,11 +31,16 @@ a numpy seed), and one of ``--max-new-tokens`` greedy decode steps of
 (rwkv6: in one call; recurrentgemma and whisper: token by token; whisper's
 cache built from its encoder's memory of the same clips).
 
-Training (``--train-steps N``, every family but vlm): one window of N
-train steps (``launch/steps.py``'s ``make_train_step``, the AdamW settings of
-``launch/train.py``) of ``--requests`` rows x ``--seq`` tokens from
-``SyntheticLMDataset`` (loss chunks of min(512, seq)), after one
-unprofiled step; each backward kernel's launches are their own kind.
+Training (``--train-steps N``, every family): one window of N train
+steps (``launch/steps.py``'s ``make_train_step``, the AdamW settings of
+``launch/train.py``) of ``--requests`` rows x ``--seq`` tokens (the vlm:
+after its patches) from its ``step_batch``, in loss chunks of its
+``loss_chunk``, after one unprofiled step; each backward kernel's
+launches are their own kind.  The update is the driver's functional one
+unless ``launch/steps.py``'s ``donate_update`` says it does not fit on the
+card (qwen2-vl-72b): then it is written into the state
+(``make_train_step(donate=True)``).  ``--layers L`` cuts the model to its
+first L layers.
 
 A CNN of the paper's zoo (``--model cnn:<Name>`` or
 ``synthetic-cnn:<f>``; fp32, TF32 off as the reference's function): one
@@ -54,6 +59,9 @@ thread and CUDA stream per stage), after an unprofiled round.
         --model cnn:ResNet50 --requests 64
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --train-steps 3 --requests 8 --seq 1024 [--arch rwkv6-1.6b]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+        --train-steps 3 --requests 8 --seq 1024 --arch qwen2-vl-72b \\
+        --layers 3
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
         --workload decode --decode-concurrency 8 --max-context 2048 \\
         --prompt-len 1024 --max-new-tokens 64 --requests 16 \\
@@ -233,22 +241,28 @@ def profile_model(args: argparse.Namespace, forwards: int) -> None:
                           f"{decode_steps} steps")
 
 
-def profile_train(args: argparse.Namespace, steps: int) -> None:
+def profile_train(args: argparse.Namespace, steps: int,
+                  layers: Optional[int] = None) -> None:
     """The training window (module docstring)."""
+    import dataclasses
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.launch import steps as train_steps
-    from repro_torch.launch.train import step_batch
+    from repro_torch.launch.train import loss_chunk, step_batch
     from repro_torch.optim import AdamWConfig
     mod = configs.get(args.arch)
     cfg = mod.smoke_config() if args.smoke else mod.config()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     dev = torch.device("cuda")
     params, state = train_steps.init_train_state(
         cfg, dev, torch.Generator(dev).manual_seed(args.seed))
     data = SyntheticLMDataset(DataConfig(global_batch=args.requests,
                                          seq_len=args.seq, vocab=cfg.vocab))
+    donate = train_steps.donate_update(
+        cfg, torch.cuda.get_device_properties(dev).total_memory)
     step = train_steps.make_train_step(
         cfg, AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps + 1),
-        loss_chunk=min(512, args.seq))
+        loss_chunk=loss_chunk(cfg, args.seq), donate=donate)
     batches = [step_batch(cfg, data, i, args.requests, args.seq, dev)
                for i in range(steps + 1)]
     run = {"params": params, "state": state}
@@ -261,8 +275,9 @@ def profile_train(args: argparse.Namespace, steps: int) -> None:
     train(0, 1)                                 # warms the step
     torch.cuda.synchronize()
     prof, wall = profiled(lambda: train(1, steps))
-    summarize(prof, wall, f"{cfg.name} train ({args.requests}, {args.seq}) "
-                          f"x{steps}")
+    summarize(prof, wall, f"{cfg.name} ({cfg.n_layers} layers) train "
+                          f"({args.requests}, {args.seq}) x{steps}, "
+                          f"{'donated' if donate else 'functional'} update")
 
 
 def cnn_model(ref: str):
@@ -309,6 +324,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--train-steps", type=int, default=0,
                     help="profile this many train steps of --arch instead "
                          "of serving")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="--train-steps: cut the model to its first "
+                         "this many layers")
     extra, rest = ap.parse_known_args(argv)
     args = serve.parse_args(rest)
     if args.device != "cuda":
@@ -321,7 +339,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         profile_cnn(args, extra.model, extra.forwards)
         return
     if extra.train_steps:
-        profile_train(args, extra.train_steps)
+        profile_train(args, extra.train_steps, extra.layers)
         return
     if configs.get(args.arch).config().family not in serve.SERVED_FAMILIES:
         profile_model(args, extra.forwards)

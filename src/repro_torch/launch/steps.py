@@ -4,9 +4,9 @@ decode_step per architecture.
 They are plain functions over the port's parameter trees; the train step
 differentiates with autograd (the attention layers through the
 flash-attention kernel's backward) and updates with the functional AdamW
-of :mod:`repro_torch.optim`.  The reference's ``train_state_shapes`` and
-``cache_shapes`` (``jax.eval_shape`` helpers of its dry-run) are not
-ported.
+of :mod:`repro_torch.optim`.  The dry-run's ``train_state_shapes`` and
+``cache_shapes`` (``jax.eval_shape`` there) build their trees on the
+``meta`` device: shapes and dtypes, no storage.
 """
 from __future__ import annotations
 
@@ -73,16 +73,18 @@ def loss_and_grads(cfg: LMConfig, params: Params,
 
 
 def make_train_step(cfg: LMConfig, opt_cfg: AdamWConfig,
-                    loss_chunk: int = 512):
+                    loss_chunk: int = 512, donate: bool = False):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: :func:`loss_and_grads`, then one AdamW update; ``metrics``
     holds ``loss``, ``lr`` and ``grad_norm`` (0-d tensors).  The inputs
-    are not written."""
+    are not written, unless ``donate``: then the update writes the same
+    values into ``params`` and ``opt_state`` (``adamw_update(...,
+    donate=True)``, the reference's ``donate_argnums=(0, 1)``)."""
     def train_step(params: Params, opt_state: Params,
                    batch: Dict[str, torch.Tensor]):
         loss, grads = loss_and_grads(cfg, params, batch, loss_chunk)
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
-                                                  opt_state)
+                                                  opt_state, donate)
         metrics = dict(metrics, loss=loss)
         return params, opt_state, metrics
 
@@ -114,3 +116,30 @@ def init_train_state(cfg: LMConfig, device="cuda",
     state."""
     params = api.init(cfg, resolve_device(device), generator)
     return params, adamw_init(params)
+
+
+def train_state_shapes(cfg: LMConfig) -> Tuple[Params, Params]:
+    """The parameters and AdamW state of ``cfg`` on the ``meta`` device
+    (no allocation), for the dry-run."""
+    params = api.init(cfg, "meta")
+    return params, adamw_init(params)
+
+
+def donate_update(cfg: LMConfig, device_bytes: int) -> bool:
+    """Whether a train step of ``cfg`` on a card of ``device_bytes`` must
+    write its update into the state (``make_train_step(donate=True)``):
+    only where the functional update's new parameters and moments do not
+    fit beside the old ones and the gradients, i.e. where twice
+    ``train_state_shapes``'s bytes plus the parameters' exceed the card."""
+    params, state = train_state_shapes(cfg)
+    nbytes = lambda tree: sum(  # noqa: E731
+        x.numel() * x.element_size() for x in tree_flatten(tree)[0])
+    return 2 * (nbytes(params) + nbytes(state)) + nbytes(params) > device_bytes
+
+
+def cache_shapes(cfg: LMConfig, batch: int, max_len: int) -> Params:
+    """``api.init_cache`` on the ``meta`` device; its length, a Python int
+    in a live cache, as the reference's int32 0-d leaf."""
+    cache = api.init_cache(cfg, batch, max_len, torch.device("meta"))
+    return {**cache, "len": torch.zeros((), dtype=torch.int32,
+                                        device="meta")}

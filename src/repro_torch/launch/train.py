@@ -7,6 +7,9 @@
 Data are addressed by step (``SyntheticLMDataset.batch_at``; vlm and
 encdec batches from ``configs.common.concrete_batch`` with the step as the
 numpy seed), so a restart from a checkpoint replays the same batches.
+The loss runs in chunks of :func:`loss_chunk`, a divisor of the trained
+sequence (the reference's ``min(512, seq)`` does not divide the vlm's
+``seq + n_patches``, and its ``chunked_lm_loss`` asserts).
 """
 from __future__ import annotations
 
@@ -27,6 +30,27 @@ from ..models.lm import LMConfig
 from ..optim import AdamWConfig
 from ..runtime import FailureInjector, TrainSupervisor
 from . import steps as steps_lib
+
+
+# the smallest loss chunk a length may take: below it a step runs so many
+# checkpointed chunks that the length is refused instead
+MIN_LOSS_CHUNK = 64
+
+
+def loss_chunk(cfg: LMConfig, seq: int) -> int:
+    """The largest divisor not above 512 of the sequence a step of ``seq``
+    text tokens trains on: ``seq + n_patches`` for the vlm family (its
+    batch puts the patches first), ``seq`` for the others.  Raises
+    ValueError where that divisor is below MIN_LOSS_CHUNK (a length above
+    512 with no such divisor, e.g. a prime)."""
+    n = seq + cfg.n_patches if cfg.family == "vlm" else seq
+    chunk = max(c for c in range(1, min(512, n) + 1) if n % c == 0)
+    if chunk < min(MIN_LOSS_CHUNK, n):
+        raise ValueError(f"a trained sequence of {n} tokens has no divisor "
+                         f"from {MIN_LOSS_CHUNK} to 512 to chunk its loss "
+                         f"by (the largest is {chunk}); choose another "
+                         f"--seq")
+    return chunk
 
 
 def step_batch(cfg: LMConfig, data: SyntheticLMDataset, step: int,
@@ -59,7 +83,7 @@ def train(cfg: LMConfig, steps: int, batch: int, seq: int,
     params, opt_state = steps_lib.init_train_state(
         cfg, dev, torch.Generator(dev).manual_seed(0))
     raw_step = steps_lib.make_train_step(
-        cfg, opt_cfg, loss_chunk=min(512, seq))
+        cfg, opt_cfg, loss_chunk=loss_chunk(cfg, seq))
 
     def step_fn(state, step):
         params, opt_state = state
