@@ -8,7 +8,9 @@ The second form only builds and times flash_decode, rwkv6_scan,
 rglru_scan and the backwards of flash_attention and rwkv6_scan at the
 points below (one JSON line), importing the port from DIR/src (another
 checkout, such as the parent commit's) when ``--tree`` is given, so two
-trees' kernels are timed by the same code on one card.
+trees' kernels are timed by the same code on one card (a tree whose
+kernel modules have no cost functions cannot be timed so: the bounds
+call them).
 With no arguments:
 
 1. prints the card's name and power limit (nvidia-smi);
@@ -164,7 +166,8 @@ With no arguments:
    of the smoke configs of qwen3-1.7b, granite-moe-1b-a400m, whisper-tiny,
    rwkv6-1.6b, recurrentgemma-9b and qwen2-vl-72b on the card against the
    CPU (fp32);
-   full-width qwen3-1.7b, rwkv6-1.6b, recurrentgemma-9b cut to 6 of
+   full-width qwen3-1.7b, granite-moe-1b-a400m, rwkv6-1.6b,
+   recurrentgemma-9b cut to 6 of
    its 38 layers and qwen2-vl-72b cut to 3 of its 80 (bf16 weights from
    seed 0, remat) each trained 1 + 5 steps of 8 x 1024 tokens (qwen2-vl:
    after its 1024 stub patches), the update functional as the driver's
@@ -174,21 +177,37 @@ With no arguments:
    ``step_batch`` in loss chunks of its
    ``loss_chunk``, with every kernel's count set to 0 just before a step
    and read just after
-   (flash_attention = 2 x 28, flash_attention_bwd = 28; rwkv6_scan = 2 x
+   (flash_attention = 2 x 28, flash_attention_bwd = 28; 2 x 24 and 24;
+   rwkv6_scan = 2 x
    24, rwkv6_scan_bwd = 24; rglru_scan = 8, rglru_scan_bwd = 4,
    flash_attention = 4, flash_attention_bwd = 2; flash_attention = 6,
    flash_attention_bwd = 3): loss, grad_norm, lr, step time, tokens/s,
-   the share of the bf16 peak, the allocator's peak and its retries; one
+   the share of the bf16 peak (the step's FLOPs counted by
+   ``launch/op_analysis.py`` on the meta device, ``train_step_flops``'s
+   hand formula beside them with its excess named), the allocator's peak
+   and its retries; one
    step's loss and gradients against the same step with the plain
    versions in the kernels' places (qwen2-vl: the plain steps over 4
    slices of 2 of its 8 rows, averaged), in bf16 beside the bf16 noise (the plain bf16 step against the
-   plain step on the weights made fp32) and in fp32; the dry-run cell
-   table on one card (``launch/dryrun.py --all --mesh 1x1``: each cell's
-   device bytes and fit), launch/mesh.py's memory constant against the
-   card's, ``train_state_shapes``'s bytes against the allocator's for
-   qwen3-1.7b and the cut qwen2-vl (within 512 bytes a tensor), and the
-   cut qwen2-vl's modeled device bytes at (8, 2048) beside its step's
-   allocator peak; and the reference's fault-tolerance demo
+   plain step on the weights made fp32) and in fp32; qwen3-1.7b's
+   full-width train state (17.2 GB) checkpointed through
+   ``checkpoint/store.py`` with a blocking save into a temporary
+   directory and restored (bytes, save_s, restore_s, GB/s; the free disk
+   checked first), the step from the restored state bit-equal to the
+   step from the live one; the dry-run cell
+   table on one card (``launch/dryrun.py --all --mesh 1x1 --no-count``:
+   each cell's device bytes and fit), launch/mesh.py's memory constant
+   against the card's, ``train_state_shapes``'s bytes against the
+   allocator's for qwen3-1.7b and the cut qwen2-vl (within 512 bytes a
+   tensor), and the cut qwen2-vl's modeled device bytes at (8, 2048)
+   beside its step's allocator peak; the dry run's measured record
+   (``dryrun.measure_cell``) of MEASURED's three cells at full width,
+   every layer (qwen3-1.7b and granite-moe-1b-a400m at ``train_4k`` cut
+   to 8 x 1024, qwen3-1.7b at ``decode_32k`` cut to 8 rows and a cache of
+   2048): warm-up and step times, the allocator's stats, the device
+   window, the counted fields and roofline terms, failing unless the
+   card's count equals the meta count op for op and the kernels launched
+   as MEASURED says (one JSON line); and the reference's fault-tolerance demo
    (``examples/train_lm.py``'s config, 200 steps, a failure at step 77)
    and the same on rwkv6-1.6b's smoke config (60 steps, a failure at step
    25) through ``launch/train.py`` (one JSON line);
@@ -240,6 +259,7 @@ Any failed phase raises and exits non-zero.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no
 result.
 """
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -614,6 +634,10 @@ TRAIN_STEPS = 5
 TRAIN_LR = 1e-3
 TRAIN_LOSS_TOL = 1e-3
 TRAIN_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the moe family's fp32 check replays the plain step's top-k choices
+# (RoutingReplay); the kernels' step may choose otherwise on at most this
+# share of them, ties within rounding (granite-moe-1b-a400m: 10 of 3145728)
+MAX_FLIPPED_SHARE = 1e-5
 # the reference's fault-tolerance demo (examples/train_lm.py): qwen3's smoke
 # config at 2 layers, d_model 128, d_ff 256, fp32; steps, batch, seq, lr,
 # warm-up, checkpoint interval, the injected failure
@@ -623,6 +647,14 @@ FT_DEMO = {"steps": 200, "batch": 8, "seq": 64, "lr": 3e-3, "warmup": 20,
 # d 64)
 RWKV_FT_DEMO = {"steps": 60, "batch": 8, "seq": 64, "lr": 3e-3,
                 "warmup": 10, "ckpt_every": 20, "fail_at": 25}
+# the dry run's measured cells (launch/dryrun.py measure_cell), at full
+# width with every layer: arch, shape, rows, sequence (decode: the cache's
+# length, one token a row), the kernels' launches a step
+MEASURED = (("qwen3-1.7b", "train_4k", 8, 1024,
+             {"flash_attention": 56, "flash_attention_bwd": 28}),
+            ("granite-moe-1b-a400m", "train_4k", 8, 1024,
+             {"flash_attention": 48, "flash_attention_bwd": 24}),
+            ("qwen3-1.7b", "decode_32k", 8, 2048, {"flash_decode": 28}))
 CARD = "cuda"
 D96_TAG = "ILi96E"      # a mangled template argument of 96 (the head dim)
 D256_TAG = "ILi256E"
@@ -681,27 +713,24 @@ def ptxas_spills(log):
     return out
 
 
-def attention_flops(q, k, causal, window=None):
-    """4*D flops per unmasked (query, key) pair: the work of one call."""
-    b, hq, s, d = q.shape
-    t = k.shape[2]
-    if causal:      # query i (right-aligned) sees keys 0 .. t - s + i
-        pairs = sum(min(t, t - s + i + 1, window or t) for i in range(s))
-    else:
-        pairs = s * t
-    return 4 * d * pairs * b * hq
+def cost_bound(cost, dtype):
+    """Least time (ms) of a call of ``cost`` = (operations, bytes), a
+    kernel's cost function (the one each wrapper reports to
+    ``launch/op_analysis.py``): the larger of its operations over the
+    peak rate of ``dtype`` and its bytes over HBM bandwidth; and which of
+    the two bounds it."""
+    flops, nbytes = cost
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def attention_bound(q, k, causal, window=None):
     """Least time (ms) for one flash-attention call on these inputs: q/k/v
     read and o written once over HBM bandwidth, against 4*D flops per
     unmasked (query, key) pair over the peak rate of the input type."""
-    flops = attention_flops(q, k, causal, window)
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    t_ops = flops / PEAK_FLOPS[q.dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return cost_bound(fa.attention_cost(q, k, causal, window), q.dtype)
 
 
 def attention_inputs(b, hq, hkv, s, t, d, dtype, model_layout=False):
@@ -723,7 +752,7 @@ def attention_inputs(b, hq, hkv, s, t, d, dtype, model_layout=False):
 def tflops(q, k, ms, window=None, causal=True):
     """Achieved TFLOP/s of a call that took ``ms``: the bound's operation
     count over the time."""
-    return attention_flops(q, k, causal, window) / (ms * 1e-3) / 1e12
+    return fa.attention_cost(q, k, causal, window)[0] / (ms * 1e-3) / 1e12
 
 
 def sdpa_call(q, k, v, causal=True):
@@ -858,15 +887,8 @@ def decode_bound(q, k, lens):
     written and each slot's valid K/V rows read once over HBM bandwidth,
     against 4*D flops per valid (q head, position) over the peak rate of
     the input type."""
-    b, hq, d = q.shape
-    hkv, t = k.shape[1], k.shape[2]
-    positions = int(lens.clamp(0, t).sum())
-    flops = 4 * d * hq * positions
-    nbytes = (2 * q.numel() + 2 * hkv * positions * d) * q.element_size()
-    t_ops = flops / PEAK_FLOPS[q.dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return cost_bound(fd.decode_cost(q, k, fd.valid_positions(
+        lens, q.shape[0], k.shape[2])), q.dtype)
 
 
 def decode_inputs(b, hq, hkv, t, d, dtype, model_layout=False, seed=0):
@@ -1040,11 +1062,10 @@ def allclose_err(got, expect, tol):
     return diff.max().item(), ok
 
 
-def scan_bound(nbytes, flops):
-    t_ops = flops / PEAK_FLOPS[torch.float32]      # CUDA-core arithmetic
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def scan_bound(cost):
+    """A recurrence's bound: its cost's operations at the fp32 CUDA-core
+    rate."""
+    return cost_bound(cost, torch.float32)
 
 
 def rwkv6_inputs(b, h, s, d, dtype, model_layout, seed=0):
@@ -1128,8 +1149,7 @@ def time_rwkv6_points():
         x = rwkv6_inputs(b, h, s, d, torch.float32, True)
         ms = cuda_ms([lambda: rw.rwkv6_scan(*x)])
         plain_ms = cuda_ms([lambda: rwkv6_scan_ref(*x)], reps=3)
-        nbytes = 5 * b * h * s * d * 4 + 2 * b * h * d * d * 4
-        bound_ms, bound_by = scan_bound(nbytes, 4 * b * h * s * d * d)
+        bound_ms, bound_by = scan_bound(rw.scan_cost(x[0]))
         out[key] = {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": None,
@@ -1256,8 +1276,7 @@ def time_rglru_points():
                            reps=3 if s > 1 else 20)
         y = torch.empty_like(a)
         stream_ms = cuda_ms([lambda: torch.add(a, gx, out=y)])
-        nbytes = 3 * b * s * r * a.element_size() + 2 * b * r * 4
-        bound_ms, bound_by = scan_bound(nbytes, 2 * b * s * r)
+        bound_ms, bound_by = scan_bound(rg.scan_cost(a))
         plan = (rg.scan_plan(s, r, a.element_size())._asdict()
                 if hasattr(rg, "scan_plan") else None)
         out[key] = {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -1328,10 +1347,7 @@ def qi8_bound(m, k, n):
     """Least time (ms) of an int8 (M,K) x (K,N) -> int32 product: x and w
     read and the int32 output written once over HBM bandwidth, against
     2*M*N*K operations at the int8 tensor-core peak."""
-    t_ops = 2 * m * n * k / PEAK_FLOPS[torch.int8]
-    t_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return cost_bound(mq.qi8_cost(m, k, n), torch.int8)
 
 
 def int_mm_ms(x, w):
@@ -3216,14 +3232,8 @@ def attention_bwd_bound(q, k, causal, window=None):
     bandwidth, against the 5 products (10 D flops per unmasked (query,
     key) pair: 2.5 times the forward's 2) over the peak rate of the input
     type."""
-    flops = 2.5 * attention_flops(q, k, causal, window)
-    b, hq, s, _ = q.shape
-    nbytes = ((3 * q.numel() + 4 * k.numel()) * q.element_size()
-              + 4 * b * hq * s)
-    t_ops = flops / PEAK_FLOPS[q.dtype]
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+    cost = fa.attention_bwd_cost(q, k, causal, window)
+    return (*cost_bound(cost, q.dtype), cost[0])
 
 
 def sdpa_bwd_ms(q, k, v, do, causal):
@@ -3515,16 +3525,6 @@ def rwkv6_bwd_case(b, h, s, d, dtype, layout, extreme=False):
     return x, dy, ds_last
 
 
-def rwkv6_bwd_bound(x):
-    """The backward's bound: r/k/v/w/dy read and dr/dk/dv/dw written once,
-    s0, ds_last and ds0, u and du; 8 operations per state element per
-    step."""
-    b, h, s, d = x[0].shape
-    size = x[0].element_size()
-    return scan_bound(9 * b * h * s * d * size + 3 * b * h * d * d * 4
-                      + 2 * h * d * 4, 8 * b * h * s * d * d)
-
-
 def time_rwkv6_bwd_points():
     """rwkv6_scan_bwd at rwkv6-1.6b's training shape (8, 32, 1024, 64) in
     the model layout, fp32 and bf16, beside the bound: ``ms`` the backward
@@ -3550,7 +3550,7 @@ def time_rwkv6_bwd_points():
         else:
             rec["ms"] = cuda_ms([lambda: rw.rwkv6_scan_bwd(
                 *x, dy, ds_last)], reps=10)
-        rec["bound_ms"], rec["bound_by"] = rwkv6_bwd_bound(x)
+        rec["bound_ms"], rec["bound_by"] = scan_bound(rw.scan_bwd_cost(x[0]))
         out[str(dtype)] = rec
         extra = (f", from the inputs {rec['ms_from_inputs']:.4f} ms"
                  if takes_states else " (walks the forward itself)")
@@ -3600,7 +3600,7 @@ def check_rwkv6_scan_bwd():
                 "rwkv6_scan_bwd", label,
                 lambda: rw.rwkv6_scan_bwd(*x, dy, ds_last, states),
                 lambda: rwkv6_scan_bwd_ref(*x, dy, ds_last),
-                *rwkv6_bwd_bound(x),
+                *scan_bound(rw.scan_bwd_cost(x[0])),
                 {"b": b, "h": h, "s": s, "d": d, "dtype": str(dtype)})
             times["ms_from_inputs"] = cuda_ms(
                 [lambda: rw.rwkv6_scan_bwd(*x, dy, ds_last)], reps=10)
@@ -3651,8 +3651,7 @@ def check_rglru_scan_bwd():
                 "rglru_scan_bwd", label,
                 lambda: rg.rglru_scan_bwd(a, gx, h0, y, dy, dh_last),
                 lambda: rglru_scan_bwd_ref(a, gx, h0, y, dy, dh_last),
-                *scan_bound(5 * b * s * r * a.element_size() + 3 * b * r * 4,
-                            3 * b * s * r),
+                *scan_bound(rg.scan_bwd_cost(a)),
                 {"b": b, "s": s, "r": r, "dtype": str(dtype)})
             if record is None:
                 record = {"name": "rglru_scan_bwd", "route": "cuda",
@@ -3754,12 +3753,14 @@ def block_matmul_weights(params):
 
 
 def train_step_flops(cfg, params, batch, seq):
-    """FLOPs of one train step as the code runs it, and the formula: the
-    blocks' matrix products (:func:`block_matmul_weights`) and the
-    unembedding 4 times (forward, the remat or loss-chunk recompute, and a
-    backward of twice the forward), attention's two forward products 2
-    times (forward, remat) plus the backward's 5; the recurrences' few
-    CUDA-core operations are not counted."""
+    """The hand formula of a train step's FLOPs, printed beside the count
+    (``launch/op_analysis.py``), and its text: the blocks' matrix products
+    (:func:`block_matmul_weights`) and the unembedding 4 times (forward,
+    the remat or loss-chunk recompute, and a backward of twice the
+    forward), attention's two forward products 2 times (forward, remat)
+    plus the backward's 5; the recurrences' few CUDA-core operations are
+    not counted.  It overstates the step: remat does not recompute each
+    block's last product (:func:`remat_skipped_flops`)."""
     tokens = batch * seq
     n_attn = (0 if cfg.family == "ssm"
               else cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
@@ -3774,6 +3775,26 @@ def train_step_flops(cfg, params, batch, seq):
                f"{n_attn} attention layers x 4.5 x {attn_fwd} causal "
                f"attention flops")
     return matmul + attention, formula
+
+
+def remat_skipped_flops(cfg, batch, seq):
+    """FLOPs of the products that remat does not recompute, which
+    :func:`train_step_flops` counts 4 times where the step runs them 3:
+    non-reentrant ``torch.utils.checkpoint`` stops recomputing once the
+    tensors the backward saved are rebuilt, so each block's last product,
+    the MLP's down projection, runs once forward.  dense and vlm: 2 x
+    tokens x d_ff x d_model a layer; moe: the experts' (E, groups, C, F) x
+    (E, F, D) products; None for the other families (or no remat)."""
+    if not cfg.remat or cfg.family not in ("dense", "vlm", "moe"):
+        return None
+    tokens = batch * seq
+    if cfg.family != "moe":
+        return cfg.n_layers * 2 * tokens * cfg.d_ff * cfg.d_model
+    g = min(cfg.moe_group, seq)
+    cap = min(int(cfg.capacity_factor * g * cfg.top_k / cfg.n_experts) + 1,
+              g)
+    return (cfg.n_layers * 2 * cfg.n_experts * (tokens // g) * cap
+            * cfg.d_ff * cfg.d_model)
 
 
 def plain_attention(q, k, v, causal=True, window=None):
@@ -3839,6 +3860,40 @@ def sliced_grads(cfg, params, batch, chunk, rows):
             tree_unflatten(treedef, [a.div_(n) for a in acc]))
 
 
+class RoutingReplay:
+    """The MoE's top-k choices (``torch.topk`` in ``models/lm.py``'s
+    moe_block, the only top-k of a train step) recorded in one step and
+    replayed in another, so that two fp32 steps whose router logits differ
+    by rounding (the kernels' attention against its plain version) route
+    every token alike: a choice between two experts within rounding would
+    otherwise flip, and with it a token's whole path.  ``flipped`` counts
+    the replayed step's own choices that differ from the recorded ones."""
+
+    def __init__(self):
+        self.idx, self.calls, self.flipped, self.choices = [], 0, 0, 0
+        self.topk = torch.topk
+
+    def _record(self, probs, k, dim=-1):
+        vals, idx = self.topk(probs, k, dim=dim)
+        self.idx.append(idx)
+        return vals, idx
+
+    def _replay(self, probs, k, dim=-1):
+        own = self.topk(probs, k, dim=dim)[1]
+        idx = self.idx[self.calls]
+        self.calls += 1
+        self.choices += idx.numel()
+        self.flipped += int((torch.sort(own, dim=dim)[0]
+                             != torch.sort(idx, dim=dim)[0]).sum())
+        return probs.gather(dim, idx), idx
+
+    def record(self):
+        return unittest.mock.patch.object(torch, "topk", self._record)
+
+    def replay(self):
+        return unittest.mock.patch.object(torch, "topk", self._replay)
+
+
 def check_against_plain(cfg, params, batch, chunk, plain_rows=None):
     """One step's loss and gradients (bf16, the trained weights) against the
     same step with the plain versions in the kernels' places, beside both
@@ -3851,10 +3906,13 @@ def check_against_plain(cfg, params, batch, chunk, plain_rows=None):
     further from the fp32 plain step than the plain bf16 step is, plus
     TRAIN_GRAD_TOL[bf16].  Then the kernels' own fp32 step (all layers,
     their fp32 routes) against that plain fp32 step, the loss within
-    TRAIN_LOSS_TOL and each leaf within TRAIN_GRAD_TOL[fp32].  Each leaf's
-    relative L2 error is printed.  Each step's gradients wait in the
-    host's memory (the card holds the weights and one step's: a 4-layer
-    qwen2-vl-72b's fp32 weights and three gradient trees do not fit).
+    TRAIN_LOSS_TOL and each leaf within TRAIN_GRAD_TOL[fp32] (the moe
+    family: with the plain step's top-k choices replayed,
+    :class:`RoutingReplay`, of which at most MAX_FLIPPED_SHARE may differ
+    from the kernels' step's own).  Each leaf's relative L2 error is printed.
+    Each step's gradients wait in the host's memory (the card holds the
+    weights and one step's: a 4-layer qwen2-vl-72b's fp32 weights and
+    three gradient trees do not fit).
     ``plain_rows``: the plain steps over slices of that many rows
     (:func:`sliced_grads`); the kernels' steps always take the whole
     batch."""
@@ -3878,7 +3936,10 @@ def check_against_plain(cfg, params, batch, chunk, plain_rows=None):
                                            names, kp)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     params32 = to_fp32(params)
-    loss_f, grads_f = grads_of_step(cfg32, params32, batch, chunk, plain=True)
+    routing = RoutingReplay() if cfg.family == "moe" else None
+    with routing.record() if routing else contextlib.nullcontext():
+        loss_f, grads_f = grads_of_step(cfg32, params32, batch, chunk,
+                                        plain=True)
     kf = tree_rel_errs(grads, grads_f)
     pf = tree_rel_errs(grads_p, grads_f)
     del grads, grads_p
@@ -3903,7 +3964,25 @@ def check_against_plain(cfg, params, batch, chunk, plain_rows=None):
           f"the kernels' distance to the fp32 step beyond the plain bf16 "
           f"step's, worst {out['bf16_unresolved_worst_excess']:.3e} (tol "
           f"{tol:g})")
-    loss32, grads32 = grads_of(cfg32, params32, batch, chunk)
+    with routing.replay() if routing else contextlib.nullcontext():
+        loss32, grads32 = grads_of(cfg32, params32, batch, chunk)
+    if routing:
+        out["fp32_routing"] = {"topk_calls": routing.calls,
+                               "recorded": len(routing.idx),
+                               "choices": routing.choices,
+                               "flipped": routing.flipped}
+        print(f"fp32: the plain step's top-k choices replayed in the "
+              f"kernels' step ({routing.calls} calls of {len(routing.idx)} "
+              f"recorded); of its own {routing.choices} choices "
+              f"{routing.flipped} differ from the plain step's")
+        if routing.calls != len(routing.idx):
+            raise SystemExit("the two fp32 steps' top-k calls differ")
+        if routing.flipped > MAX_FLIPPED_SHARE * routing.choices:
+            raise SystemExit(f"fp32: {routing.flipped} of the kernels' "
+                             f"{routing.choices} top-k choices differ from "
+                             f"the plain step's, above the "
+                             f"{MAX_FLIPPED_SHARE:g} share that rounding "
+                             f"ties explain")
     out["fp32_loss_rel_err"] = abs(loss32.item() - loss_f.item()) / abs(
         loss_f.item())
     out["fp32_vs_plain"] = print_leaf_errs(
@@ -3995,13 +4074,28 @@ def run_training_path(arch, smi, layers=None, plain_rows=None,
     donate = train_steps.donate_update(
         cfg, torch.cuda.get_device_properties(0).total_memory)
     step = train_steps.make_train_step(cfg, opt_cfg, chunk, donate=donate)
-    flops, formula = train_step_flops(cfg, params, TRAIN_BATCH, seq)
+    # the step's FLOPs counted from the program (launch/op_analysis.py, the
+    # step on the meta device), the hand formula beside them
+    counted, count_s = dryrun.count_cell(cfg, configs.ShapeSpec(
+        f"train ({TRAIN_BATCH}, {seq})", seq, TRAIN_BATCH, "train"))
+    flops = counted.flops
+    formula_flops, formula = train_step_flops(cfg, params, TRAIN_BATCH, seq)
+    skipped = remat_skipped_flops(cfg, TRAIN_BATCH, seq)
     expect = step_counts(cfg)
     print(f"training {cfg.name}{cut} at full width: {n_params} parameters, "
           f"{TRAIN_BATCH} x {seq} tokens a step, loss chunk {chunk}, "
           f"remat={cfg.remat}, "
           f"{'donated' if donate else 'functional'} update; "
-          f"{flops / 1e12:.2f} TFLOP a step = {formula}")
+          f"{flops / 1e12:.4f} TFLOP a step counted in {count_s:.1f} s "
+          f"(aten {counted.aten_flops / 1e12:.4f} + kernels "
+          f"{(flops - counted.aten_flops) / 1e12:.4f}: "
+          f"{ {k: v['launches'] for k, v in counted.kernels.items()} })")
+    print(f"  train_step_flops gives {formula_flops / 1e12:.4f} TFLOP = "
+          f"{formula}; {(formula_flops - flops) / 1e12:.4f} TFLOP over the "
+          f"count ({formula_flops / flops - 1:.2%})"
+          + ("" if skipped is None else
+             f", of it {skipped / 1e12:.4f} TFLOP the MLP down projection "
+             f"(each block's last product) that remat does not recompute"))
     rows, launches = [], dict.fromkeys(expect, 0)
     step_launches = None
     retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
@@ -4041,17 +4135,25 @@ def run_training_path(arch, smi, layers=None, plain_rows=None,
            "seq": seq, "loss_chunk": chunk, "params": n_params,
            "steps": rows, "step_s_median": step_s,
            "tokens_per_s": TRAIN_BATCH * seq / step_s,
-           "flops_per_step": flops, "flops_formula": formula,
+           "flops_per_step": flops, "flops_source": "launch/op_analysis.py",
+           "aten_flops_per_step": counted.aten_flops,
+           "kernel_counts": counted.kernels,
+           "flops_formula_value": formula_flops, "flops_formula": formula,
+           "remat_skipped_flops": skipped,
            "peak_share": flops / (step_s * PEAK_FLOPS[torch.bfloat16]),
+           "peak_share_formula": formula_flops / (
+               step_s * PEAK_FLOPS[torch.bfloat16]),
            "peak_bytes": peak, "alloc_retries": retries,
            "launches": launches,
            "launches_per_step": step_launches, "donated": donate,
            "card": smi}
     print(f"{arch}{cut} full-width training: median step {step_s:.3f} s, "
-          f"{out['tokens_per_s']:.0f} tokens/s, {flops / 1e12:.2f} TFLOP / "
-          f"({step_s:.3f} s x 989 TFLOP/s) = {out['peak_share']:.2%} of the "
-          f"bf16 peak; allocator peak {peak / 1e9:.2f} GB, {retries} "
-          f"allocation retries in {TRAIN_STEPS + 1} steps")
+          f"{out['tokens_per_s']:.0f} tokens/s, {flops / 1e12:.4f} TFLOP "
+          f"counted / ({step_s:.3f} s x 989 TFLOP/s) = "
+          f"{out['peak_share']:.2%} of the bf16 peak (the formula's: "
+          f"{out['peak_share_formula']:.2%}); allocator peak "
+          f"{peak / 1e9:.2f} GB, {retries} allocation retries in "
+          f"{TRAIN_STEPS + 1} steps")
     if check_donation:
         out["donation"] = check_donated_update(
             opt_cfg, params, state, grads_of(cfg, params, first, chunk)[1])
@@ -4108,6 +4210,140 @@ def run_ft_demo(arch, demo, **over):
     return out
 
 
+def run_checkpoint_phase():
+    """A full-width checkpoint, timed: qwen3-1.7b's train state (bf16
+    weights from seed 0 and their fp32 AdamW moments) saved through
+    ``checkpoint/store.py``'s CheckpointStore with a blocking save into a
+    temporary directory (removed after), then restored; the bytes,
+    save_s, restore_s and GB/s.  The restored state must equal the saved
+    one bit for bit, and the train step from it the step from the live
+    state (loss, grad_norm, lr, every new parameter and moment; both
+    under ``torch.use_deterministic_algorithms``).  Fails
+    first, with the bytes needed, where the disk lacks the room."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointStore
+    cfg = configs.get(ARCH).config()
+    torch.cuda.empty_cache()
+    live = train_steps.init_train_state(
+        cfg, CARD, torch.Generator(CARD).manual_seed(0))
+    leaves = tree_flatten(live)[0]
+    nbytes = sum(x.numel() * x.element_size() for x in leaves)
+    root = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"checkpoint phase: {cfg.name}'s train state, {len(leaves)} "
+              f"tensors, {nbytes} bytes; {free} bytes free under {root}")
+        if free < nbytes * 1.05:
+            raise SystemExit(f"checkpoint phase: {int(nbytes * 1.05)} bytes "
+                             f"needed under {root}, {free} free")
+        store = CheckpointStore(root, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.save(0, live, blocking=True)
+        save_s = time.perf_counter() - t0
+        on_disk = sum(f.stat().st_size
+                      for f in pathlib.Path(root).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        step_no, restored = store.restore(live)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = sum(torch.equal(a, b) for a, b in zip(
+        leaves, tree_flatten(restored)[0]))
+    data = SyntheticLMDataset(DataConfig(global_batch=TRAIN_BATCH,
+                                         seq_len=SEQ, vocab=cfg.vocab))
+    batch = train_driver.step_batch(cfg, data, 0, TRAIN_BATCH, SEQ, CARD)
+    step = train_steps.make_train_step(
+        cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
+                         total_steps=TRAIN_STEPS + 1),
+        train_driver.loss_chunk(cfg, SEQ))
+    # the embedding's gradient (index_put with accumulate) is otherwise
+    # summed in an order that varies from call to call
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        from_restored = step(*restored, batch)
+        del restored
+        from_live = step(*live, batch)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = tree_flatten(from_restored)[0]
+    expect = tree_flatten(from_live)[0]
+    differ = sum(not torch.equal(a, b) for a, b in zip(got, expect))
+    out = {"arch": cfg.name, "tensors": len(leaves), "bytes": nbytes,
+           "bytes_on_disk": on_disk, "save_s": save_s,
+           "restore_s": restore_s, "save_gb_per_s": nbytes / save_s / 1e9,
+           "restore_gb_per_s": nbytes / restore_s / 1e9,
+           "restored_step": step_no, "restored_equal": same,
+           "step_outputs": len(got), "step_outputs_differ": differ}
+    print(f"checkpoint of {cfg.name} at full width: {nbytes} bytes "
+          f"({on_disk} on disk), save {save_s:.3f} s "
+          f"({out['save_gb_per_s']:.3f} GB/s), restore {restore_s:.3f} s "
+          f"({out['restore_gb_per_s']:.3f} GB/s); restored tensors equal "
+          f"to the saved {same} of {len(leaves)}; the step from the "
+          f"restored state against the step from the live state: "
+          f"{differ} of {len(got)} outputs differ (must be 0)")
+    if step_no != 0 or same != len(leaves) or differ:
+        raise SystemExit("the restored checkpoint differs from the live "
+                         "state")
+    del live, from_live, from_restored, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_measured_cells(smi):
+    """The dry run's measured record (``launch/dryrun.py`` measure_cell)
+    of each MEASURED cell: warm-up and step times, memory stats, the
+    device window, the counted fields at the reduced shape and the card's
+    count against the meta count.  Fails unless the two counts agree op
+    for op and the kernels launched as MEASURED says, in the count and on
+    the card."""
+    out = []
+    for arch, shape, b, seq, expect in MEASURED:
+        t0 = time.perf_counter()
+        rec = dryrun.measure_cell(configs.get(arch).config(),
+                                  configs.SHAPES[shape],
+                                  dryrun.Reduced(b, seq))
+        counted = {k: v["launches"] for k, v in rec["kernels"].items()}
+        r = rec["roofline"]
+        m = rec["memory_stats"]
+        print(f"measured {arch} x {shape} at ({b}, {seq}), "
+              f"{rec['reduced']['layers']} of "
+              f"{rec['reduced']['cell_layers']} layers: warm-up "
+              f"+{rec['warmup_s']:.3f} s, step {rec['step_s']:.4f} s "
+              f"({rec['step_s_spread'][0]:.4f} to "
+              f"{rec['step_s_spread'][1]:.4f}); counted "
+              f"{rec['counted_flops_per_device']:.4e} FLOP "
+              f"({rec['aten_flops_per_device']:.4e} aten), "
+              f"{rec['counted_bytes_per_device']:.4e} B; terms "
+              f"C={r['compute_s'] * 1e3:.3f} M={r['memory_s'] * 1e3:.3f} ms "
+              f"-> {r['dominant']}; roofline share "
+              f"{rec['roofline_share']:.3f}, peak share "
+              f"{rec['peak_share']:.3f}, useful "
+              f"{rec['useful_flops_ratio']:.3f}; memory at entry "
+              f"{m['state_bytes_at_entry'] / 1e9:.2f} GB, peak "
+              f"{m['peak_bytes'] / 1e9:.2f} GB, {m['alloc_retries']} "
+              f"retries, {m['ooms']} OOMs; idle share "
+              f"{rec['device']['idle_share']:.3f}; launches counted "
+              f"{counted}, on the card {rec['launches']}; card count equal "
+              f"{rec['card_count_equal']} ({time.perf_counter() - t0:.1f} s)")
+        out.append(rec)
+        torch.cuda.empty_cache()
+        if not rec["card_count_equal"]:
+            diff = rec["count_differs"]
+            for key in list(diff)[:20]:
+                print(f"  count differs at {key}: {diff[key]}")
+            raise SystemExit(f"{arch} x {shape}: the card's count differs "
+                             f"from the meta count at {len(diff)} entries")
+        if counted != expect or rec["launches"] != expect:
+            raise SystemExit(f"{arch} x {shape}: launches {counted} counted, "
+                             f"{rec['launches']} on the card, expected "
+                             f"{expect}")
+    return out
+
+
 def state_bytes_on_card(cfg):
     """The bytes the allocator holds for ``init_train_state``'s parameters
     and AdamW state of ``cfg`` on the card, the bytes of
@@ -4124,7 +4360,7 @@ def state_bytes_on_card(cfg):
     return held, sum(x.numel() * x.element_size() for x in leaves), len(leaves)
 
 
-def run_dryrun_phase(vlm_cfg, vlm_peak):
+def run_dryrun_phase(vlm_cfg, vlm_peak, smi):
     """The dry-run cell table on one card (``launch/dryrun.py --all --mesh
     1x1``: every cell's device bytes and fit); launch/mesh.py's memory
     constant against the card's; ``train_state_shapes``'s bytes against
@@ -4134,7 +4370,7 @@ def run_dryrun_phase(vlm_cfg, vlm_peak):
     measured allocator peak ``vlm_peak`` (a report: the activation model
     is the reference's).  Returns the phase's record."""
     t0 = time.perf_counter()
-    records = dryrun.main(["--all", "--mesh", "1x1"])
+    records = dryrun.main(["--all", "--mesh", "1x1", "--no-count"])
     total = torch.cuda.get_device_properties(0).total_memory
     print(f"card memory {total} bytes, launch/mesh.py's HBM_BYTES "
           f"{card_mesh.HBM_BYTES:.0f}")
@@ -4157,7 +4393,7 @@ def run_dryrun_phase(vlm_cfg, vlm_peak):
     seq = SEQ + vlm_cfg.n_patches
     rec = dryrun.cell_record(vlm_cfg, configs.ShapeSpec(
         f"train ({TRAIN_BATCH}, {seq})", seq, TRAIN_BATCH, "train"),
-        card_mesh.GRIDS["1x1"])
+        card_mesh.GRIDS["1x1"], count=False)
     print(f"{vlm_cfg.name} ({vlm_cfg.n_layers} layers) at ({TRAIN_BATCH}, "
           f"{seq}), modeled against measured: device_bytes "
           f"{rec['device_bytes'] / 1e9:.2f} GB (state "
@@ -4165,8 +4401,12 @@ def run_dryrun_phase(vlm_cfg, vlm_peak):
           f"{rec['activation_bytes_per_device'] / 1e9:.2f}), the step's "
           f"allocator peak {vlm_peak / 1e9:.2f} GB")
     out["vlm_train"] = {**rec, "peak_bytes": vlm_peak}
+    out["table_seconds"] = time.perf_counter() - t0
+    out["measured"] = run_measured_cells(smi)
+    print(json.dumps({"measured": out["measured"]}))
     out["seconds"] = time.perf_counter() - t0
-    print(f"dry-run phase: {out['seconds']:.1f} s")
+    print(f"dry-run phase: {out['seconds']:.1f} s (the table and the state "
+          f"bytes {out['table_seconds']:.1f} s)")
     return out
 
 
@@ -4187,6 +4427,8 @@ def run_training_phase(smi):
           f"{time.perf_counter() - t0:.1f} s")
     check_smoke_train_steps()
     out = run_training_path(ARCH, smi, check_donation=True)
+    out["checkpoint"] = run_checkpoint_phase()
+    out["moe"] = run_training_path(MOE_ARCH, smi)
     out["rwkv6"] = run_training_path(RWKV_ARCH, smi)
     out["recurrentgemma"] = run_training_path(GEMMA_ARCH, smi,
                                               layers=GEMMA_TRAIN_LAYERS)
@@ -4197,7 +4439,7 @@ def run_training_phase(smi):
     out["dryrun"] = run_dryrun_phase(
         dataclasses.replace(configs.get(VLM_ARCH).config(),
                             n_layers=VLM_TRAIN_LAYERS),
-        out["vlm"]["peak_bytes"])
+        out["vlm"]["peak_bytes"], smi)
     out["bwd_worst_rel_l2"] = worst_l2
     out["ft_demo"] = run_ft_demo(ARCH, FT_DEMO, n_layers=2, d_model=128,
                                  d_ff=256)
@@ -4242,9 +4484,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
+    smi = dryrun.nvidia_smi()
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")

@@ -9,13 +9,20 @@ the checkout are read.  A failed build raises; nothing falls back.
 
 Each wrapper calls :func:`count_launch` with its source's name where it
 launches the kernel, and nowhere else; :func:`launches` reads the counts
-and :func:`reset_launches` sets them to 0.  ``flash_attention``,
+and :func:`reset_launches` sets them to 0.  Beside it, each call reports
+its cost (:func:`report_cost`: the FLOPs and the bytes of its kernel's
+cost function) to the active counters (:func:`cost_sink`, which
+``launch/op_analysis.py`` opens): the kernels are called through
+:mod:`ctypes`, so no dispatch mode sees them.  On ``meta`` tensors a
+wrapper returns its outputs' shapes, launches nothing, counts no launch
+and reports the cost all the same.  ``flash_attention``,
 ``rwkv6_scan`` and ``rglru_scan`` have backward kernels
 (``csrc/<name>_bwd.cu``, counted as ``<name>_bwd``); ``flash_decode`` has
 none, so its wrapper calls :func:`refuse_grad` on its CUDA route.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,9 +30,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -36,6 +44,7 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()
 _launches: Dict[str, int] = {}
+_sinks: List[Callable[[str, float, float], None]] = []
 
 
 def count_launch(name: str) -> None:
@@ -54,6 +63,38 @@ def launches(name: str) -> int:
 def reset_launches() -> None:
     with _count_lock:
         _launches.clear()
+
+
+def report_cost(name: str, cost: Callable[..., Tuple[float, float]],
+                *args) -> None:
+    """One call of the kernel of ``csrc/<name>.cu``: every active counter
+    adds ``cost(*args)``, its (FLOPs, bytes).  With no counter active this
+    returns at once (no lock, ``cost`` not called); otherwise ``cost`` runs
+    outside the counter's dispatch mode, so what it computes (a length
+    tensor read on the host) is not counted as the step's work."""
+    if not _sinks:
+        return
+    with _count_lock:
+        sinks = list(_sinks)
+    if sinks:
+        with _disable_current_modes():
+            flops, nbytes = cost(*args)
+        for sink in sinks:
+            sink(name, flops, nbytes)
+
+
+@contextlib.contextmanager
+def cost_sink(sink: Callable[[str, float, float], None]):
+    """While active, ``sink(name, flops, bytes)`` receives each kernel
+    call's cost, from every thread (the autograd engine runs a CUDA
+    backward on its own thread)."""
+    with _count_lock:
+        _sinks.append(sink)
+    try:
+        yield
+    finally:
+        with _count_lock:
+            _sinks.remove(sink)
 
 
 def refuse_grad(name: str, *inputs: Optional[torch.Tensor]) -> None:

@@ -20,6 +20,12 @@ tensors the plain :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`.
 Otherwise (serving, ``torch.no_grad``) nothing is saved and no lse is
 written.
 
+``meta`` tensors take the kernels' route up to the launch: the outputs
+(and lse, and the backward's gradients) come back with the shapes,
+dtypes and layouts a launch gives, and nothing runs.  Every call on the
+card or on ``meta`` reports :func:`attention_cost` or
+:func:`attention_bwd_cost` to ``_build.report_cost``.
+
 The forward's route is chosen by dtype, one route each: bf16 runs on the
 tensor cores (``mma.sync``, its K/V tiles filled by 16-byte ``cp.async``),
 fp32 on CUDA cores (tensor cores would mean TF32, a different function).
@@ -55,6 +61,46 @@ _ALIGN = 16             # bytes of one cp.async
 # rows are launched in groups whose scratch stays within this many bytes
 # (one row at a time at the least)
 DS_SCRATCH_BYTES = 1 << 30
+
+
+def attention_pairs(s: int, t: int, causal: bool,
+                    window: Optional[int] = None) -> int:
+    """Unmasked (query, key) pairs of one (batch row, q head): all S x T
+    unless causal; causal, query i (right-aligned, at qpos = T - S + i)
+    sees the min(qpos + 1, window) keys up to qpos."""
+    if not causal:
+        return s * t
+    w = window or t
+    lo, hi = t - s + 1, t           # keys the first and last query see
+    if w >= hi:
+        return (lo + hi) * s // 2
+    if w <= lo:
+        return s * w
+    return (lo + w) * (w - lo + 1) // 2 + (hi - w) * w
+
+
+def attention_cost(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+                   window: Optional[int] = None, with_lse: bool = False):
+    """(FLOPs, bytes) of one forward call: 4*D flops per unmasked pair
+    (the 2*D of a QK^T dot and the 2*D of P V); q, k and v read and the
+    output written once, and with ``with_lse`` the fp32 (B, Hq, S)
+    lse."""
+    b, hq, s, d = q.shape
+    flops = 4 * d * attention_pairs(s, k.shape[2], causal, window) * b * hq
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return flops, nbytes + (4 * b * hq * s if with_lse else 0)
+
+
+def attention_bwd_cost(q: torch.Tensor, k: torch.Tensor,
+                       causal: bool = True, window: Optional[int] = None):
+    """(FLOPs, bytes) of one backward call: 5 products (QK^T recomputed,
+    dV, dP, dQ, dK), 10*D flops per unmasked pair, 2.5 times the
+    forward's; q, k, v, dO and lse read and dq, dk, dv written once."""
+    b, hq, s, d = q.shape
+    flops = 10 * d * attention_pairs(s, k.shape[2], causal, window) * b * hq
+    nbytes = ((3 * q.numel() + 4 * k.numel()) * q.element_size()
+              + 4 * b * hq * s)
+    return flops, nbytes
 
 
 def aligned(data_ptr: int, strides, sizes, itemsize: int) -> bool:
@@ -136,8 +182,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def _cuda_checks(name: str, *xs: torch.Tensor) -> None:
     q = xs[0]
-    if q.device.type != "cuda":
-        raise ValueError(f"{name} runs on CUDA or CPU tensors, not "
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name} runs on CUDA, CPU or meta tensors, not "
                          f"{q.device}")
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"{name} kernel takes head dims {HEAD_DIMS}, got "
@@ -172,6 +218,10 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if with_lse else None)
     if q.dtype == torch.bfloat16:
         _check_aligned("flash_attention", q, k, v)
+    _build.report_cost("flash_attention", attention_cost, q, k, causal,
+                       window, with_lse)
+    if q.device.type == "meta":
+        return out if lse is None else (out, lse)
     strides = (ctypes.c_longlong * 12)(
         *(st for x in (q, k, v, out) for st in x.stride()[:3]))
     fn = _kernel()
@@ -219,6 +269,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, t = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty_like(lse)
+    _build.report_cost("flash_attention_bwd", attention_bwd_cost, q, k,
+                       causal, window)
+    if q.device.type == "meta":
+        return dq, dk, dv
     xs = (q, k, v, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 21)(
         *(st for x in xs for st in x.stride()[:3]))

@@ -18,6 +18,11 @@ of one kv head; fp32 on CUDA cores, up to 8 (4 at head dim 96).  A ``(B,)`` leng
 read by the kernel from device memory, so nothing on the host waits for
 it.
 
+``meta`` tensors take the kernel's route up to the launch: the output
+comes back with its shape and dtype and nothing runs.  Every call on the
+card or on ``meta`` reports :func:`decode_cost` to
+``_build.report_cost``.
+
 The split plan is host arithmetic, pinned by the CPU tests:
 :func:`split_plan` picks the number of splits of every row from the card's
 SM count, and :func:`split_length` (computed again in the kernel) cuts a
@@ -57,6 +62,34 @@ def split_length(length: int, nsplit: int) -> int:
     about the same work.  The kernel computes the same per row."""
     per = -(-length // nsplit)
     return -(-per // KEY_TILE) * KEY_TILE
+
+
+def decode_cost(q: torch.Tensor, k: torch.Tensor, positions: int):
+    """(FLOPs, bytes) of one call over ``positions`` valid cache positions
+    summed over the batch rows: 4*D flops per (q head, position); q read,
+    the output written and each valid K and V row read once."""
+    b, hq, d = q.shape
+    hkv = k.shape[1]
+    flops = 4 * d * hq * positions
+    nbytes = (2 * q.numel() + 2 * hkv * positions * d) * q.element_size()
+    return flops, nbytes
+
+
+def valid_positions(cache_len, b: int, t: int) -> int:
+    """The valid cache positions of a call, summed over its ``b`` rows:
+    each row's length clamped to [0, T].  A length tensor is read on the
+    host; on ``meta`` it has no values, and every row counts T."""
+    if isinstance(cache_len, int):
+        return b * min(max(cache_len, 0), t)
+    if cache_len.device.type == "meta":
+        return b * t
+    lens = torch.as_tensor(cache_len).reshape(-1).expand(b)
+    return int(lens.clamp(0, t).sum())
+
+
+def _cost(q, k, cache_len):
+    return decode_cost(q, k, valid_positions(cache_len, q.shape[0],
+                                             k.shape[2]))
 
 
 @functools.cache
@@ -106,9 +139,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     _check(q, k_cache, v_cache)
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_cache, v_cache, cache_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode runs on CUDA or CPU tensors, not "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_decode runs on CUDA, CPU or meta tensors, "
+                         f"not {q.device}")
     _check_kernel_layout(q, k_cache, v_cache)
     _build.refuse_grad("flash_decode", q, k_cache, v_cache)
     b, hq, d = q.shape
@@ -118,6 +151,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     else:
         lens = decode_lengths(cache_len, b, q.device).contiguous()
         len_ptr, scalar = lens.data_ptr(), 0
+    _build.report_cost("flash_decode", _cost, q, k_cache, cache_len)
+    if q.device.type == "meta":
+        return torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     nsplit = split_plan(b, hkv, t, d, _sm_count(q.device.index))
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
     part_acc = part_ml = None

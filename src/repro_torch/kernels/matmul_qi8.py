@@ -14,6 +14,11 @@ Where the output tiles would not fill the card, :func:`split_k` cuts K
 into slices that add into a zeroed output with exact int32 atomics, still
 one launch.  The scaled int8 API (``quantize_int8``,
 ``matmul_qi8`` with scales, ``quantized_dense``) is :mod:`.quant`.
+
+``meta`` tensors take the kernel's route up to the launch (split as on an
+H100's :data:`SMS`): the output comes back with its shape and nothing
+runs.  Every call on the card or on ``meta`` reports :func:`qi8_cost` to
+``_build.report_cost``.
 """
 from __future__ import annotations
 
@@ -48,6 +53,12 @@ def split_k(m: int, k: int, n: int, sms: int = SMS) -> tuple:
     return -(-steps // chunk_steps), chunk_steps * K_STEP
 
 
+def qi8_cost(m: int, k: int, n: int):
+    """(operations, bytes) of an (M, K) x (K, N) product: 2*M*N*K int8
+    operations; x and w read and the int32 output written once."""
+    return 2 * m * n * k, m * k + k * n + 4 * m * n
+
+
 def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul_qi8 wants x (M,K) and w (K,N); got "
@@ -65,8 +76,8 @@ def matmul_qi8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w)
     if x.device.type == "cpu":
         return matmul_qi8_ref(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul_qi8 runs on CUDA or CPU tensors, not "
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"matmul_qi8 runs on CUDA, CPU or meta tensors, not "
                          f"{x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("matmul_qi8 kernel needs row-major contiguous x "
@@ -78,11 +89,14 @@ def matmul_qi8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=torch.int32, device=x.device)
     splits, k_chunk = split_k(
-        m, k, n, torch.cuda.get_device_properties(x.device)
-        .multi_processor_count)
+        m, k, n, SMS if x.device.type == "meta" else
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
     # the slices add into zeros (a memset); one slice stores its tiles
     alloc = torch.zeros if splits > 1 else torch.empty
     out = alloc((m, n), dtype=torch.int32, device=x.device)
+    _build.report_cost("matmul_qi8", qi8_cost, m, k, n)
+    if x.device.type == "meta":
+        return out
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -25,6 +25,11 @@ hand-written backward kernel ``csrc/rglru_scan_bwd.cu`` (counted as
 for bf16 inputs), or on CPU tensors the plain
 :func:`~repro_torch.kernels.ref.rglru_scan_bwd_ref`.  Otherwise (serving,
 ``torch.no_grad``) nothing is saved.
+
+``meta`` tensors take the kernels' route up to the launch: the outputs
+come back with their shapes and dtypes and nothing runs.  Every call on
+the card or on ``meta`` reports :func:`scan_cost` or
+:func:`scan_bwd_cost` to ``_build.report_cost``.
 """
 from __future__ import annotations
 
@@ -72,6 +77,26 @@ def scan_plan(s: int, r: int, itemsize: int = 4,
     return STEP
 
 
+def scan_cost(a: torch.Tensor):
+    """(FLOPs, bytes) of one forward call: 2 operations (a FMA) per
+    element; a and g read and y written once in a's dtype, h0 read and
+    h_last written in fp32."""
+    b, s, r = a.shape
+    return 2 * b * s * r, 3 * b * s * r * a.element_size() + 2 * b * r * 4
+
+
+def scan_bwd_cost(a: torch.Tensor, carry: bool = False):
+    """(FLOPs, bytes) of one backward call: 3 operations per element; a,
+    g and dy read and da, dg written once in a's dtype, h0 and dh_last
+    read and dh0 written in fp32: the function's floor, and the bound.
+    With ``carry``, also the read of y, where the fp32 kernel takes its
+    carry from it (a choice of that kernel: the bf16 one recomputes it),
+    as the wrapper reports its traffic."""
+    b, s, r = a.shape
+    rows = 5 + carry
+    return 3 * b * s * r, rows * b * s * r * a.element_size() + 3 * b * r * 4
+
+
 def _aligned(a: torch.Tensor, g: torch.Tensor) -> bool:
     return a.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
 
@@ -108,7 +133,9 @@ def _forward(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):
     _, s, r = a.shape
     out = launch(a, g, h0, scan_plan(s, r, a.element_size(),
                                      _aligned(a, g)))
-    _build.count_launch("rglru_scan")
+    if a.device.type != "meta":
+        _build.count_launch("rglru_scan")
+    _build.report_cost("rglru_scan", scan_cost, a)
     return out
 
 
@@ -131,8 +158,8 @@ class _RGLRUScan(torch.autograd.Function):
 
 
 def _cuda_check(a: torch.Tensor) -> None:
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan runs on CUDA or CPU tensors, not "
+    if a.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rglru_scan runs on CUDA, CPU or meta tensors, not "
                          f"{a.device}")
 
 
@@ -167,6 +194,10 @@ def rglru_scan_bwd(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
         dh_last = dh_last.float().contiguous()
     da, dg = torch.empty_like(a), torch.empty_like(a)
     dh0 = torch.empty((b, r), dtype=torch.float32, device=a.device)
+    _build.report_cost("rglru_scan_bwd", scan_bwd_cost, a,
+                       a.dtype == torch.float32)
+    if a.device.type == "meta":
+        return da, dg, dh0
     fn = _bwd_kernel()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -185,7 +216,8 @@ def rglru_scan_bwd(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
 def launch(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
            plan: ScanPlan):
     """One launch of the kernel on checked CUDA inputs along ``plan``
-    (uncounted: :func:`rglru_scan` counts its calls)."""
+    (uncounted: :func:`rglru_scan` counts its calls; ``meta`` inputs: the
+    outputs, no launch)."""
     if not (a.is_contiguous() and g.is_contiguous()):
         raise ValueError("rglru_scan kernel needs contiguous a and g")
     b, s, r = a.shape
@@ -196,6 +228,8 @@ def launch(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
     h0_32 = h0.float().contiguous()
     y = torch.empty_like(a)
     h_last = torch.empty((b, r), dtype=torch.float32, device=a.device)
+    if a.device.type == "meta":
+        return y, h_last
     fn = _kernel()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -36,12 +36,19 @@ Under :func:`no_saved_states` (a remat's first forward, whose saved
 tensors ``torch.utils.checkpoint`` drops) the Function writes no states
 either and saves a zero-stride stand-in of their shape; the recompute
 that the backward runs writes them.
+
+``meta`` tensors take the kernels' route up to the launch: y, s_last, the
+piece states and the gradients come back with the shapes, dtypes and
+layouts a launch gives, and nothing runs.  Every call on the card or on
+``meta`` reports :func:`scan_cost` or :func:`scan_bwd_cost` to
+``_build.report_cost``.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import functools
+import math
 import threading
 from typing import Optional
 
@@ -74,6 +81,35 @@ def no_saved_states():
 def _states_shape(r: torch.Tensor):
     b, h, s, d = r.shape
     return (b, h, -(-s // RWKV6_PIECE), d, d)
+
+
+def scan_cost(r: torch.Tensor, with_states: bool = False):
+    """(FLOPs, bytes) of one forward call: 4 operations per state element
+    per step; r, k, v and w read and y written once in r's dtype, the
+    fp32 u, s0 read and s_last written, and with ``with_states`` the fp32
+    piece states written."""
+    b, h, s, d = r.shape
+    nbytes = (5 * b * h * s * d * r.element_size() + 2 * b * h * d * d * 4
+              + h * d * 4)
+    if with_states:
+        nbytes += 4 * math.prod(_states_shape(r))
+    return 4 * b * h * s * d * d, nbytes
+
+
+def scan_bwd_cost(r: torch.Tensor, states: bool = False):
+    """(FLOPs, bytes) of one backward call: 8 operations per state element
+    per step; r, k, v, w and dy read and dr, dk, dv, dw written once in
+    r's dtype, the fp32 s0 and ds_last read, ds0 written, u read and du
+    written: the function's floor, and the bound.  With ``states``, also
+    the read of the fp32 piece states, the kernel's checkpoints (a choice
+    of this kernel, which a recompute could avoid), as the wrapper reports
+    its traffic."""
+    b, h, s, d = r.shape
+    nbytes = (9 * b * h * s * d * r.element_size() + 3 * b * h * d * d * 4
+              + 2 * h * d * 4)
+    if states:
+        nbytes += 4 * math.prod(_states_shape(r))
+    return 8 * b * h * s * d * d, nbytes
 
 
 def _check(r, k, v, w, u, s0, out) -> None:
@@ -150,8 +186,8 @@ class _RWKV6Scan(torch.autograd.Function):
 
 
 def _cuda_checks(r: torch.Tensor) -> None:
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan runs on CUDA or CPU tensors, not "
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rwkv6_scan runs on CUDA, CPU or meta tensors, not "
                          f"{r.device}")
     if r.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan kernel takes head dims {HEAD_DIMS}, "
@@ -185,6 +221,9 @@ def _forward(r, k, v, w, u, s0, out, with_states=False):
     s_last = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
     states = (torch.empty(_states_shape(r), dtype=torch.float32,
                           device=r.device) if with_states else None)
+    _build.report_cost("rwkv6_scan", scan_cost, r, with_states)
+    if r.device.type == "meta":
+        return out, s_last, states
     strides = (ctypes.c_longlong * 15)(
         *(st for x in (r, k, v, w, out) for st in x.stride()[:3]))
     fn = _kernel()
@@ -249,6 +288,9 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     du = torch.empty((h, d), dtype=torch.float32, device=dev)
     ds0 = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
     u32 = u.float().contiguous()
+    _build.report_cost("rwkv6_scan_bwd", scan_bwd_cost, r, True)
+    if dev.type == "meta":
+        return (*grads, du, ds0)
     strides = (ctypes.c_longlong * 27)(
         *(st for x in (r, k, v, w, dy, *grads) for st in x.stride()[:3]))
     fn = _bwd_kernel()

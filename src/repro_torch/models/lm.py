@@ -332,6 +332,15 @@ def mlp_block(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return h @ p["wd"]
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """fp32 one-hot of ``idx`` over ``n`` classes, by comparison with
+    ``arange(n)``: ``F.one_hot``'s values, in the same ops on every
+    device (on the CPU ``F.one_hot`` reads the indices' range on the host,
+    on the card it scatters, on ``meta`` it compares), so a step's counted
+    ops (``launch/op_analysis.py``) are the card's."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
 def moe_block(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """The reference's grouped GShard dense dispatch: tokens route within
     contiguous groups of ``moe_group`` tokens (S a multiple of the group),
@@ -353,13 +362,13 @@ def moe_block(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
     # one-hot dispatch with capacity: position of each token within its
     # expert, the top-k choices folded into one (B,S,E) weight
-    onehot = F.one_hot(gate_idx, e).float()                  # (B,S,k,E)
+    onehot = _one_hot(gate_idx, e)                           # (B,S,k,E)
     combine_w = torch.einsum("bske,bsk->bse", onehot, gate_vals)
     assign = onehot.amax(dim=2)                              # (B,S,E) 0/1
     pos_in_expert = torch.cumsum(assign, dim=1) * assign - 1
     keep = (pos_in_expert >= 0) & (pos_in_expert < cap)
     slot = pos_in_expert.clamp(0, cap - 1).long()
-    dispatch = F.one_hot(slot, cap).float() * keep[..., None]   # (B,S,E,C)
+    dispatch = _one_hot(slot, cap) * keep[..., None]         # (B,S,E,C)
     combine = dispatch * combine_w[..., None]
 
     xt = torch.einsum("bsec,bsd->ebcd", dispatch, x.float()).to(x.dtype)

@@ -151,8 +151,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fd.flash_decode(q.double(), k.double(), v.double(), 4)
     with pytest.raises(ValueError, match=r"\(2,\) tensor"):
         fd.flash_decode(q, k, v, torch.tensor([1, 2, 3]))
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        fd.flash_decode(q.to("meta"), k.to("meta"), v.to("meta"), 4)
+    # meta tensors take the kernel's route up to the launch; any other
+    # device raises
+    out = fd.flash_decode(q.to("meta"), k.to("meta"), v.to("meta"), 4)
+    assert (out.device.type, out.shape) == ("meta", q.shape)
+
+    class OffDevice:
+        def __init__(self, t):
+            self.shape, self.dtype = t.shape, t.dtype
+            self.device, self.dim = torch.device("xla"), t.dim
+
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
+        fd.flash_decode(*map(OffDevice, (q, k, v)), 4)
 
 
 def test_decode_attention_matches_reference_per_slot():

@@ -256,11 +256,24 @@ def test_staged_emulation_matches_oracle_and_pallas_interpret(s, r, kind):
         np.testing.assert_allclose(h, np.asarray(hr), rtol=1e-5, atol=1e-5)
 
 
+class _OffDevice:
+    """A stand-in for a tensor on a device the kernels do not run on."""
+
+    def __init__(self, t):
+        self.shape, self.dtype, self.requires_grad = t.shape, t.dtype, False
+        self.device = torch.device("xla")
+        self.dim = t.dim
+
+
 def test_scan_raises_off_cpu_and_cuda():
-    a, g, h0 = (torch.empty(x.shape, device="meta") for x in map(
-        _t, _scan_inputs(np.random.default_rng(7), 1, 4, 8)))
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        rglru_scan(a, g, h0)
+    """meta tensors take the kernel's route up to the launch (shapes, no
+    launch); any other device raises."""
+    a, g, h0 = map(_t, _scan_inputs(np.random.default_rng(7), 1, 4, 8))
+    y, h_last = rglru_scan(*(x.to("meta") for x in (a, g, h0)))
+    assert (y.device.type, y.shape, h_last.shape) == ("meta", a.shape,
+                                                      h0.shape)
+    with pytest.raises(ValueError, match="CUDA, CPU or meta"):
+        rglru_scan(*map(_OffDevice, (a, g, h0)))
 
 
 def test_gates_range_holds_the_pointwise_chain_and_its_kernels_sum():
