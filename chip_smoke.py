@@ -5,8 +5,8 @@
     python3 chip_smoke.py --kernel-times [--tree DIR]
 
 The second form only builds and times flash_decode, rwkv6_scan,
-rglru_scan and the backwards of flash_attention and rwkv6_scan at the
-points below (one JSON line), importing the port from DIR/src (another
+rglru_scan and the backwards of flash_attention, rwkv6_scan and rglru_scan
+at the points below (one JSON line), importing the port from DIR/src (another
 checkout, such as the parent commit's) when ``--tree`` is given, so two
 trees' kernels are timed by the same code on one card (a tree whose
 kernel modules have no cost functions cannot be timed so: the bounds
@@ -159,8 +159,11 @@ With no arguments:
    ``rwkv6_scan_states_ref`` and its output equal to the launch without
    it, at rwkv6-1.6b's training shape (8, 32, 1024, 64) in the model
    layout, ragged S, D 16 and 32, S = 1, decays of 1e-30 and 1, bf16;
-   ``rglru_scan_bwd_ref`` at (8, 1024, 4096), a short S, S = 1, ragged R
-   with decays of 1e-30 and 1, bf16), each gradient within its
+   ``rglru_scan_bwd_ref`` from the checkpoints of the forward kernel's
+   epilogue, those equal bit for bit to the fp32 forward's carries and its
+   output to the launch without it, at (8, 1024, 4096), a short S, S = 1,
+   ragged R with decays of 1e-30 and 1, bf16; its staged route equal bit
+   for bit to its step route), each gradient within its
    tolerances and equal bit for bit from call to call, the training
    shapes timed beside the plain versions and the bound; one train step
    of the smoke configs of qwen3-1.7b, granite-moe-1b-a400m, whisper-tiny,
@@ -340,9 +343,9 @@ KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode",
            "matmul_qi8")
 # the kernels --kernel-times builds and times (the latest redesigns)
 TIMED = ("flash_decode", "rwkv6_scan", "rglru_scan", "flash_attention_bwd",
-         "rwkv6_scan_bwd")
+         "rwkv6_scan_bwd", "rglru_scan_bwd")
 # kernels whose ptxas report must show no spill
-NO_SPILL = TIMED + ("rglru_scan_bwd",)
+NO_SPILL = TIMED
 # each kernel's design, as its source note sets it out
 DESIGNS = {
     "flash_attention": "bf16: mma.sync m16n8k16 (fp32 accumulate), "
@@ -386,7 +389,8 @@ DESIGNS = {
                   "one thread a channel scanning each piece in order out "
                   "of shared memory; S < 64 (the decode step) one thread "
                   "per channel; both routes the same FMAs in the same "
-                  "order",
+                  "order; under autograd an epilogue writes the fp32 "
+                  "carry every 64 steps",
     "rwkv6_scan_bwd": "CUDA cores: starts each 8-step piece from the "
                       "state the forward's checkpoint epilogue wrote; each "
                       "(head, row) split over D / 16 blocks of 16 state "
@@ -402,11 +406,17 @@ DESIGNS = {
                       "dy columns and checkpoint columns double-buffered "
                       "by cp.async; du summed over the batch by a second "
                       "launch; no atomics, no division by a decay",
-    "rglru_scan_bwd": "CUDA cores: one thread per (row, channel), 128 a "
-                      "block, walking S backwards with 16 steps' a, dy and "
-                      "h_{t-1} loaded ahead of their FMAs; fp32 reads the "
-                      "carry from y, bf16 first recomputes it into fp32 "
-                      "scratch",
+    "rglru_scan_bwd": "CUDA cores: starts each 64-step piece from the "
+                      "carry the forward's checkpoint epilogue wrote; one "
+                      "block of 256 threads per (128-byte tile row, batch "
+                      "row) walking the pieces from the last, a, g, dy and "
+                      "the checkpoint row staged by 16-byte cp.async, the "
+                      "next piece in flight; one thread a channel recomputes "
+                      "the piece's carries into registers with the "
+                      "forward's FMAs, walks it backwards writing da and "
+                      "dg over the staged tiles, stored by 16-byte "
+                      "stores; rows off 16 bytes one thread per channel; "
+                      "no y read, no scratch",
     "matmul_qi8": "mma.sync m16n8k32 s8 -> s32, cp.async 2-stage x ring, w "
                   "transposed by prmt on load, 64 x 64 or 16 x 64 tiles, "
                   "split-K with int32 atomics",
@@ -3621,38 +3631,149 @@ def check_rwkv6_scan_bwd():
     return record
 
 
+def rglru_bwd_case(b, s, r, dtype, extreme=False):
+    """rglru_scan_bwd's inputs on the card (even steps decay 1e-30 and odd
+    steps' even channels 1 with ``extreme``), dy and dh_last."""
+    a, gx, h0 = rglru_inputs(b, s, r, dtype, seed=4)
+    if extreme:
+        a[:, 0::2] = 1e-30
+        a[:, 1::2, 0::2] = 1.0
+    g = torch.Generator("cuda").manual_seed(5)
+    dy = torch.randn(b, s, r, generator=g, device="cuda").to(dtype)
+    dh_last = torch.randn(b, r, generator=g, device="cuda")
+    return (a, gx, h0), dy, dh_last
+
+
+def rglru_bwd_stream_ms(x, dy):
+    """One torch.add(a, g) and one torch.neg(dy) into two outputs: the
+    backward's bytes (a, g and dy read, two rows written) through two
+    plain elementwise passes, the reach of streaming them on this card
+    (not a library call of the backward, which has none)."""
+    u, v = torch.empty_like(dy), torch.empty_like(dy)
+    return cuda_ms([lambda: (torch.add(x[0], x[1], out=u),
+                             torch.neg(dy, out=v))], reps=10)
+
+
+def time_rglru_bwd_points():
+    """rglru_scan_bwd at recurrentgemma-9b's training shape (8, 1024, 4096),
+    fp32 and bf16, beside the bound: ``ms`` the backward as a train step
+    calls it (given the checkpoints that the forward's epilogue saved,
+    where the tree's backward takes them; a tree whose backward takes y:
+    given the forward's y), ``ms_from_inputs`` the call without them (a
+    forward launch with the epilogue first), and the forward at that
+    shape without and with the epilogue (``fwd_ms``, ``fwd_ckpt_ms``),
+    beside :func:`rglru_bwd_stream_ms` (``stream_ms``)."""
+    out = {}
+    takes_ckpt = "checkpoints" in inspect.signature(
+        rg.rglru_scan_bwd).parameters
+    b, s, r = RGLRU_BWD_CASES[0][1:4]
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy, dh_last = rglru_bwd_case(b, s, r, dtype)
+        rec = {}
+        if takes_ckpt:
+            ckpt = rg._forward(*x, with_checkpoints=True)[2]
+            rec["ms"] = cuda_ms([lambda: rg.rglru_scan_bwd(
+                *x, dy, dh_last, ckpt)], reps=10)
+            rec["ms_from_inputs"] = cuda_ms([lambda: rg.rglru_scan_bwd(
+                *x, dy, dh_last)], reps=10)
+            rec["fwd_ms"] = cuda_ms([lambda: rg._forward(*x)], reps=10)
+            rec["fwd_ckpt_ms"] = cuda_ms([lambda: rg._forward(
+                *x, with_checkpoints=True)], reps=10)
+            del ckpt
+        else:
+            with torch.no_grad():
+                y, _ = rg.rglru_scan(*x)
+            rec["ms"] = cuda_ms([lambda: rg.rglru_scan_bwd(
+                *x, y, dy, dh_last)], reps=10)
+            rec["fwd_ms"] = cuda_ms([lambda: rg.rglru_scan(*x)], reps=10)
+            del y
+        rec["bound_ms"], rec["bound_by"] = scan_bound(rg.scan_bwd_cost(x[0]))
+        rec["stream_ms"] = rglru_bwd_stream_ms(x, dy)
+        out[str(dtype)] = rec
+        extra = (f", from the inputs {rec['ms_from_inputs']:.4f} ms; the "
+                 f"forward {rec['fwd_ms']:.4f} ms, with the epilogue "
+                 f"{rec['fwd_ckpt_ms']:.4f} ms" if takes_ckpt else
+                 f" (given y); the forward {rec['fwd_ms']:.4f} ms")
+        print(f"rglru_scan_bwd timing {dtype} ({b}, {s}, {r}): kernel "
+              f"{rec['ms']:.4f} ms{extra}, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), torch.add + torch.neg over the same "
+              f"bytes {rec['stream_ms']:.4f} ms")
+        del x, dy, dh_last
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_rglru_checkpoints(label, x, y, ckpt):
+    """The forward's checkpoint epilogue on one case: checkpoint 0 is h0,
+    checkpoint p the fp32 forward kernel's y[:, 64p - 1] on the widened
+    inputs, bit for bit, and y equal to the launch's without the
+    epilogue."""
+    a, gx, h0 = x
+    y_serve = rg._forward(*x)[0]
+    y32 = rg._forward(a.float(), gx.float(), h0)[0]
+    torch.cuda.synchronize()
+    piece = kernel_ref.RGLRU_PIECE
+    same = bool(torch.equal(ckpt[:, 0], h0)) and all(
+        torch.equal(ckpt[:, p], y32[:, piece * p - 1])
+        for p in range(1, ckpt.shape[1]))
+    y_same = bool(torch.equal(y, y_serve))
+    print(f"rglru_scan checkpoint epilogue {label}: {ckpt.shape[1]} "
+          f"checkpoints equal to the fp32 forward's carries {same}, y equal "
+          f"to the launch without it {y_same}")
+    if not (same and y_same):
+        raise SystemExit(f"rglru_scan's checkpoint epilogue disagrees on "
+                         f"{label}")
+
+
 def check_rglru_scan_bwd():
     """The rglru_scan backward kernel against ``rglru_scan_bwd_ref`` at
-    RGLRU_BWD_CASES (y from the forward kernel, cotangents on y and
-    h_last), the training shape timed in fp32 and bf16.  Returns its
-    record."""
+    RGLRU_BWD_CASES (cotangents on y and h_last), from the checkpoints of
+    the forward's epilogue (:func:`check_rglru_checkpoints`; the call
+    without them equal bit for bit; the staged route equal bit for bit to
+    the step route), the training shape timed in fp32 and bf16.  Returns
+    its record."""
     record, worst = None, {}
     names = ("da", "dg", "dh0")
     for label, b, s, r, dtype, extreme in RGLRU_BWD_CASES:
-        a, gx, h0 = rglru_inputs(b, s, r, dtype, seed=4)
-        if extreme:
-            a[:, 0::2] = 1e-30
-            a[:, 1::2, 0::2] = 1.0
-        with torch.no_grad():
-            y, _ = rg.rglru_scan(a, gx, h0)
-        g = torch.Generator("cuda").manual_seed(5)
-        dy = torch.randn(b, s, r, generator=g, device="cuda").to(dtype)
-        dh_last = torch.randn(b, r, generator=g, device="cuda")
-        got = rg.rglru_scan_bwd(a, gx, h0, y, dy, dh_last)
-        again = rg.rglru_scan_bwd(a, gx, h0, y, dy, dh_last)
-        expect = rglru_scan_bwd_ref(a, gx, h0, y, dy, dh_last)
+        x, dy, dh_last = rglru_bwd_case(b, s, r, dtype, extreme)
+        y, _, ckpt = rg._forward(*x, with_checkpoints=True)
+        check_rglru_checkpoints(label, x, y, ckpt)
+        del y
+        got = rg.rglru_scan_bwd(*x, dy, dh_last, ckpt)
+        again = rg.rglru_scan_bwd(*x, dy, dh_last, ckpt)
+        alone = rg.rglru_scan_bwd(*x, dy, dh_last)
+        plan = rg.bwd_plan(r, x[0].element_size())
+        step = (rg.bwd_launch(x[0], x[1], ckpt, dy, dh_last, rg.STEP)
+                if plan.route == "staged" else got)
+        expect = rglru_scan_bwd_ref(*x, dy, dh_last)
         torch.cuda.synchronize()
+        alone_same = all(torch.equal(u, v) for u, v in zip(got, alone))
+        step_same = all(torch.equal(u, v) for u, v in zip(got, step))
+        print(f"rglru_scan_bwd {label} ({plan.route} route): the call "
+              f"without the checkpoints equal {alone_same}, equal to the "
+              f"step route {step_same}")
+        if not (alone_same and step_same):
+            raise SystemExit(f"rglru_scan_bwd's calls or routes disagree on "
+                             f"{label}")
         err, l2 = check_scan_grads("rglru_scan_bwd", label, names, got,
                                    again, expect, dtype)
         worst[str(dtype)] = max(worst.get(str(dtype), 0.0), l2)
-        del got, again, expect
+        del got, again, alone, step, expect
         if s == 1024:
             times = time_scan_bwd(
                 "rglru_scan_bwd", label,
-                lambda: rg.rglru_scan_bwd(a, gx, h0, y, dy, dh_last),
-                lambda: rglru_scan_bwd_ref(a, gx, h0, y, dy, dh_last),
-                *scan_bound(rg.scan_bwd_cost(a)),
+                lambda: rg.rglru_scan_bwd(*x, dy, dh_last, ckpt),
+                lambda: rglru_scan_bwd_ref(*x, dy, dh_last),
+                *scan_bound(rg.scan_bwd_cost(x[0])),
                 {"b": b, "s": s, "r": r, "dtype": str(dtype)})
+            times["ms_from_inputs"] = cuda_ms(
+                [lambda: rg.rglru_scan_bwd(*x, dy, dh_last)], reps=10)
+            times["stream_ms"] = rglru_bwd_stream_ms(x, dy)
+            print(f"rglru_scan_bwd timing {label}: the call without the "
+                  f"forward's checkpoints (a forward launch with the "
+                  f"epilogue first) {times['ms_from_inputs']:.4f} ms; "
+                  f"torch.add + torch.neg over the same bytes "
+                  f"{times['stream_ms']:.4f} ms")
             if record is None:
                 record = {"name": "rglru_scan_bwd", "route": "cuda",
                           "source": "src/repro_torch/kernels/csrc/"
@@ -3661,7 +3782,7 @@ def check_rglru_scan_bwd():
                           **times, "max_abs_err": err}
             else:
                 record["bf16"] = times
-        del a, gx, h0, y, dy
+        del x, dy, dh_last, ckpt
         torch.cuda.empty_cache()
     record["worst_rel_l2"] = worst
     return record
@@ -4474,7 +4595,8 @@ def kernel_times() -> int:
              "rwkv6_scan": time_rwkv6_points(),
              "rglru_scan": time_rglru_points(),
              "flash_attention_bwd": time_flash_attention_bwd_points(),
-             "rwkv6_scan_bwd": time_rwkv6_bwd_points()}
+             "rwkv6_scan_bwd": time_rwkv6_bwd_points(),
+             "rglru_scan_bwd": time_rglru_bwd_points()}
     print(json.dumps({"kernel_times": times, "tree": str(TREE)}))
     print(device_line())
     return 0

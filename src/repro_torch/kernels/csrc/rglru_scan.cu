@@ -51,6 +51,17 @@
 // of their FMAs; at S = 1 it is one load of a and g and one store a
 // channel.  fp32 arithmetic throughout, bf16 widened on load and rounded
 // on store.
+//
+// Checkpoint epilogue (the training forward only: ckpt non-null): the
+// kernel also writes the fp32 carry at the start of every piece of
+// kCkptPiece (64) steps to ckpt (B, ceil(S / 64), R), piece p the carry
+// after 64p steps (h0 for p = 0), for csrc/rglru_scan_bwd.cu to start each
+// piece from.  The staged route holds that carry in the scanning thread's
+// register at each piece boundary (its pieces are the checkpoints'); the
+// step route writes it at each multiple of 64 as it walks.  2.1 MB at
+// recurrentgemma-9b's training shape (8, 1024, 4096), beside 403 MB of a, g
+// and y.  A serving launch passes null and runs the instantiation without
+// the epilogue (kCkpt false), the same code as before it existed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -62,18 +73,24 @@ namespace {
 constexpr int kStepThreads = 128;
 constexpr int kUnroll = 16;           // steps loaded ahead of their FMAs
 constexpr int kAhead = 8;             // the staged scan's steps read ahead
+constexpr int kCkptPiece = 64;        // steps between checkpoints (ref.py)
+static_assert(kCkptPiece % kUnroll == 0, "a checkpoint starts a batch");
 
-template <typename T>
+template <typename T, bool kCkpt>
 __global__ void __launch_bounds__(kStepThreads)
     rglru_step_kernel(const T* __restrict__ a, const T* __restrict__ g,
                       const float* __restrict__ h0, T* __restrict__ y,
-                      float* __restrict__ h_last, int s, int r) {
+                      float* __restrict__ h_last, float* __restrict__ ckpt,
+                      int s, int r) {
   const int c = blockIdx.x * kStepThreads + threadIdx.x;
   const int b = blockIdx.y;
   if (c >= r) return;
   const long long base = static_cast<long long>(b) * s * r + c;
+  const int n_ckpt = (s + kCkptPiece - 1) / kCkptPiece;
   float h = h0[static_cast<long long>(b) * r + c];
   for (int t0 = 0; t0 < s; t0 += kUnroll) {
+    if (kCkpt && t0 % kCkptPiece == 0)
+      ckpt[(static_cast<long long>(b) * n_ckpt + t0 / kCkptPiece) * r + c] = h;
     float av[kUnroll], gv[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -93,12 +110,15 @@ __global__ void __launch_bounds__(kStepThreads)
   h_last[static_cast<long long>(b) * r + c] = h;
 }
 
-template <typename T, int kRowBytes, int kPiece, int kStages, int kThreads>
+template <typename T, int kRowBytes, int kPiece, int kStages, int kThreads,
+          bool kCkpt>
 __global__ void __launch_bounds__(kThreads)
     rglru_staged_kernel(const T* __restrict__ a, const T* __restrict__ g,
                         const float* __restrict__ h0, T* __restrict__ y,
-                        float* __restrict__ h_last, int s, int r) {
+                        float* __restrict__ h_last, float* __restrict__ ckpt,
+                        int s, int r) {
   constexpr int kTile = kRowBytes / sizeof(T);       // channels a block
+  static_assert(kPiece == kCkptPiece, "a piece is a checkpoint's");
   constexpr int kRowT = 16 / sizeof(T);              // elements a copy
   constexpr int kCopies = kPiece * kRowBytes / 16;   // 16-byte copies a piece
   static_assert(kTile <= kThreads, "one scanning thread a channel");
@@ -148,6 +168,8 @@ __global__ void __launch_bounds__(kThreads)
     const int slot = p % kStages;
     const int t0 = p * kPiece;
     const int steps = min(kPiece, s - t0);
+    if (kCkpt && scans)                              // the carry after t0
+      ckpt[(static_cast<long long>(b) * n_pieces + p) * r + c0 + c] = h;
     if (scans) {
       // the step recurrence in order, the step route's FMAs: kAhead steps'
       // a and g read from shared memory before their FMAs
@@ -189,23 +211,26 @@ struct Io {
   const float* h0;
   void* y;
   float* h_last;
+  float* ckpt;                        // null: no checkpoint epilogue
   int b, s, r;
 };
 
-template <typename T>
+template <typename T, bool kCkpt>
 cudaError_t launch_step(const Io& io, cudaStream_t stream) {
   const dim3 grid((io.r + kStepThreads - 1) / kStepThreads, io.b);
-  rglru_step_kernel<T><<<grid, kStepThreads, 0, stream>>>(
+  rglru_step_kernel<T, kCkpt><<<grid, kStepThreads, 0, stream>>>(
       static_cast<const T*>(io.a), static_cast<const T*>(io.g), io.h0,
-      static_cast<T*>(io.y), io.h_last, io.s, io.r);
+      static_cast<T*>(io.y), io.h_last, io.ckpt, io.s, io.r);
   return cudaGetLastError();
 }
 
-template <typename T, int kRowBytes, int kPiece, int kStages, int kThreads>
+template <typename T, int kRowBytes, int kPiece, int kStages, int kThreads,
+          bool kCkpt>
 cudaError_t launch_staged(const Io& io, cudaStream_t stream) {
   constexpr int smem = 2 * kStages * kPiece * kRowBytes;
   constexpr int tile = kRowBytes / sizeof(T);
-  auto kernel = rglru_staged_kernel<T, kRowBytes, kPiece, kStages, kThreads>;
+  auto kernel =
+      rglru_staged_kernel<T, kRowBytes, kPiece, kStages, kThreads, kCkpt>;
   static bool configured = false;     // set once; a repeat is harmless
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -215,27 +240,38 @@ cudaError_t launch_staged(const Io& io, cudaStream_t stream) {
   }
   kernel<<<dim3((io.r + tile - 1) / tile, io.b), kThreads, smem, stream>>>(
       static_cast<const T*>(io.a), static_cast<const T*>(io.g), io.h0,
-      static_cast<T*>(io.y), io.h_last, io.s, io.r);
+      static_cast<T*>(io.y), io.h_last, io.ckpt, io.s, io.r);
   return cudaGetLastError();
 }
 
 // the staged instantiation the wrapper's plan names: (bytes of a row of the
 // tile, steps a piece, stages, threads)
-template <typename T>
-cudaError_t launch(const Io& io, int row_bytes, int piece, int stages,
-                   int threads, cudaStream_t stream) {
-  if (piece == 0) return launch_step<T>(io, stream);
+template <typename T, bool kCkpt>
+cudaError_t launch_plan(const Io& io, int row_bytes, int piece, int stages,
+                        int threads, cudaStream_t stream) {
+  if (piece == 0) return launch_step<T, kCkpt>(io, stream);
 #define RGLRU_PLAN(RB, PC, ST, TH)                                       \
   if (row_bytes == RB && piece == PC && stages == ST && threads == TH)   \
-    return launch_staged<T, RB, PC, ST, TH>(io, stream);
+    return launch_staged<T, RB, PC, ST, TH, kCkpt>(io, stream);
   RGLRU_PLAN(128, 64, 4, 256)
 #undef RGLRU_PLAN
   return cudaErrorInvalidValue;
 }
 
+// the instantiation with the checkpoint epilogue where io.ckpt is given
+template <typename T>
+cudaError_t launch(const Io& io, int row_bytes, int piece, int stages,
+                   int threads, cudaStream_t stream) {
+  return io.ckpt ? launch_plan<T, true>(io, row_bytes, piece, stages,
+                                        threads, stream)
+                 : launch_plan<T, false>(io, row_bytes, piece, stages,
+                                         threads, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (a, g and y; h0 and h_last are fp32).
+// dtype: 0 = float32, 1 = bfloat16 (a, g and y; h0, h_last and ckpt are
+// fp32).  ckpt: null, or (B, ceil(S / 64), R) for the checkpoint epilogue.
 // piece 0: the step route; else the staged route of (row_bytes, piece,
 // stages, threads), the instantiation above, which needs a, g and
 // y 16-byte aligned and R * sizeof(T) a multiple of 16 (the caller checks).
@@ -243,14 +279,14 @@ cudaError_t launch(const Io& io, int row_bytes, int piece, int stages,
 // success, cudaErrorInvalidValue for a plan not instantiated); the caller
 // raises on anything else.
 extern "C" int rglru_scan_fwd(const void* a, const void* g, const float* h0,
-                              void* y, float* h_last, int dtype, int b, int s,
-                              int r, int row_bytes, int piece, int stages,
-                              int threads, void* stream) {
+                              void* y, float* h_last, float* ckpt,
+                              int dtype, int b, int s, int r, int row_bytes,
+                              int piece, int stages, int threads,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Io io{a, g, h0, y, h_last, b, s, r};
+  const Io io{a, g, h0, y, h_last, ckpt, b, s, r};
   cudaError_t err =
-      dtype == 0
-          ? launch<float>(io, row_bytes, piece, stages, threads, st)
+      dtype == 0 ? launch<float>(io, row_bytes, piece, stages, threads, st)
       : dtype == 1
           ? launch<__nv_bfloat16>(io, row_bytes, piece, stages, threads, st)
           : cudaErrorInvalidValue;

@@ -141,23 +141,51 @@ def rglru_scan_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):
     return torch.stack(ys, 1).to(a.dtype), h
 
 
+RGLRU_PIECE = 64    # steps between the checkpoints of the backward
+
+
+def rglru_scan_checkpoints_ref(a: torch.Tensor, g: torch.Tensor,
+                               h0: torch.Tensor) -> torch.Tensor:
+    """The carry at the start of every piece of RGLRU_PIECE steps of
+    :func:`rglru_scan_ref`'s recurrence: (B, ceil(S / 64), R) fp32, piece
+    p the carry after 64p steps (h0 for p = 0).  The forward kernel's
+    checkpoint epilogue writes the same, and the backward starts each
+    piece from them."""
+    h = h0.float()
+    out = []
+    for t in range(a.shape[1]):
+        if t % RGLRU_PIECE == 0:
+            out.append(h)
+        h = a[:, t].float() * h + g[:, t].float()
+    return torch.stack(out, 1)
+
+
 def rglru_scan_bwd_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
-                       y: torch.Tensor, dy: Optional[torch.Tensor],
-                       dh_last: Optional[torch.Tensor]):
+                       dy: Optional[torch.Tensor],
+                       dh_last: Optional[torch.Tensor],
+                       checkpoints: Optional[torch.Tensor] = None):
     """The gradient of :func:`rglru_scan_ref` with respect to a, g and h0,
-    given its output ``y`` and the gradients ``dy`` of y and ``dh_last``
-    of h_last (None: zero), as the reverse recurrence per channel:
+    given the gradients ``dy`` of y and ``dh_last`` of h_last (None:
+    zero), as the reverse recurrence per channel:
 
         G_t  = dy_t + a_{t+1} G_{t+1},   G_{S-1} = dy_{S-1} + dh_last
         dg_t = G_t,   da_t = G_t h_{t-1} (h_{-1} = h0),   dh0 = a_0 G_0
 
-    h_{t-1} is read from ``y`` when it is fp32 (then it is the carry);
-    otherwise the fp32 carry is recomputed from a, g and h0, not read from
-    the rounded y.  Returns (da, dg) in a's and g's dtype and dh0 fp32."""
-    af = a.float()
-    hs = (y if y.dtype == torch.float32
-          else rglru_scan_ref(af, g.float(), h0)[0])
-    prev = torch.cat([h0.float()[:, None], hs[:, :-1].float()], dim=1)
+    The fp32 carry h_{t-1} is recomputed from a, g and h0, whatever the
+    inputs' dtype, never read from the (rounded) output.  With
+    ``checkpoints`` (:func:`rglru_scan_checkpoints_ref`'s, or the forward
+    kernel's) each piece of 64 steps recomputes it from its own start, as
+    the backward kernel does, not from the previous piece's end; the same
+    values, since both take the same steps.  Returns (da, dg) in a's and
+    g's dtype and dh0 fp32."""
+    af, gf = a.float(), g.float()
+    h = h0.float()
+    prev = []                                       # h_{t-1}
+    for t in range(a.shape[1]):
+        if checkpoints is not None and t % RGLRU_PIECE == 0:
+            h = checkpoints[:, t // RGLRU_PIECE].float()
+        prev.append(h)
+        h = af[:, t] * h + gf[:, t]
     grad = (torch.zeros_like(h0, dtype=torch.float32) if dh_last is None
             else dh_last.float())
     da, dg = torch.empty_like(af), torch.empty_like(af)
@@ -165,7 +193,7 @@ def rglru_scan_bwd_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
         if dy is not None:
             grad = grad + dy[:, t].float()
         dg[:, t] = grad
-        da[:, t] = grad * prev[:, t]
+        da[:, t] = grad * prev[t]
         grad = af[:, t] * grad
     return da.to(a.dtype), dg.to(g.dtype), grad
 

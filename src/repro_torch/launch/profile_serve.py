@@ -272,12 +272,17 @@ def profile_train(args: argparse.Namespace, steps: int,
             run["params"], run["state"], _ = step(run["params"],
                                                   run["state"], b)
 
+    torch.cuda.reset_peak_memory_stats(dev)
     train(0, 1)                                 # warms the step
     torch.cuda.synchronize()
     prof, wall = profiled(lambda: train(1, steps))
-    summarize(prof, wall, f"{cfg.name} ({cfg.n_layers} layers) train "
-                          f"({args.requests}, {args.seq}) x{steps}, "
-                          f"{'donated' if donate else 'functional'} update")
+    label = (f"{cfg.name} ({cfg.n_layers} layers) train ({args.requests}, "
+             f"{args.seq}) x{steps}, "
+             f"{'donated' if donate else 'functional'} update")
+    summarize(prof, wall, label)
+    print(f"[{label}] allocator peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB over the "
+          f"warm-up and the window")
 
 
 def cnn_model(ref: str):

@@ -1011,18 +1011,71 @@ def test_rwkv6_scan_bwd_takes_absent_cotangents(sm90):
     (2, 77, 1001, "bfloat16", True),
 ])
 def test_rglru_scan_bwd_matches_plain(sm90, b, s, r, dtype, extreme):
+    """Given the forward epilogue's checkpoints, one rglru_scan_bwd launch
+    and no forward; without them a forward launch with the epilogue
+    first: the same bits, and the plain version's gradients."""
     a, x, h0 = (t.to(sm90) for t in _rglru_bwd_inputs(b, s, r, dtype,
                                                       extreme))
     g = torch.Generator(sm90).manual_seed(9)
-    y, _ = rg.rglru_scan(a, x, h0)
+    _, _, ckpt = rg._forward(a, x, h0, with_checkpoints=True)
     dy = torch.randn(b, s, r, generator=g, device=sm90).to(DTYPES[dtype])
     dh_last = torch.randn(b, r, generator=g, device=sm90)
     _build.reset_launches()
-    got = rg.rglru_scan_bwd(a, x, h0, y, dy, dh_last)
+    got = rg.rglru_scan_bwd(a, x, h0, dy, dh_last, ckpt)
     torch.cuda.synchronize()
-    assert _build.launches("rglru_scan_bwd") == 1
-    _assert_scan_grads(got, rglru_scan_bwd_ref(a, x, h0, y, dy, dh_last),
+    assert (_build.launches("rglru_scan"),
+            _build.launches("rglru_scan_bwd")) == (0, 1)
+    alone = rg.rglru_scan_bwd(a, x, h0, dy, dh_last)
+    torch.cuda.synchronize()
+    assert (_build.launches("rglru_scan"),
+            _build.launches("rglru_scan_bwd")) == (1, 2)
+    assert all(torch.equal(u, v) for u, v in zip(got, alone))
+    _assert_scan_grads(got, rglru_scan_bwd_ref(a, x, h0, dy, dh_last),
                        dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,r", [(2, 1, 4096), (2, 40, 4096),
+                                   (2, 300, 4096), (3, 300, 1000),
+                                   (2, 77, 1001)])
+def test_rglru_scan_checkpoints_equal_the_fp32_forward_carries(sm90, b, s,
+                                                               r, dtype):
+    """The forward's checkpoint epilogue (staged and step routes):
+    checkpoint 0 is h0 and checkpoint p the fp32 forward kernel's
+    y[:, 64p - 1] on the widened inputs, bit for bit, and y equal to the
+    launch's without the epilogue."""
+    a, x, h0 = (t.to(sm90) for t in _rglru_bwd_inputs(b, s, r, dtype,
+                                                      True))
+    y, h_last, ckpt = rg._forward(a, x, h0, with_checkpoints=True)
+    y_serve, h_serve, none = rg._forward(a, x, h0)
+    y32, _ = rg.rglru_scan(a.float(), x.float(), h0)
+    torch.cuda.synchronize()
+    assert none is None
+    assert torch.equal(y, y_serve) and torch.equal(h_last, h_serve)
+    assert ckpt.shape == (b, -(-s // 64), r) and ckpt.dtype == torch.float32
+    assert torch.equal(ckpt[:, 0], h0)
+    for p in range(1, ckpt.shape[1]):
+        assert torch.equal(ckpt[:, p], y32[:, 64 * p - 1]), p
+
+
+@pytest.mark.parametrize("b,s,r,dtype", [(8, 1024, 4096, "float32"),
+                                         (2, 77, 4096, "bfloat16"),
+                                         (3, 300, 1000, "bfloat16")])
+def test_rglru_scan_bwd_staged_route_equals_step_route(sm90, b, s, r, dtype):
+    """The backward's two routes run the same FMAs, adds and multiplies in
+    the same order: equal bits."""
+    plan = rg.bwd_plan(r, DTYPES[dtype].itemsize)
+    assert plan == rg.BWD_STAGED
+    a, x, h0 = (t.to(sm90) for t in _rglru_bwd_inputs(b, s, r, dtype,
+                                                      True))
+    g = torch.Generator(sm90).manual_seed(10)
+    ckpt = rg._forward(a, x, h0, with_checkpoints=True)[2]
+    dy = torch.randn(b, s, r, generator=g, device=sm90).to(DTYPES[dtype])
+    dh_last = torch.randn(b, r, generator=g, device=sm90)
+    staged = rg.bwd_launch(a, x, ckpt, dy, dh_last, plan)
+    step = rg.bwd_launch(a, x, ckpt, dy, dh_last, rg.STEP)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(staged, step))
 
 
 def _rglru_bwd_inputs(b, s, r, dtype, extreme):

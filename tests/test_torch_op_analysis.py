@@ -282,21 +282,26 @@ def test_rglru_scan_meta_route_and_cost(case):
     fwd = {"launches": 1, "flops": 2 * b * s * r,
            "bytes": 3 * b * s * r * size + 2 * b * r * 4}
     assert cnt.kernels == {"rglru_scan": fwd}
-    rows = 6 if dtype == torch.float32 else 5   # fp32 reads y for the carry
+    ckpt = 4 * b * -(-s // 64) * r      # the (B, ceil(S/64), R) checkpoints
     bwd = {"launches": 1, "flops": 3 * b * s * r,
-           "bytes": rows * b * s * r * size + 3 * b * r * 4}
+           "bytes": 5 * b * s * r * size + 3 * b * r * 4 + ckpt}
 
     def grads(*xs):
         xs = [t.requires_grad_() for t in xs]
         y, h_last = rg.rglru_scan(*xs)
+        if y.device.type == "meta":     # the checkpoints saved, not y
+            saved = y.grad_fn.saved_tensors[-1]
+            assert (saved.shape, saved.dtype) == (
+                (b, -(-s // 64), r), torch.float32)
         return torch.autograd.grad(y.float().sum() + h_last.sum(), xs)
 
     cpu, meta, cnt = _both(grads, a, x, h0)
     _same_meta(cpu, meta)
-    assert cnt.kernels == {"rglru_scan": fwd, "rglru_scan_bwd": bwd}
-    # the bound is the function's floor: without the fp32 kernel's y read
-    assert rg.scan_bwd_cost(a) == (bwd["flops"],
-                                   5 * b * s * r * size + 3 * b * r * 4)
+    assert cnt.kernels == {
+        "rglru_scan": {**fwd, "bytes": fwd["bytes"] + ckpt},
+        "rglru_scan_bwd": bwd}
+    # the bound is the function's floor: without the kernel's checkpoints
+    assert rg.scan_bwd_cost(a) == (bwd["flops"], bwd["bytes"] - ckpt)
 
 
 @pytest.mark.parametrize("mkn", [(8, 2048, 1000), (300, 30, 70)])

@@ -11,6 +11,9 @@ Same numpy inputs and the reference's weights (its init, converted with
 * the kernel's staged route emulated in numpy on the plan's pieces and
   tiles against the oracle and the Pallas kernel in interpret mode: 1e-5
   (the same tolerance; the emulation runs the recurrence in its order);
+  its checkpoint epilogue and the backward kernel's staged route, from
+  those checkpoints, against ``jax.vjp`` of the oracle: 1e-5 relative L2
+  (fp32 sums in another order, as ``tests/test_torch_scan_bwd.py``);
 * model pieces and plain windowed attention: 1e-5 (fp32 arithmetic in
   another order);
 * the smoke forward (S up to and above the smoke window of 16) and the
@@ -40,6 +43,7 @@ from repro.models import rglru as jrglru
 from repro_torch import api as tfront
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels.ref import RGLRU_PIECE
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.launch import serve as tserve
 from repro_torch.models import api as tapi
@@ -121,11 +125,11 @@ def test_scan_keeps_dtype_and_rejects_bad_inputs():
 # ---------------------------------------------------------------------------
 # the kernel's launch plan and its staged route, emulated
 # ---------------------------------------------------------------------------
+_CSRC = pathlib.Path(rg.__file__).parent / "csrc"
 _INSTANTIATED = {
     rg.ScanPlan("staged", *map(int, m)) for m in re.findall(
         r"RGLRU_PLAN\((\d+), (\d+), (\d+), (\d+)\)",
-        (pathlib.Path(rg.__file__).parent / "csrc" / "rglru_scan.cu")
-        .read_text())}
+        (_CSRC / "rglru_scan.cu").read_text())}
 
 
 @pytest.mark.parametrize("s,r,itemsize,want", [
@@ -155,6 +159,45 @@ def test_staged_plan_is_the_instantiated_one_and_fits_a_block():
     assert plan.row_bytes // 2 <= plan.threads      # a thread a channel
     assert plan.stages >= 3
     assert 2 * plan.stages * plan.piece * plan.row_bytes <= 227 * 1024
+
+
+@pytest.mark.parametrize("r,itemsize,want", [
+    (4096, 4, rg.BWD_STAGED),                 # recurrentgemma's training
+    (4096, 2, rg.BWD_STAGED),
+    (1000, 4, rg.BWD_STAGED),                 # a partial last tile
+    (1000, 2, rg.BWD_STAGED),
+    (1001, 4, rg.STEP),                       # rows off 16 bytes
+    (1004, 2, rg.STEP),
+    (7, 4, rg.STEP),
+])
+def test_bwd_plan_routes_by_row_alignment(r, itemsize, want):
+    """The backward takes its staged route on rows of whole 16-byte copies
+    at any S, the step route on other rows and base pointers off 16
+    bytes."""
+    assert rg.bwd_plan(r, itemsize) == want
+    assert rg.bwd_plan(r, itemsize, aligned=False) == rg.STEP
+
+
+def test_bwd_plan_is_the_instantiated_one_and_its_pieces_are_the_checkpoints():
+    """The backward's staged plan is the one instantiated in
+    rglru_scan_bwd.cu, its pieces and the forward epilogue's checkpoint
+    spacing are RGLRU_PIECE, a thread scans each channel of a tile, and
+    two blocks' stages (a, g, dy and the checkpoint row) fit an SM."""
+    src = (_CSRC / "rglru_scan_bwd.cu").read_text()
+    piece = int(re.search(r"constexpr int kPiece = (\d+);", src).group(1))
+    fwd = int(re.search(r"constexpr int kCkptPiece = (\d+);",
+                        (_CSRC / "rglru_scan.cu").read_text()).group(1))
+    assert piece == fwd == RGLRU_PIECE == rg.STAGED.piece
+    plan = rg.BWD_STAGED
+    assert {rg.ScanPlan("staged", int(rb), piece, int(st), int(th))
+            for rb, st, th in re.findall(
+                r"RGLRU_BWD_PLAN\((\d+), (\d+), (\d+)\)", src)} == {plan}
+    assert plan.piece == RGLRU_PIECE
+    assert plan.row_bytes // 2 <= plan.threads
+    assert plan.stages >= 2           # a piece in flight while one scans
+    smem = plan.stages * (3 * plan.piece * plan.row_bytes
+                          + plan.row_bytes // 2 * 4)
+    assert 2 * smem <= 227 * 1024
 
 
 def _pieces(s, plan):
@@ -193,13 +236,15 @@ def test_tile_copies_cover_every_channel_once(r, itemsize):
 def _staged_scan(a, g, h0, plan):
     """The staged route in numpy fp32, with the kernel's index math: for
     every (tile, batch row) block, each piece copied by whole 16-byte
-    copies into a zero-filled stage, the tile's channels scanned in order
-    over the piece's steps (y written over g's tile), then y's copies
-    stored.  numpy multiplies and adds where the kernel fuses the two."""
+    copies into a zero-filled stage, the carry written to its checkpoint,
+    the tile's channels scanned in order over the piece's steps (y written
+    over g's tile), then y's copies stored.  numpy multiplies and adds
+    where the kernel fuses the two.  Returns (y, h_last, checkpoints)."""
     b, s, r = a.shape
     tile, per = plan.row_bytes // a.itemsize, 16 // a.itemsize
     y = np.full((b, s, r), np.nan, np.float32)
     h_last = np.full((b, r), np.nan, np.float32)
+    ckpt = np.full((b, -(-s // plan.piece), r), np.nan, np.float32)
     for bi in range(b):
         for c0 in range(0, r, tile):
             cols = [e for e in range(0, tile, per) if c0 + e < r]
@@ -211,13 +256,63 @@ def _staged_scan(a, g, h0, plan):
                 for e in cols:
                     sa[:t1 - t0, e:e + per] = a[bi, t0:t1, c0 + e:c0 + e + per]
                     sg[:t1 - t0, e:e + per] = g[bi, t0:t1, c0 + e:c0 + e + per]
+                ckpt[bi, t0 // plan.piece, [c0 + c for c in scan]] = h
                 for t in range(t1 - t0):
                     h = sa[t, scan] * h + sg[t, scan]
                     sg[t, scan] = h
                 for e in cols:
                     y[bi, t0:t1, c0 + e:c0 + e + per] = sg[:t1 - t0, e:e + per]
             h_last[bi, [c0 + c for c in scan]] = h
-    return y, h_last
+    return y, h_last, ckpt
+
+
+def _staged_bwd(a, g, ckpt, dy, dh_last, plan):
+    """The backward kernel's staged route in numpy fp32, with its index
+    math: for every (tile, batch row) block, the pieces from the last,
+    each one's a, g and dy copied by whole 16-byte copies into zero-filled
+    stages and its checkpoint row by 16-byte copies, the tile's channels'
+    carries recomputed from the checkpoint in order, then walked backwards
+    (da written over a's tile, dg over dy's), then da's and dg's copies
+    stored.  Returns (da, dg, dh0)."""
+    b, s, r = a.shape
+    tile, per = plan.row_bytes // a.itemsize, 16 // a.itemsize
+    da, dg = (np.full((b, s, r), np.nan, np.float32) for _ in range(2))
+    dh0 = np.full((b, r), np.nan, np.float32)
+    for bi in range(b):
+        for c0 in range(0, r, tile):
+            cols = [e for e in range(0, tile, per) if c0 + e < r]
+            scan = [c for c in range(tile) if c0 + c < r]
+            ch = [c0 + c for c in scan]
+            grad = dh_last[bi, ch].astype(np.float32)
+            for t0, t1 in reversed(_pieces(s, plan)):
+                sa, sg, sd = (np.zeros((plan.piece, tile), np.float32)
+                              for _ in range(3))
+                sh = np.zeros(tile, np.float32)
+                for e in cols:
+                    for st, x in ((sa, a), (sg, g), (sd, dy)):
+                        st[:t1 - t0, e:e + per] = x[bi, t0:t1,
+                                                    c0 + e:c0 + e + per]
+                for e in range(0, tile, 4):
+                    if c0 + e < r:
+                        sh[e:e + 4] = ckpt[bi, t0 // plan.piece,
+                                           c0 + e:c0 + e + 4]
+                h, prev = sh[scan], []
+                for t in range(t1 - t0):
+                    prev.append(h)
+                    h = sa[t, scan] * h + sg[t, scan]
+                for t in reversed(range(t1 - t0)):
+                    at = sa[t, scan].copy()
+                    grad = grad + sd[t, scan]
+                    sd[t, scan] = grad
+                    sa[t, scan] = grad * prev[t]
+                    grad = at * grad
+                for e in cols:
+                    da[bi, t0:t1, c0 + e:c0 + e + per] = sa[:t1 - t0,
+                                                            e:e + per]
+                    dg[bi, t0:t1, c0 + e:c0 + e + per] = sd[:t1 - t0,
+                                                            e:e + per]
+            dh0[bi, ch] = grad
+    return da, dg, dh0
 
 
 def _decays(rng, b, s, r, kind):
@@ -247,13 +342,49 @@ def test_staged_emulation_matches_oracle_and_pallas_interpret(s, r, kind):
     a = _decays(rng, b, s, r, kind)
     g = (rng.normal(size=(b, s, r)) * 0.2).astype(np.float32)
     h0 = rng.normal(size=(b, r)).astype(np.float32)
-    y, h = _staged_scan(a, g, h0, rg.STAGED)
+    y, h, _ = _staged_scan(a, g, h0, rg.STAGED)
     assert np.isfinite(y).all() and np.isfinite(h).all()
     jx = tuple(map(jnp.asarray, (a, g, h0)))
     for yr, hr in (jref.rglru_scan_ref(*jx),
                    jrglru_pallas(*jx, chunk=s, interpret=True)):
         np.testing.assert_allclose(y, np.asarray(yr), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(h, np.asarray(hr), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,r", [(1, 40), (63, 40), (65, 36), (129, 12),
+                                 (300, 8)])
+@pytest.mark.parametrize("kind", ["mixed", "one", "tiny", "alternating"])
+def test_staged_bwd_emulation_from_checkpoints_matches_jax_vjp(s, r, kind):
+    """The forward's checkpoint epilogue and the backward's staged route,
+    emulated with the kernels' index math, S across piece edges, R over a
+    partial last tile, the decays of the forward's emulation: every
+    checkpoint, da, dg and dh0 written once, the checkpoints the
+    reference's h_last over each 64p-step prefix, and the gradients
+    ``jax.vjp``'s of the oracle within 1e-5 relative L2."""
+    rng = np.random.default_rng(s * r)
+    b = 2
+    a = _decays(rng, b, s, r, kind)
+    g = (rng.normal(size=(b, s, r)) * 0.2).astype(np.float32)
+    h0 = rng.normal(size=(b, r)).astype(np.float32)
+    dy = rng.normal(size=(b, s, r)).astype(np.float32)
+    dh_last = rng.normal(size=(b, r)).astype(np.float32)
+    _, _, ckpt = _staged_scan(a, g, h0, rg.STAGED)
+    assert np.isfinite(ckpt).all()
+    np.testing.assert_array_equal(ckpt[:, 0], h0)
+    for p in range(1, ckpt.shape[1]):
+        n = RGLRU_PIECE * p
+        _, h_last = jref.rglru_scan_ref(*map(jnp.asarray,
+                                             (a[:, :n], g[:, :n], h0)))
+        np.testing.assert_allclose(ckpt[:, p], np.asarray(h_last),
+                                   rtol=1e-5, atol=1e-5)
+    got = _staged_bwd(a, g, ckpt, dy, dh_last, rg.BWD_STAGED)
+    _, vjp = jax.vjp(jref.rglru_scan_ref, *map(jnp.asarray, (a, g, h0)))
+    expect = vjp((jnp.asarray(dy), jnp.asarray(dh_last)))
+    for name, x, e in zip(("da", "dg", "dh0"), got, expect):
+        assert np.isfinite(x).all(), name
+        e = np.asarray(e)
+        norm = max(float(np.linalg.norm(e)), 1.0)
+        assert float(np.linalg.norm(x - e)) / norm <= 1e-5, name
 
 
 class _OffDevice:

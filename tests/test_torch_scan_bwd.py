@@ -10,7 +10,9 @@ through the wrappers' CPU routes (their autograd Functions).  The piece
 states that rwkv6's backward starts from (``rwkv6_scan_states_ref``, the
 plain version of the forward kernel's checkpoint epilogue) must equal the
 reference's final state over each prefix of 8p steps, and the Function
-saves them only while autograd records.  Inputs are
+saves them only while autograd records; so must rglru's checkpoints
+(``rglru_scan_checkpoints_ref``) the reference's h_last over each prefix of
+64p steps, and its Function saves them in place of y.  Inputs are
 drawn with numpy and handed to both packages; decays are drawn near 1 and
 set to exactly 0 and 1 on some steps and channels (no route divides by a
 decay).  Tolerances, the relative L2 error of each gradient: fp32 1e-5
@@ -26,9 +28,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jref
-from repro_torch.kernels.ref import (rglru_scan_bwd_ref, rglru_scan_ref,
-                                     rwkv6_scan_bwd_ref, rwkv6_scan_ref,
-                                     rwkv6_scan_states_ref)
+from repro_torch.kernels.ref import (RGLRU_PIECE, rglru_scan_bwd_ref,
+                                     rglru_scan_checkpoints_ref,
+                                     rglru_scan_ref, rwkv6_scan_bwd_ref,
+                                     rwkv6_scan_ref, rwkv6_scan_states_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.rwkv6_scan import no_saved_states, rwkv6_scan
 
@@ -242,31 +245,90 @@ def _rglru_vjp(xs, dy, dh_last):
 RGLRU_NAMES = ("da", "dg", "dh0")
 
 
+@pytest.mark.parametrize("checkpoints", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s", [1, 7, 64, 130])
-def test_rglru_scan_bwd_ref_matches_jax_vjp(s, dtype):
+@pytest.mark.parametrize("s", [1, 7, 40, 64, 65, 130, 300])
+def test_rglru_scan_bwd_ref_matches_jax_vjp(s, dtype, checkpoints):
+    """From h0 and from the checkpoints, S across the 64-step pieces."""
     xs, dy, dh_last = _rglru_inputs(s, 2, s, 12, dtype)
     expect = _rglru_vjp(xs, dy, dh_last)
     a, g, h0 = map(_torch, xs)
-    y, _ = rglru_scan_ref(a, g, h0)
-    got = rglru_scan_bwd_ref(a, g, h0, y, _torch(dy), _torch(dh_last))
+    ckpt = rglru_scan_checkpoints_ref(a, g, h0) if checkpoints else None
+    got = rglru_scan_bwd_ref(a, g, h0, _torch(dy), _torch(dh_last), ckpt)
     assert got[0].dtype == got[1].dtype == a.dtype
     assert got[2].dtype == torch.float32
     _assert_grads(got, expect, dtype, RGLRU_NAMES)
 
 
 def test_rglru_scan_bwd_ref_recomputes_the_carry_of_bf16_inputs():
-    """For bf16 inputs h_{t-1} is the fp32 carry, not the rounded y: the
-    same gradients whether the bf16 y or the fp32 carry is passed."""
-    xs, dy, dh_last = _rglru_inputs(3, 2, 40, 12, "bfloat16")
+    """For bf16 inputs h_{t-1} is the fp32 carry recomputed from the
+    widened inputs, not a rounded y: the bf16 gradients are the fp32
+    plain version's on the widened inputs, rounded once."""
+    xs, dy, dh_last = _rglru_inputs(3, 2, 140, 12, "bfloat16")
     a, g, h0 = map(_torch, xs)
-    y16, _ = rglru_scan_ref(a, g, h0)
-    y32, _ = rglru_scan_ref(a.float(), g.float(), h0)
-    for x, z in zip(rglru_scan_bwd_ref(a, g, h0, y16, _torch(dy),
-                                       _torch(dh_last)),
-                    rglru_scan_bwd_ref(a, g, h0, y32, _torch(dy),
-                                       _torch(dh_last))):
-        torch.testing.assert_close(x, z, rtol=0, atol=0)
+    dy, dh_last = _torch(dy), _torch(dh_last)
+    ckpt = rglru_scan_checkpoints_ref(a, g, h0)
+    for got in (rglru_scan_bwd_ref(a, g, h0, dy, dh_last),
+                rglru_scan_bwd_ref(a, g, h0, dy, dh_last, ckpt)):
+        wide = rglru_scan_bwd_ref(a.float(), g.float(), h0, dy.float(),
+                                  dh_last)
+        for x, z in zip(got, wide):
+            torch.testing.assert_close(x, z.to(x.dtype), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 40, 64, 65, 300])
+def test_rglru_scan_checkpoints_ref_matches_jax_prefix_h_last(s, dtype):
+    """Checkpoint p is the reference's h_last over the first 64p steps
+    (fp32 whatever the inputs, 1e-5 relative L2), checkpoint 0 exactly
+    h0."""
+    xs, _, _ = _rglru_inputs(s + 5, 2, s, 12, dtype)
+    a, g, h0 = xs
+    ckpt = rglru_scan_checkpoints_ref(*map(_torch, xs))
+    assert ckpt.shape == (2, -(-s // RGLRU_PIECE), 12)
+    assert ckpt.dtype == torch.float32
+    torch.testing.assert_close(ckpt[:, 0], _torch(h0), rtol=0, atol=0)
+    for p in range(1, ckpt.shape[1]):
+        n = RGLRU_PIECE * p
+        _, h_last = jref.rglru_scan_ref(jnp.asarray(a[:, :n]),
+                                        jnp.asarray(g[:, :n]),
+                                        jnp.asarray(h0))
+        assert _rel_l2(ckpt[:, p], h_last) <= L2_TOL["float32"], p
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_scan_bwd_ref_from_checkpoints_equals_from_h0(dtype):
+    """Starting each piece from its checkpoint gives the bits of walking
+    from h0: both take the same steps."""
+    xs, dy, dh_last = _rglru_inputs(4, 3, 200, 12, dtype)
+    args = [*map(_torch, xs), _torch(dy), _torch(dh_last)]
+    ckpt = rglru_scan_checkpoints_ref(*args[:3])
+    for a, c in zip(rglru_scan_bwd_ref(*args),
+                    rglru_scan_bwd_ref(*args, ckpt)):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+def test_rglru_scan_saves_checkpoints_only_while_recording():
+    """No Function (so nothing saved) under ``torch.no_grad`` or when no
+    input requires grad; while recording, a, g, h0 and the checkpoints
+    are saved and y is not."""
+    xs, dy, dh_last = _rglru_inputs(5, 2, 130, 12, "float32")
+    with torch.no_grad():
+        y, h_last = rglru_scan(*(_torch(x).requires_grad_() for x in xs))
+    assert y.grad_fn is None and h_last.grad_fn is None
+    y, _ = rglru_scan(*map(_torch, xs))
+    assert y.grad_fn is None
+    leaves = [_torch(x).requires_grad_() for x in xs]
+    y, h_last = rglru_scan(*leaves)
+    saved = y.grad_fn.saved_tensors
+    assert len(saved) == 4
+    assert all(torch.equal(x, z) for x, z in zip(saved[:3], leaves))
+    torch.testing.assert_close(saved[3],
+                               rglru_scan_checkpoints_ref(*leaves),
+                               rtol=0, atol=0)
+    torch.autograd.backward((y, h_last), (_torch(dy), _torch(dh_last)))
+    _assert_grads([x.grad for x in leaves], _rglru_vjp(xs, dy, dh_last),
+                  "float32", RGLRU_NAMES)
 
 
 @pytest.mark.parametrize("dtype,s", [("float32", 9), ("bfloat16", 70)])
