@@ -319,7 +319,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     rwkv6_scan_ref)
 from repro_torch.core.segmentation import segment_ranges  # noqa: E402
 from repro_torch.checkpoint.store import (tree_flatten,  # noqa: E402
-                                         tree_unflatten)
+                                         tree_map, tree_unflatten)
 from repro_torch.data import DataConfig, SyntheticLMDataset  # noqa: E402
 from repro_torch.launch import (pipeline_spmd, profile_serve,  # noqa: E402
                                 serve)
@@ -537,6 +537,24 @@ SPMD_M = 4
 SPMD_FILL_REPS = 5
 SPMD_CALLS = 3
 SPMD_TOL = 1e-4         # relative to max |logit| or max |y| (fp32)
+# the SPMD tier over four cards, one stage a card (the reference's mesh):
+# phi3.5-moe-42b-a6.6b at full depth, which no card holds (83.7 GB of bf16
+# weights, 167.5 GB in the executor's fp32; about 42 GB a card), made on
+# card 0 a block at a time and kept on the host; its first CARDS_CHECK
+# layers (fp32 42 GB, which card 0 holds alone) against lm.forward there;
+# ResNet50 over the same cards.  Runs where CARDS cards are visible
+# (``--spmd-cards`` runs it alone)
+CARDS = 4
+CARDS_ARCH = "phi3.5-moe-42b-a6.6b"
+CARDS_CHECK = 8
+# the launchers' per-device shared-memory setup, each kernel on every card
+# at a shape above 48 KB of dynamic shared memory (flash_decode bf16 D 128
+# 108 KB; the scans' staged routes), against its plain version there: the
+# forwards within tol (1 + |plain|), the backwards within tol of each
+# gradient's scale and BWD_L2_TOL
+CARD_KERNEL_TOL = {"flash_attention": 1e-4, "flash_decode": 2e-2,
+                   "rwkv6_scan": 2e-4, "rwkv6_scan_bwd": 2e-4,
+                   "rglru_scan": 1e-5, "rglru_scan_bwd": 1e-4}
 # the training path: the backward kernel's shapes (name, B, Hq, Hkv, S, T,
 # D, causal, window), in bf16 and fp32, the first four also timed (and by
 # --kernel-times);
@@ -3017,6 +3035,8 @@ def run_spmd_lm(record, smi):
             raise SystemExit(f"spmd {ARCH}: {dep.plan.cuts} != "
                              f"{plans[strategy].cuts}")
         return dep.executor(model=cfg, params=params,
+                            mesh=pipeline_spmd.default_stage_mesh(
+                                STAGES, CARD, cards=1),
                             n_microbatches=SPMD_M, batch_size=SPMD_BATCH,
                             seq_len=SEQ)
 
@@ -3119,7 +3139,7 @@ def run_spmd_lm(record, smi):
     ex.close()
     del ex, got, expect
     torch.cuda.empty_cache()
-    mesh = pipeline_spmd.default_stage_mesh(STAGES)
+    mesh = pipeline_spmd.default_stage_mesh(STAGES, CARD, cards=1)
     got = counted("pipeline_logits (bf16)",
                   lambda: pipeline_spmd.pipeline_logits(
                       cfg, mesh, plans["balanced"], params,
@@ -3181,6 +3201,8 @@ def run_spmd_cnn(name, smi, expect_cuts=None):
         if dep.plan.cuts != pl.cuts:
             raise SystemExit(f"spmd {name}: {dep.plan.cuts} != {pl.cuts}")
         ex = dep.executor(model=m, params=params, n_microbatches=SPMD_M,
+                          mesh=pipeline_spmd.default_stage_mesh(
+                              STAGES, CARD, cards=1),
                           batch_size=SPMD_BATCH)
         batches = (SPMD_BATCH, 7) if strategy == "balanced" else (
             SPMD_BATCH,)
@@ -3231,6 +3253,345 @@ def run_spmd_phase(record, smi):
     torch.cuda.empty_cache()
     print(f"SPMD phase: {out['seconds']:.1f} s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the SPMD tier over several cards
+# ---------------------------------------------------------------------------
+def sync_cards(n):
+    for c in range(n):
+        torch.cuda.synchronize(c)
+
+
+def card_kernel_cases(dev):
+    """(name, run, plain) of every launcher with a shared-memory setup, at
+    a shape above 48 KB of dynamic shared memory, and flash_attention's
+    fp32 route, each on ``dev``: ``run`` and ``plain`` return the outputs
+    to compare."""
+    def on(*xs):
+        return [x.to(dev) for x in xs]
+
+    q, k, v = on(*decode_inputs(8, 16, 8, 2048, 128, torch.bfloat16))
+    fq, fk, fv = on(*attention_inputs(2, 32, 8, 256, 256, 128,
+                                      torch.float32))
+    rx = on(*rwkv6_inputs(2, 4, 256, 64, torch.float32, False))
+    gx = on(*rglru_inputs(2, 256, 1024, torch.float32))
+    rb, rdy, rds = rwkv6_bwd_case(2, 4, 128, 64, torch.float32, False)
+    rb, (rdy, rds) = on(*rb), on(rdy, rds)
+    gb, gdy, gdh = rglru_bwd_case(2, 256, 1024, torch.float32)
+    gb, (gdy, gdh) = on(*gb), on(gdy, gdh)
+
+    def rwkv6_bwd():
+        states = rw._forward(*rb, None, with_states=True)[2]
+        return rw.rwkv6_scan_bwd(*rb, rdy, rds, states)
+
+    def rglru_bwd():
+        ckpt = rg._forward(*gb, with_checkpoints=True)[2]
+        return rg.rglru_scan_bwd(*gb, gdy, gdh, ckpt)
+
+    return (
+        ("flash_attention", lambda: fa.flash_attention(fq, fk, fv),
+         lambda: flash_attention_ref(fq, fk, fv)),
+        ("flash_decode", lambda: fd.flash_decode(q, k, v, 2048),
+         lambda: flash_decode_ref(q, k, v, 2048)),
+        ("rwkv6_scan", lambda: rw.rwkv6_scan(*rx),
+         lambda: rwkv6_scan_ref(*rx)),
+        ("rwkv6_scan_bwd", rwkv6_bwd,
+         lambda: rwkv6_scan_bwd_ref(*rb, rdy, rds)),
+        ("rglru_scan", lambda: rg.rglru_scan(*gx),
+         lambda: rglru_scan_ref(*gx)),
+        ("rglru_scan_bwd", rglru_bwd,
+         lambda: rglru_scan_bwd_ref(*gb, gdy, gdh)))
+
+
+def check_kernels_on_cards(n):
+    """Every launcher with a shared-memory setup launched on each of the
+    first ``n`` cards in turn (:func:`card_kernel_cases`) against its plain
+    version there; a failure exits.  A launcher that configured its kernel
+    once per process fails its first launch on the second card.  Returns
+    {card: {kernel: max_abs_err}} and the launches by card."""
+    _build.reset_launches()
+    out = {}
+    for c in range(n):
+        dev = torch.device("cuda", c)
+        res = {}
+        for name, run, plain in card_kernel_cases(dev):
+            try:
+                got = run()
+                torch.cuda.synchronize(dev)
+            except RuntimeError as exc:
+                raise SystemExit(f"{name} on {dev} failed to launch: {exc}")
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain()
+            want = want if isinstance(want, tuple) else (want,)
+            tol = CARD_KERNEL_TOL[name]
+            if name.endswith("_bwd"):   # the backward checks' two bounds
+                errs, l2, ok = scan_grad_errs(got, want)
+                err = max(errs)
+                ok = ok and err <= tol and max(l2) <= BWD_L2_TOL[
+                    torch.float32]
+            else:
+                errs = [allclose_err(a, b, tol) for a, b in zip(got, want)]
+                err = max(e for e, _ in errs)
+                ok = all(o for _, o in errs)
+            ok = ok and all(a.device == dev for a in got)
+            res[name] = err
+            scale = ("of each gradient's scale" if name.endswith("_bwd")
+                     else "(1 + |plain|)")
+            print(f"spmd cards: {name} on {dev}: max err {err:.3e} (tol "
+                  f"{tol:g} {scale}): {ok}")
+            if not ok:
+                raise SystemExit(f"{name} on {dev}: {err:.3e}")
+        out[c] = res
+    launches = {name: _build.launches_by_card(name)
+                for name in CARD_KERNEL_TOL}
+    print(f"spmd cards: launches by card {launches}")
+    # the scans' backwards each also ran their forward with the epilogue
+    want = {name: {c: 2 if name in ("rwkv6_scan", "rglru_scan") else 1
+                   for c in range(n)} for name in CARD_KERNEL_TOL}
+    if launches != want:
+        raise SystemExit(f"launches by card {launches} != {want}")
+    return {"errs": out, "launches_by_card": launches}
+
+
+def run_cards_cnn(mesh, smi):
+    """ResNet50 (fp32, TF32 off) over the mesh's cards through
+    ``Deployment.executor(backend="spmd", mesh=)``: 8 images over 4
+    microbatches and 7 (padded) against the direct forward on card 0, and
+    the executor's own stages composed without the schedule, each within
+    SPMD_TOL of max |y|; the fill and items/s."""
+    dev = torch.device(CARD, 0)
+    m = cnn.REAL_CNNS[CNN]()
+    params = m.init(dev, torch.Generator(dev).manual_seed(0))
+    x = torch.randn((SPMD_BATCH,) + m.input_shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(4))
+    direct = m.apply(params, x)
+    dep = serve.deploy_cnn(m, params, DeploymentSpec(
+        model=f"cnn:{CNN}", stages=STAGES, strategy="balanced",
+        backend="spmd"), dev)
+    out = {"cuts": list(dep.plan.cuts)}
+    with dep.executor(model=m, params=params, mesh=mesh,
+                      n_microbatches=SPMD_M, batch_size=SPMD_BATCH) as ex:
+        for b in (SPMD_BATCH, 7):
+            _build.reset_launches()
+            y = ex(x[:b])
+            sync_cards(CARDS)
+            check_counts(f"spmd cards {CNN} batch {b}", read_counts(), {})
+            err = rel_err(y.to(dev), direct[:b])
+            print(f"spmd cards {CNN} balanced plan (cuts {dep.plan.cuts}) "
+                  f"over {[str(d) for d in mesh.devices]}, batch {b}: "
+                  f"output on {y.device}, "
+                  f"max_abs_err / max|y| vs the direct forward on {dev} "
+                  f"{err:.3e} (tol {SPMD_TOL:g})")
+            if not (y.shape == direct[:b].shape and err <= SPMD_TOL
+                    and y.device == mesh.devices[-1]):
+                raise SystemExit(f"spmd cards {CNN} batch {b}: {err:.3e}")
+            out[f"batch{b}_rel_err"] = err
+        errc = rel_err(ex.compose(x).to(dev), direct)
+        if errc > SPMD_TOL:
+            raise SystemExit(f"spmd cards {CNN} composed: {errc:.3e}")
+        out["composed_rel_err"] = errc
+        out["fill_s"], out["blocked_s"] = ex.fill_s, ex.fill_blocked_s
+        out["items_per_s"] = served_rates(ex.run_batch, list(x))
+        out["predicted_s"] = ex.predicted_stage_times()
+        out["achieved_s"] = ex.achieved_stage_times(reps=5, warmup=1)
+    print(f"spmd cards {CNN}: composed without the schedule {errc:.3e}; "
+          f"fill {out['fill_s']:.4f} s (blocked {out['blocked_s']:.4f} s); "
+          f"{[round(r, 2) for r in out['items_per_s']]} items/s; stage "
+          f"times modeled {[round(t, 6) for t in out['predicted_s']]}, "
+          f"achieved {[round(t, 6) for t in out['achieved_s']]}; {smi}")
+    return out
+
+
+def cards_executor(cfg, params, mesh):
+    """The balanced 4-stage plan of ``cfg`` through the front door, priced
+    for one card's memory, lowered onto ``mesh``; returns the executor,
+    its plan and the seconds it took to build."""
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    dep = deploy(DeploymentSpec(stages=STAGES, strategy="balanced",
+                                backend="spmd"),
+                 graph=lm_graph.lm_layer_graph(cfg, seq_len=SEQ),
+                 base_spec=EdgeTPUSpec(onchip_bytes=card_bytes))
+    t0 = time.perf_counter()
+    ex = dep.executor(model=cfg, params=params, mesh=mesh,
+                      n_microbatches=SPMD_M, batch_size=SPMD_BATCH,
+                      seq_len=SEQ)
+    return ex, dep.plan, time.perf_counter() - t0
+
+
+def launches_per_card(mesh, counts):
+    """flash_attention's launches on each card of ``mesh`` in one call of
+    SPMD_M microbatches over stages of ``counts`` blocks."""
+    want = {}
+    for dev, n in zip(mesh.devices, counts):
+        want[dev.index] = want.get(dev.index, 0) + n * SPMD_M
+    return want
+
+
+def cards_launches(label, fn, want_per_card):
+    """``fn()`` with every count set to 0 just before and read just after:
+    flash_attention ``want_per_card[c]`` times on card c, no other
+    kernel."""
+    _build.reset_launches()
+    out = fn()
+    sync_cards(CARDS)
+    total = sum(want_per_card.values())
+    check_counts(label, read_counts(), {"flash_attention": total})
+    by_card = _build.launches_by_card("flash_attention")
+    print(f"{label}: flash_attention launches by card {by_card} (expected "
+          f"{want_per_card})")
+    if by_card != want_per_card:
+        raise SystemExit(f"{label}: launches by card {by_card} != "
+                         f"{want_per_card}")
+    return out, by_card
+
+
+def run_cards_lm(full, params, tokens, mesh, smi):
+    """phi3.5-moe over the mesh's cards, batch 8 x SEQ over 4 microbatches
+    (fp32 activations on the weights made fp32, the reference's numerics).
+    (b) its first CARDS_CHECK layers against ``lm.forward`` of the same
+    weights made fp32 on card 0, microbatch by microbatch; (c) all its
+    layers against the executor's own stage functions composed without the
+    schedule, with items/s and tokens/s, fill, modeled and achieved stage
+    times, each card's allocator peak and flash_attention's launches by
+    card.  Each within SPMD_TOL of max |logit|."""
+    dev0 = torch.device(CARD, 0)
+    mb = SPMD_BATCH // SPMD_M
+    out = {}
+    # (b): the cut model, which card 0 holds alone in fp32
+    cfg = dataclasses.replace(full, n_layers=CARDS_CHECK)
+    cut = {**params, "blocks": params["blocks"][:CARDS_CHECK]}
+    with torch.no_grad():
+        # copied in bf16, made fp32 on the card
+        p32 = tree_map(lambda t: t.to(dev0).float(), cut)
+        expect = torch.cat([lm.forward(cfg, p32, {"tokens": tokens[i:i + mb]
+                                                  .to(dev0)})
+                            for i in range(0, SPMD_BATCH, mb)])
+        del p32
+    torch.cuda.empty_cache()
+    ex, pl, build_s = cards_executor(cfg, cut, mesh)
+    counts = serve.stage_block_counts(pl, cfg.n_layers)
+    with ex:
+        got, by_card = cards_launches(
+            f"spmd cards {CARDS_ARCH} {CARDS_CHECK} layers",
+            lambda: ex(tokens), launches_per_card(mesh, counts))
+        err = rel_err(got.to(dev0), expect)
+    print(f"spmd cards {CARDS_ARCH} cut to {CARDS_CHECK} of "
+          f"{full.n_layers} layers (blocks {counts}) over "
+          f"{[str(d) for d in mesh.devices]}, batch {SPMD_BATCH} x {SEQ}: "
+          f"logits {tuple(got.shape)} on {got.device}, max_abs_err / "
+          f"max|logit| vs lm.forward of the fp32 weights on {dev0} "
+          f"{err:.3e} (tol {SPMD_TOL:g})")
+    if not (got.shape == expect.shape and bool(torch.isfinite(got).all())
+            and err <= SPMD_TOL):
+        raise SystemExit(f"spmd cards {CARDS_ARCH} {CARDS_CHECK} layers: "
+                         f"{err:.3e}")
+    out["cut"] = {"layers": CARDS_CHECK, "blocks": counts,
+                  "vs_forward": err, "launches_by_card": by_card}
+    del ex, got, expect
+    for c in range(CARDS):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(c)
+    # (c): every layer, which no card holds
+    ex, pl, build_s = cards_executor(full, params, mesh)
+    counts = serve.stage_block_counts(pl, full.n_layers)
+    with ex:
+        got, by_card = cards_launches(
+            f"spmd cards {CARDS_ARCH}", lambda: ex(tokens),
+            launches_per_card(mesh, counts))
+        expect = ex.compose(tokens)
+        err = rel_err(got, expect)
+        print(f"spmd cards {CARDS_ARCH} at full depth ({full.n_layers} "
+              f"layers, blocks {counts}, cuts {pl.cuts}) over "
+              f"{[str(d) for d in mesh.devices]}: executor built in "
+              f"{build_s:.2f} s (fill {ex.fill_s:.4f} s, blocked "
+              f"{ex.fill_blocked_s:.4f} s); logits {tuple(got.shape)} on "
+              f"{got.device}, max_abs_err / max|logit| vs its stage "
+              f"functions composed without the schedule {err:.3e} (tol "
+              f"{SPMD_TOL:g})")
+        if not (got.shape == (SPMD_BATCH, SEQ, full.vocab)
+                and bool(torch.isfinite(got).all()) and err <= SPMD_TOL):
+            raise SystemExit(f"spmd cards {CARDS_ARCH}: {err:.3e}")
+        del got, expect
+        rates = served_rates(ex.run_batch, list(tokens))
+        pred = ex.predicted_stage_times()
+        ach = ex.achieved_stage_times(reps=5, warmup=1)
+    peaks = {c: torch.cuda.max_memory_allocated(c) for c in range(CARDS)}
+    reserved = {c: torch.cuda.max_memory_reserved(c) for c in range(CARDS)}
+    print(f"spmd cards {CARDS_ARCH} served batch of {SPMD_BATCH} x {SEQ}: "
+          f"{[round(r, 4) for r in rates]} items/s "
+          f"({[round(r * SEQ, 1) for r in rates]} tokens/s); stage times "
+          f"(s) modeled {[round(t, 6) for t in pred]}, achieved (alone on "
+          f"its card, median of 5) {[round(t, 6) for t in ach]}; allocator "
+          f"peak by card (GB) "
+          f"{ {c: round(b / 1e9, 2) for c, b in peaks.items()} }, reserved "
+          f"{ {c: round(b / 1e9, 2) for c, b in reserved.items()} }; {smi}")
+    out.update(layers=full.n_layers, blocks=counts, cuts=list(pl.cuts),
+               vs_composed=err, build_s=build_s, fill_s=ex.fill_s,
+               blocked_s=ex.fill_blocked_s, items_per_s=rates,
+               tokens_per_s=[r * SEQ for r in rates], predicted_s=pred,
+               achieved_s=ach, peak_bytes=peaks, reserved_bytes=reserved,
+               launches_by_card=by_card)
+    return out
+
+
+def run_spmd_cards_phase(smi):
+    """The SPMD tier with one stage a card, as the reference's mesh lowers
+    a plan, where CARDS cards are visible: each launcher's per-device
+    setup on every card, ResNet50 (a) and phi3.5-moe (b, c: a model no
+    card holds) over the cards.  With fewer cards it does nothing and says
+    so."""
+    visible = torch.cuda.device_count()
+    out = {"ran": visible >= CARDS, "cards_visible": visible,
+           "needs": CARDS}
+    if not out["ran"]:
+        return out
+    t0 = time.perf_counter()
+    mesh = pipeline_spmd.default_stage_mesh(STAGES, CARD, cards=CARDS)
+    peer = pipeline_spmd.peer_access(mesh)
+    out["stage_devices"] = [str(d) for d in mesh.devices]
+    out["peer_access"] = {f"{a}->{b}": ok for (a, b), ok in peer.items()}
+    print(f"spmd cards: {visible} cards visible, stages on "
+          f"{out['stage_devices']}, peer access of the hops "
+          f"{out['peer_access']}; {smi}")
+    out["kernels"] = check_kernels_on_cards(CARDS)
+    out["cnn"] = run_cards_cnn(mesh, smi)
+    torch.cuda.empty_cache()
+    full = configs.get(CARDS_ARCH).config()
+    t1 = time.perf_counter()
+    # made on card 0 a block at a time (the same numbers as made there
+    # whole), kept on the host
+    params = lm.init_params(full, torch.device(CARD, 0),
+                            torch.Generator(CARD).manual_seed(0),
+                            keep_on=torch.device("cpu"))
+    out["init_s"] = time.perf_counter() - t1
+    print(f"spmd cards {CARDS_ARCH}: {api.param_count(full) * 2 / 1e9:.1f} "
+          f"GB of bf16 weights made on card 0 a block at a time and kept "
+          f"on the host in {out['init_s']:.1f} s")
+    tokens = concrete_batch(full, SEQ, SPMD_BATCH, kind="prefill",
+                            rng=np.random.default_rng(3))["tokens"]
+    out["lm"] = run_cards_lm(full, params, tokens, mesh, smi)
+    del params
+    for c in range(CARDS):
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"SPMD cards phase: {out['seconds']:.1f} s")
+    return out
+
+
+def spmd_cards_only(smi) -> int:
+    """``--spmd-cards``: build the kernels the phase launches and run it
+    alone; exits 1 where fewer than CARDS cards are visible."""
+    t0 = time.perf_counter()
+    _build.build(tuple(CARD_KERNEL_TOL))
+    print(f"built {sorted(CARD_KERNEL_TOL)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    res = run_spmd_cards_phase(smi)
+    print(json.dumps({"spmd_cards": res}, default=str))
+    if not res["ran"]:
+        return 1
+    print(device_line())
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -4614,6 +4975,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if "--kernel-times" in sys.argv:
         return kernel_times()
+    if "--spmd-cards" in sys.argv:
+        return spmd_cards_only(smi)
 
     t0 = time.perf_counter()
     libs = _build.build(KERNELS)
@@ -4760,6 +5123,7 @@ def main() -> int:
     print(f"segment memory reporter phase: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"reporter": reporter}))
     print(json.dumps({"spmd": run_spmd_phase(record, smi)}))
+    print(json.dumps({"spmd_cards": run_spmd_cards_phase(smi)}, default=str))
     bwd_records, training = run_training_phase(smi)
     record["launches_train_step"] = (
         training["launches_per_step"]["flash_attention"])

@@ -254,10 +254,12 @@ class Deployment:
         * ``"spmd"`` -- the
           :class:`~repro_torch.launch.pipeline_spmd.SpmdPipelineExecutor`:
           the plan lowered onto a
-          :class:`~repro_torch.launch.pipeline_spmd.StageMesh` (``mesh``;
-          default: one stream per stage on the card), the GPipe schedule
-          over ``n_microbatches`` with event-ordered hops and overlapped
-          weight streaming.  Needs the live model (a ``GraphModel`` or LM
+          :class:`~repro_torch.launch.pipeline_spmd.StageMesh` (``mesh``,
+          taken as given: ``default_stage_mesh(S, cards=k)`` spreads the
+          stages over ``k`` cards; default: one stream per stage on the
+          one card), the GPipe schedule over ``n_microbatches`` with
+          event-ordered hops (copied between cards) and overlapped weight
+          streaming.  Needs the live model (a ``GraphModel`` or LM
           config) and its ``params`` -- runtime objects that cannot live
           in the spec.  A plan with replicated stages cannot map one
           stage to one stream: it falls back to the host executor with a

@@ -7,9 +7,10 @@ shared headers ``csrc/*.cuh`` and the flags (an edited source is rebuilt,
 never reused stale), and loaded with :mod:`ctypes`.  Only the sources in
 the checkout are read.  A failed build raises; nothing falls back.
 
-Each wrapper calls :func:`count_launch` with its source's name where it
-launches the kernel, and nowhere else; :func:`launches` reads the counts
-and :func:`reset_launches` sets them to 0.  Beside it, each call reports
+Each wrapper calls :func:`count_launch` with its source's name and its
+inputs' card where it launches the kernel, and nowhere else;
+:func:`launches` reads the counts, :func:`launches_by_card` splits them by
+card, and :func:`reset_launches` sets them to 0.  Beside it, each call reports
 its cost (:func:`report_cost`: the FLOPs and the bytes of its kernel's
 cost function) to the active counters (:func:`cost_sink`, which
 ``launch/op_analysis.py`` opens): the kernels are called through
@@ -44,13 +45,18 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()
 _launches: Dict[str, int] = {}
+_card_launches: Dict[Tuple[str, int], int] = {}
 _sinks: List[Callable[[str, float, float], None]] = []
 
 
-def count_launch(name: str) -> None:
-    """One launch of the kernel of ``csrc/<name>.cu``."""
+def count_launch(name: str, device: Optional[torch.device] = None) -> None:
+    """One launch of the kernel of ``csrc/<name>.cu``, on the card
+    ``device`` when given (the wrappers pass their inputs')."""
     with _count_lock:
         _launches[name] = _launches.get(name, 0) + 1
+        if device is not None and device.index is not None:
+            key = (name, device.index)
+            _card_launches[key] = _card_launches.get(key, 0) + 1
 
 
 def launches(name: str) -> int:
@@ -60,9 +66,18 @@ def launches(name: str) -> int:
         return _launches.get(name, 0)
 
 
+def launches_by_card(name: str) -> Dict[int, int]:
+    """:func:`launches` of ``name`` split by the index of the card each
+    ran on (cards it did not run on are left out)."""
+    with _count_lock:
+        return {card: n for (kernel, card), n in sorted(
+            _card_launches.items()) if kernel == name}
+
+
 def reset_launches() -> None:
     with _count_lock:
         _launches.clear()
+        _card_launches.clear()
 
 
 def report_cost(name: str, cost: Callable[..., Tuple[float, float]],

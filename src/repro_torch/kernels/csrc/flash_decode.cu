@@ -601,12 +601,10 @@ template <int D>
 cudaError_t launch_bf16(const Args& a, int b, int hkv, cudaStream_t stream) {
   constexpr int smem = Bf16Plan<D>::kBytes;
   auto kernel = flash_decode_bf16_kernel<D>;
-  static bool configured = false;     // set once; a repeat is harmless
-  if (!configured) {
+  {  // state of the current device: set on every call, on every card
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    configured = true;
   }
   kernel<<<dim3(a.nsplit, hkv * a.gchunks, b), kThreads, smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();

@@ -274,12 +274,10 @@ cudaError_t launch_staged(const Io& io, cudaStream_t stream) {
   constexpr int tile = kRowBytes / sizeof(T);
   constexpr int smem = kStages * (3 * kPiece * kRowBytes + tile * 4);
   auto kernel = rglru_bwd_staged_kernel<T, kRowBytes, kStages, kThreads>;
-  static bool configured = false;     // set once; a repeat is harmless
-  if (!configured) {
+  {  // state of the current device: set on every call, on every card
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    configured = true;
   }
   kernel<<<dim3((io.r + tile - 1) / tile, io.b), kThreads, smem, stream>>>(
       static_cast<const T*>(io.a), static_cast<const T*>(io.g), io.ckpt,

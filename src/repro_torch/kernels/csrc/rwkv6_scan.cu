@@ -233,12 +233,10 @@ template <typename T, int D, int kChunk, bool kCkpt>
 cudaError_t launch_chunk(const Args& a, int b, int h, cudaStream_t stream) {
   constexpr int smem = (2 * 4 * D * sizeof(T) + kThreads * 4) * kChunk;
   auto kernel = rwkv6_scan_kernel<T, D, kChunk, kCkpt>;
-  static bool configured = false;     // set once; a repeat is harmless
-  if (!configured) {
+  {  // state of the current device: set on every call, on every card
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    configured = true;
   }
   kernel<<<dim3(h, b), kThreads, smem, stream>>>(a);
   return cudaGetLastError();

@@ -484,12 +484,10 @@ template <typename T, int D>
 cudaError_t launch(const Args& a, int b, int h, cudaStream_t stream) {
   using L = Layout<T, D>;
   auto kernel = rwkv6_bwd_kernel<T, D>;
-  static bool configured = false;     // set once; a repeat is harmless
-  if (!configured) {
+  {  // state of the current device: set on every call, on every card
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     if (err != cudaSuccess) return err;
-    configured = true;
   }
   // the D / 16 column blocks of a (head, batch row) form a cluster
   cudaLaunchConfig_t cfg = {};

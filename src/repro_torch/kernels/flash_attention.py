@@ -234,7 +234,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    _build.count_launch("flash_attention")
+    _build.count_launch("flash_attention", q.device)
     return out if lse is None else (out, lse)
 
 
@@ -301,7 +301,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if err != 0:
                 raise RuntimeError(f"flash_attention_bwd kernel launch "
                                    f"failed: CUDA error {err}")
-    _build.count_launch("flash_attention_bwd")
+    _build.count_launch("flash_attention_bwd", q.device)
     return dq, dk, dv
 
 

@@ -177,7 +177,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
                            f"{err}")
-    _build.count_launch("flash_decode")
+    _build.count_launch("flash_decode", q.device)
     return out
 
 

@@ -105,7 +105,7 @@ def matmul_qi8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"matmul_qi8 kernel launch failed: CUDA error "
                            f"{err}")
-    _build.count_launch("matmul_qi8")
+    _build.count_launch("matmul_qi8", x.device)
     return out
 
 

@@ -172,7 +172,7 @@ def _forward(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
     y, h_last = launch(a, g, h0, scan_plan(s, r, a.element_size(),
                                            _aligned(a, g)), ckpt)
     if a.device.type != "meta":
-        _build.count_launch("rglru_scan")
+        _build.count_launch("rglru_scan", a.device)
     _build.report_cost("rglru_scan", scan_cost, a, with_checkpoints)
     return y, h_last, ckpt
 
@@ -245,7 +245,7 @@ def rglru_scan_bwd(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor,
                      bwd_plan(a.shape[2], a.element_size(),
                               _aligned(a, g, dy, checkpoints)))
     if a.device.type != "meta":
-        _build.count_launch("rglru_scan_bwd")
+        _build.count_launch("rglru_scan_bwd", a.device)
     return out
 
 

@@ -237,7 +237,7 @@ def _forward(r, k, v, w, u, s0, out, with_states=False):
     if err != 0:
         raise RuntimeError(f"rwkv6_scan kernel launch failed: CUDA error "
                            f"{err}")
-    _build.count_launch("rwkv6_scan")
+    _build.count_launch("rwkv6_scan", r.device)
     return out, s_last, states
 
 
@@ -305,7 +305,7 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"rwkv6_scan_bwd kernel launch failed: CUDA "
                            f"error {err}")
-    _build.count_launch("rwkv6_scan_bwd")
+    _build.count_launch("rwkv6_scan_bwd", dev)
     return (*grads, du, ds0)
 
 

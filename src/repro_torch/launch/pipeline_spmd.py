@@ -1,11 +1,16 @@
-"""SPMD pipeline execution: lower a PlacementPlan onto the stages of one card.
+"""SPMD pipeline execution: lower a PlacementPlan onto the stages of a mesh
+of cards.
 
 The port of ``repro/launch/pipeline_spmd.py``.  The reference lowers any
 unreplicated :class:`~repro_torch.core.placement.PlacementPlan` onto a
 mesh axis, one stage per mesh slice, with ``ppermute`` hops inside
-``shard_map``.  On one CUDA card the same contracts hold with a
-:class:`StageMesh`: every stage is a ``torch.cuda.Stream`` of the one
-device (on the CPU the stages run in order, with no streams).
+``shard_map``.  Here a :class:`StageMesh` gives each stage a device and,
+on a card, a ``torch.cuda.Stream`` of that device:
+``default_stage_mesh(S, cards=k)`` puts the stages in contiguous groups on
+``k`` cards (stage ``s`` on ``cuda:(s * k // S)``, as the reference puts
+stage ``s`` on device ``s`` when ``k = S``); ``cards=1`` keeps every stage
+on the one card, a stream each.  On the CPU the stages run in order, with
+no streams.
 
 * **CNN GraphModels** -- each stage's layer range runs through
   ``GraphModel.apply_subset``; the tensors crossing each cut (a skip
@@ -24,28 +29,31 @@ GPipe circular schedule, M microbatches over S stages::
       stage S-1 writes microbatch t-S+1 into the output buffer
 
 The host issues the whole schedule, then synchronizes once, on the last
-stage's stream.  A hop buffer made on stage s's stream and read on stage
-s+1's is handed on with ``record_stream``, so the caching allocator does
-not reuse it while the reader may still run.  The output is the last
-stage's ``(M, mb, ...)`` buffer on the device: there is no per-stage
-output to index.
+stage's stream.  :func:`_hop` hands a stage's output to the next stage:
+on one card the reader's stream waits on the writer's event and the
+buffer is handed on with ``record_stream``, so the caching allocator does
+not reuse it while the reader may still run; across cards the reader's
+stream waits on the writer's event and copies the buffer into one of its
+own card (over NVLink where the cards have peer access, else through the
+host).  The output is the last stage's ``(M, mb, ...)`` buffer on the last
+stage's device: there is no per-stage output to index.
 
 **Weight streaming** (:func:`stream_stage_weights`): each stage's
-weights are copied from pinned host memory to the card on a copy stream of
-their own, in stage order.  With ``overlap=True`` every copy is in flight
-while ``compile_fn`` -- the bring-up that needs only shapes: loading the
-kernel libraries the lowering launches and reserving the schedule's
-buffers in the caching allocator -- runs on the host; with
-``overlap=False`` each stage's copies land before the next stage's are
-issued and ``compile_fn`` runs after the last.  :class:`StreamReport`
-keeps the wall fill apart from ``blocked_s``, the host's time in event
-waits on the copies.  Host-to-device copies on the card have copy
-engines of their own, so unlike the reference's CPU-emulated mesh the
-wall fill may shrink too.
+weights are copied from pinned host memory to its card on that card's copy
+stream, in stage order; the cards' copies run at once, each over its own
+link.  With ``overlap=True`` every copy is in flight while ``compile_fn``
+-- the bring-up that needs only shapes: loading the kernel libraries the
+lowering launches and reserving the schedule's buffers in the caching
+allocator of each card -- runs on the host; with ``overlap=False`` each
+stage's copies land before the next stage's are issued and ``compile_fn``
+runs after the last.  :class:`StreamReport` keeps the wall fill apart from
+``blocked_s``, the host's time in event waits on the copies, over all
+cards.  Host-to-device copies on the card have copy engines of their own,
+so unlike the reference's CPU-emulated mesh the wall fill may shrink too.
 
 **Numerics of the LM executor** (the reference's, not a choice of the
 port): :meth:`SpmdPipelineExecutor.for_lm` runs the blocks on fp32
-activations, with the model's bf16 weights made fp32 on the card after
+activations, with the model's bf16 weights made fp32 on each card after
 the fill (the reference casts the embedded activations to float32 and
 jnp promotes every bf16 weight); :func:`pipeline_logits` runs in the
 model's dtype.
@@ -104,39 +112,108 @@ def _require_unreplicated(plan: PlacementPlan) -> None:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class StageMesh:
-    """The pipeline's stages on one device: a CUDA stream per stage on a
-    card, none on the CPU (the stages then run in order), and the stream
-    that copies weights in (one for every fill, so that a fill reuses
-    the device memory the caching allocator keeps from the last)."""
-    device: torch.device
+    """The pipeline's stages on their devices: stage ``s`` runs on
+    ``devices[s]``, on a CUDA stream of its own on a card (none on the CPU
+    or ``meta``: the stages then run in order), and ``copy_streams[s]`` is
+    the stream that copies weights onto that stage's card (one per card,
+    shared by the card's stages, and one for every fill, so that a fill
+    reuses the device memory the caching allocator keeps from the last)."""
+    devices: Tuple[torch.device, ...]
     streams: Tuple[Optional[torch.cuda.Stream], ...]
-    copy_stream: Optional[torch.cuda.Stream]
+    copy_streams: Tuple[Optional[torch.cuda.Stream], ...]
+
+    def __post_init__(self):
+        if not len(self.devices) == len(self.streams) == len(
+                self.copy_streams):
+            raise ValueError(f"{len(self.devices)} devices, "
+                             f"{len(self.streams)} streams and "
+                             f"{len(self.copy_streams)} copy streams")
 
     @property
     def n_stages(self) -> int:
-        return len(self.streams)
+        return len(self.devices)
 
     @property
     def on_card(self) -> bool:
-        return self.device.type == "cuda"
+        return any(d.type == "cuda" for d in self.devices)
+
+    @property
+    def cards(self) -> Tuple[torch.device, ...]:
+        """The distinct devices of the mesh, in stage order."""
+        return tuple(dict.fromkeys(self.devices))
 
 
-def default_stage_mesh(n_stages: int, device="cuda") -> StageMesh:
-    """``n_stages`` stages on ``device``, each with its own stream on a
-    card.  Unlike the reference's mesh this needs one device, not
-    ``n_stages``: the stages share the card and overlap through their
-    streams.  Raises for a CUDA device when there is no card."""
+def stage_cards(n_stages: int, cards: int) -> List[int]:
+    """The card of each stage when ``n_stages`` stages go onto ``cards``
+    cards in contiguous groups: stage ``s`` on card ``s * cards //
+    n_stages`` (every card at least one stage; one stage a card when they
+    are equal, as the reference's mesh)."""
+    if not 1 <= cards <= n_stages:
+        raise ValueError(f"{cards} cards for {n_stages} stages: every card "
+                         f"needs at least one stage")
+    return [s * cards // n_stages for s in range(n_stages)]
+
+
+def default_stage_mesh(n_stages: int, device="cuda",
+                       cards: Optional[int] = None) -> StageMesh:
+    """``n_stages`` stages, each with its own stream on a card.
+
+    * ``cards=None`` or ``1`` -- every stage on ``device``: the stages
+      share the card and overlap through their streams.
+    * ``cards=k`` -- the stages in contiguous groups on ``cuda:0`` ..
+      ``cuda:k-1`` (:func:`stage_cards`), each card with its stages'
+      streams and a weight copy stream of its own.  Raises, as the
+      reference's mesh does, when this process sees fewer than ``k``
+      cards, and when ``k > n_stages``: a mesh is never folded onto fewer
+      cards than asked.
+
+    Raises for a CUDA device when there is no card, and for ``cards``
+    other than 1 on the CPU."""
     dev = resolve_device(device)
+    k = 1 if cards is None else int(cards)
     if dev.type != "cuda":
-        return StageMesh(dev, (None,) * n_stages, None)
-    return StageMesh(dev, tuple(torch.cuda.Stream(dev)
-                                for _ in range(n_stages)),
-                     torch.cuda.Stream(dev))
+        if k != 1:
+            raise ValueError(f"cards={cards} needs CUDA devices; on "
+                             f"{str(dev)!r} the stages run in order on "
+                             f"the one device")
+        return StageMesh((dev,) * n_stages, (None,) * n_stages,
+                         (None,) * n_stages)
+    if k == 1:
+        # an index, so that a hop can tell its card from another
+        devices = (torch.device("cuda", torch.cuda.current_device()
+                                if dev.index is None else dev.index),
+                   ) * n_stages
+    else:
+        if dev.index not in (None, 0):
+            raise ValueError(f"a mesh of {k} cards starts at cuda:0, not "
+                             f"{dev}")
+        visible = torch.cuda.device_count()
+        if visible < k:
+            raise ValueError(f"SPMD pipeline over {k} cards needs >= {k} "
+                             f"CUDA devices; this process sees {visible}")
+        devices = tuple(torch.device("cuda", c)
+                        for c in stage_cards(n_stages, k))
+    copy = {d: torch.cuda.Stream(d) for d in dict.fromkeys(devices)}
+    return StageMesh(devices, tuple(torch.cuda.Stream(d) for d in devices),
+                     tuple(copy[d] for d in devices))
 
 
 def _stage_devices(mesh: StageMesh) -> List[torch.device]:
     """The device of each pipeline stage."""
-    return [mesh.device] * mesh.n_stages
+    return list(mesh.devices)
+
+
+def peer_access(mesh: StageMesh) -> Dict[Tuple[int, int], bool]:
+    """``torch.cuda.can_device_access_peer`` of each hop between two cards
+    of the mesh, keyed by (sender, receiver) index; empty on one card.
+    Without peer access a hop is copied through the host: still right,
+    only slower."""
+    out = {}
+    for a, b in zip(mesh.devices, mesh.devices[1:]):
+        if a != b and a.type == b.type == "cuda":
+            out[(a.index, b.index)] = torch.cuda.can_device_access_peer(
+                a.index, b.index)
+    return out
 
 
 def _on(stream: Optional[torch.cuda.Stream]):
@@ -152,34 +229,64 @@ def _check_mesh(plan: PlacementPlan, mesh: StageMesh) -> None:
 # ---------------------------------------------------------------------------
 # the circular GPipe schedule (shared by the CNN and LM lowerings)
 # ---------------------------------------------------------------------------
+def _hop(x: torch.Tensor, done: Optional[torch.cuda.Event],
+         device: torch.device,
+         stream: Optional[torch.cuda.Stream]) -> torch.Tensor:
+    """Hand a stage's output ``x`` to the next stage, which runs on
+    ``device`` and ``stream`` (None off a card: the stages run in order,
+    and ``x`` is moved, a no-op on the same device).  ``done`` is the
+    event the sender recorded on its stream after making ``x``.
+
+    * same card -- the reader's stream waits on ``done``, and ``x`` is
+      handed on with ``record_stream`` (made on the sender's stream, read
+      on this one).
+    * another card -- the reader's stream waits on ``done`` (an event of
+      another device), and a buffer of the reader's card, allocated on
+      its stream, is filled with ``copy_(non_blocking=True)``.  PyTorch
+      runs a copy between cards on the source card's current stream,
+      fenced both ways with the reader's stream, so ``x`` is recorded on
+      that stream: the sender's card does not reuse it before the copy is
+      done."""
+    if stream is None:
+        return x.to(device)
+    stream.wait_event(done)
+    if x.device == device:
+        x.record_stream(stream)
+        return x
+    with _on(stream):
+        y = torch.empty_like(x, device=device)
+        y.copy_(x, non_blocking=True)
+    x.record_stream(torch.cuda.current_stream(x.device))
+    return y
+
+
 def _gpipe_outputs(stage_fns: Sequence[Callable[[torch.Tensor],
                                                 torch.Tensor]],
                    streams: Sequence[Optional[torch.cuda.Stream]],
-                   x_all: torch.Tensor) -> torch.Tensor:
+                   x_all: torch.Tensor,
+                   devices: Optional[Sequence[torch.device]] = None
+                   ) -> torch.Tensor:
     """Run the schedule of ``stage_fns`` (each maps a microbatch to one
-    of the same shape) over ``x_all`` (M, mb, ...); returns the last
-    stage's (M, mb, ...) outputs, finished (the host has synchronized the
-    last stage's stream)."""
+    of the same shape) over ``x_all`` (M, mb, ...) on the first stage's
+    device; ``devices`` are the stages' (default: all ``x_all``'s).
+    Returns the last stage's (M, mb, ...) outputs on its device, finished
+    (the host has synchronized the last stage's stream)."""
     n, m = len(stage_fns), x_all.shape[0]
+    devices = list(devices or [x_all.device] * n)
     on_card = streams[0] is not None
-    outputs = torch.empty_like(x_all)
+    x_all = x_all.to(devices[0])
+    outputs = torch.empty_like(x_all, device=devices[-1])
     if on_card:
-        # x_all was written on the caller's stream
-        ready = torch.cuda.current_stream(x_all.device).record_event()
-        for st in streams:
-            st.wait_event(ready)
+        # x_all and outputs were made on the callers' streams
+        for dev, st in zip(devices, streams):
+            st.wait_stream(torch.cuda.current_stream(dev))
     hops: List[Any] = [None] * n    # (tensor, event) of stage s at step t-1
     for t in range(m + n - 1):
         handed: List[Any] = [None] * n
         for s in range(max(0, t - m + 1), min(n, t + 1)):
             with _on(streams[s]):
-                if s == 0:
-                    x = x_all[t]
-                else:
-                    x, done = hops[s - 1]
-                    if on_card:
-                        streams[s].wait_event(done)
-                        x.record_stream(streams[s])
+                x = x_all[t] if s == 0 else _hop(*hops[s - 1], devices[s],
+                                                 streams[s])
                 y = stage_fns[s](x)
                 if s == n - 1:
                     outputs[t - s].copy_(y)
@@ -190,6 +297,28 @@ def _gpipe_outputs(stage_fns: Sequence[Callable[[torch.Tensor],
     if on_card:
         streams[-1].synchronize()
     return outputs
+
+
+def _composed_outputs(stage_fns: Sequence[Callable[[torch.Tensor],
+                                                   torch.Tensor]],
+                      streams: Sequence[Optional[torch.cuda.Stream]],
+                      devices: Sequence[torch.device],
+                      x_all: torch.Tensor) -> torch.Tensor:
+    """The same stage functions without the schedule: microbatch by
+    microbatch, each stage in order on its device's current stream, moved
+    between devices by a plain ``to`` -- the one-stream composition the
+    schedule is held against.  Returns (M, mb, ...) on the last device."""
+    for dev, st in zip(devices, streams):
+        if st is not None:
+            # what the stage functions close over (the weights made fp32)
+            # was made on the stages' streams
+            torch.cuda.current_stream(dev).wait_stream(st)
+    outs = []
+    for x in x_all:
+        for dev, fn in zip(devices, stage_fns):
+            x = fn(x.to(dev))
+        outs.append(x)
+    return torch.stack(outs)
 
 
 def _pad_batch(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -223,33 +352,45 @@ def _lm_stage(cfg: lm.LMConfig, blocks: Sequence[Params],
     return apply
 
 
+def _to(tree: Params, device: torch.device,
+        dtype: Optional[torch.dtype] = None) -> Params:
+    """``tree`` on ``device`` (and in ``dtype``); leaves already there are
+    kept, not copied."""
+    return tree_map(lambda t: t.to(device, dtype), tree)
+
+
 def make_pipeline_hidden(cfg: lm.LMConfig, mesh: StageMesh,
                          plan: PlacementPlan, n_microbatches: int):
     """Returns ``hidden_fn(params, batch) -> (B, S, D)`` hidden states in
-    the model's dtype, the blocks run as a pipeline per the plan.
-    ``params`` lie on the mesh's device; vlm: ``batch["embeds"]`` goes
-    before the token embeddings and every stream gets (3, 1, S)
-    positions."""
+    the model's dtype on the last stage's device, the blocks run as a
+    pipeline per the plan.  The embedding runs on the first stage's
+    device and each stage's blocks on its own (moved there when ``params``
+    lie elsewhere); vlm: ``batch["embeds"]`` goes before the token
+    embeddings and every stream gets (3, 1, S) positions."""
     _require_unreplicated(plan)
     _check_mesh(plan, mesh)
     counts = stage_block_counts(plan, cfg.n_layers)
+    devices = _stage_devices(mesh)
     m = n_microbatches
 
     def hidden_fn(params: Params,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        x = lm.embed_tokens(cfg, params, batch["tokens"].to(mesh.device))
+        first = devices[0]
+        x = lm.embed_tokens(cfg, _to({"embed": params["embed"]}, first),
+                            batch["tokens"].to(first))
         if cfg.family == "vlm" and "embeds" in batch:
             x = torch.cat([batch["embeds"].to(x.device, x.dtype), x], dim=1)
         b, s, d = x.shape
         if b % m:
             raise ValueError(f"batch {b} is not a multiple of "
                              f"{m} microbatches")
-        positions = lm.positions_for(cfg, x[:1])
-        stage_fns = [_lm_stage(cfg, blocks, positions)
-                     for blocks in build_stage_blocks(params["blocks"],
-                                                      counts)]
+        stage_fns = [_lm_stage(cfg, _to(blocks, dev),
+                               lm.positions_for(cfg, x[:1]).to(dev))
+                     for blocks, dev in zip(
+                         build_stage_blocks(params["blocks"], counts),
+                         devices)]
         out = _gpipe_outputs(stage_fns, mesh.streams,
-                             x.reshape(m, b // m, s, d))
+                             x.reshape(m, b // m, s, d), devices)
         return out.reshape(b, s, d)
 
     return hidden_fn
@@ -258,10 +399,13 @@ def make_pipeline_hidden(cfg: lm.LMConfig, mesh: StageMesh,
 def pipeline_logits(cfg: lm.LMConfig, mesh: StageMesh, plan: PlacementPlan,
                     params: Params, batch: Dict[str, torch.Tensor],
                     n_microbatches: int = 4) -> torch.Tensor:
-    """fp32 logits (B, S, V) of the pipelined forward, in the model's
-    dtype up to the unembedding (``lm.forward``'s)."""
+    """fp32 logits (B, S, V) of the pipelined forward on the last stage's
+    device, in the model's dtype up to the unembedding
+    (``lm.forward``'s)."""
     hidden_fn = make_pipeline_hidden(cfg, mesh, plan, n_microbatches)
-    return lm.unembed(cfg, params, hidden_fn(params, batch))
+    h = hidden_fn(params, batch)
+    rest = {k: v for k, v in params.items() if k != "blocks"}
+    return lm.unembed(cfg, _to(rest, h.device), h)
 
 
 # ---------------------------------------------------------------------------
@@ -487,23 +631,24 @@ def stream_stage_weights(mesh: StageMesh, stage_trees: Sequence[Params], *,
                          compile_fn: Optional[Callable[[], Any]] = None
                          ) -> Tuple[List[Params], Any, StreamReport]:
     """Copy each stage's weights (``stage_trees[s]``: a tree of host
-    tensors, pinned for an asynchronous copy) to the mesh's device, in
-    their own dtype, on the mesh's copy stream, in stage order.
+    tensors, pinned for an asynchronous copy) to its stage's device, in
+    their own dtype, on that card's copy stream, in stage order.
 
-    * ``overlap=True`` -- every stage's copies are issued at once and
+    * ``overlap=True`` -- every stage's copies are issued at once (the
+      cards' copies run together, each over its own link) and
       ``compile_fn`` runs while they land.
     * ``overlap=False`` -- each stage's copies land before the next
       stage's are issued, and ``compile_fn`` runs after the last.
 
-    Returns ``(stage trees on the device, compile_fn's result, report)``;
-    each stage's tensors may be used on its stream at once."""
-    dev, copy_stream = mesh.device, mesh.copy_stream
+    Returns ``(stage trees on their devices, compile_fn's result,
+    report)``; each stage's tensors may be used on its stream at once."""
     placed: List[Params] = [None] * len(stage_trees)
     compiled = None
     blocked_s = 0.0
 
     def issue(s: int):
         leaves, treedef = tree_flatten(stage_trees[s])
+        dev, copy_stream = mesh.devices[s], mesh.copy_streams[s]
         with _on(copy_stream):
             placed[s] = tree_unflatten(treedef, [
                 t.to(dev, non_blocking=True, copy=True) for t in leaves])
@@ -529,9 +674,10 @@ def stream_stage_weights(mesh: StageMesh, stage_trees: Sequence[Params], *,
         if compile_fn is not None:
             compiled = compile_fn()
     fill_s = time.perf_counter() - t0
-    if copy_stream is not None:
-        # made on the copy stream, read on the stage's
-        for tree, stream in zip(placed, mesh.streams):
+    for tree, stream, copy_stream in zip(placed, mesh.streams,
+                                         mesh.copy_streams):
+        if copy_stream is not None:
+            # made on the card's copy stream, read on the stage's
             for t in tree_flatten(tree)[0]:
                 t.record_stream(stream)
     return placed, compiled, StreamReport(fill_s, blocked_s)
@@ -563,25 +709,27 @@ def _bring_up(mesh: StageMesh, shape: Tuple[int, ...], dtype: torch.dtype,
               kernels: Sequence[str]) -> None:
     """The bring-up that needs only shapes: load the hand-written kernel
     libraries the lowering launches (built at first use), and reserve the
-    schedule's buffers -- its (M, mb, ...) input and output on the
-    caller's stream, a microbatch hop on each stage's -- in the caching
-    allocator, so the first run allocates no device memory of its own."""
+    schedule's buffers -- its (M, mb, ...) input on the first stage's card
+    and output on the last's, on the callers' streams, and a microbatch
+    hop on each stage's stream and card -- in the caching allocators, so
+    the first run allocates no device memory of its own."""
     if not mesh.on_card:
         return
     for name in kernels:
         _build.load(name)
-    keep = [torch.empty(shape, dtype=dtype, device=mesh.device)
-            for _ in range(2)]
-    for stream in mesh.streams:
+    keep = [torch.empty(shape, dtype=dtype, device=mesh.devices[0]),
+            torch.empty(shape, dtype=dtype, device=mesh.devices[-1])]
+    for dev, stream in zip(mesh.devices, mesh.streams):
         with _on(stream):
-            keep.append(torch.empty(shape[1:], dtype=dtype,
-                                    device=mesh.device))
+            keep.append(torch.empty(shape[1:], dtype=dtype, device=dev))
     del keep
 
 
 def _sync(mesh: StageMesh) -> None:
-    if mesh.on_card:
-        torch.cuda.current_stream(mesh.device).synchronize()
+    """Wait for the current stream of every card of the mesh."""
+    for dev in mesh.cards:
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
 
 
 def _achieved(probe: Callable[[], Any], reps: int, warmup: int) -> float:
@@ -599,7 +747,8 @@ def _achieved(probe: Callable[[], Any], reps: int, warmup: int) -> float:
 # the executor
 # ---------------------------------------------------------------------------
 class SpmdPipelineExecutor:
-    """Run an unreplicated PlacementPlan as a stream pipeline on one card.
+    """Run an unreplicated PlacementPlan as a stream pipeline on the cards
+    of its mesh.
 
     Mirrors the host :class:`~repro_torch.core.pipeline.PipelineExecutor`'s
     batch surface (``run_batch`` / ``close`` / context manager;
@@ -613,7 +762,10 @@ class SpmdPipelineExecutor:
       bring-up that ran as ``compile_fn``.
     * :meth:`predicted_stage_times` -- the plan's modeled per-stage times.
     * :meth:`achieved_stage_times` -- each stage's callable timed alone
-      on its own stream.
+      on its own stream and card.
+    * :meth:`compose` -- the same stage callables and weights run without
+      the schedule, the reference a pipelined call is held against when
+      no card holds the whole model.
     """
 
     def __init__(self, *, kind: str, plan: PlacementPlan, mesh: StageMesh,
@@ -621,7 +773,8 @@ class SpmdPipelineExecutor:
                  overlap_streaming: bool, run_fn: Callable,
                  probe_fns: List[Callable[[], Callable[[], Any]]],
                  bring_up: Optional[Callable[[], Any]] = None,
-                 fill_blocked_s: float = 0.0):
+                 fill_blocked_s: float = 0.0,
+                 compose_fn: Optional[Callable] = None):
         self.kind = kind
         self.plan = plan
         self.mesh = mesh
@@ -630,6 +783,7 @@ class SpmdPipelineExecutor:
         self.fill_blocked_s = fill_blocked_s
         self.overlap_streaming = overlap_streaming
         self._run = run_fn
+        self._compose = compose_fn
         self._probe_fns = probe_fns
         self.bring_up = bring_up
         self._closed = False
@@ -653,12 +807,14 @@ class SpmdPipelineExecutor:
                 n_microbatches: int = 4, overlap_streaming: bool = True,
                 batch_size: Optional[int] = None) -> "SpmdPipelineExecutor":
         """``model``'s fp32 weights (``params``, on any device) streamed
-        from a pinned (S, Wmax) host copy of one flat row per stage, which
-        is dropped once the rows are on the card.  Calls take (B, H, W, C)
-        images and return the output node's (B, ...) activations."""
+        from a pinned (S, Wmax) host copy of one flat row per stage, each
+        row to its stage's card, and the host copy dropped once they are
+        there.  Calls take (B, H, W, C) images and return the output
+        node's (B, ...) activations on the last stage's device."""
         _require_unreplicated(plan)
         if mesh is None:
             mesh = default_stage_mesh(plan.n_stages)
+        devices = _stage_devices(mesh)
         stacked, layouts = _stage_rows(params, plan, mesh.on_card)
         low = _CnnLowering(model, plan, mesh, n_microbatches, layouts)
         m = n_microbatches
@@ -673,23 +829,28 @@ class SpmdPipelineExecutor:
         del stacked
         stage_fns = low.branches(rows)
 
-        def run(x: torch.Tensor) -> torch.Tensor:
-            b = x.shape[0]
-            x = _pad_batch(x.to(mesh.device, torch.float32), m)
-            out = _gpipe_outputs(stage_fns, mesh.streams, low.pack_input(x))
-            return low.unpack_output(out, b)
+        def run_with(pipe: Callable) -> Callable:
+            def run(x: torch.Tensor) -> torch.Tensor:
+                b = x.shape[0]
+                x = _pad_batch(x.to(devices[0], torch.float32), m)
+                return low.unpack_output(pipe(low.pack_input(x)), b)
+            return run
 
         mb_probe = max(1, (batch_size or m) // m)
 
         def make_probe(s):
             def build():
-                buf = torch.zeros((mb_probe, low.flat), device=mesh.device)
+                buf = torch.zeros((mb_probe, low.flat), device=devices[s])
                 return _stage_probe(stage_fns[s], mesh.streams[s], buf)
             return build
 
         return cls(kind="cnn", plan=plan, mesh=mesh, n_microbatches=m,
                    fill_s=stream.fill_s, fill_blocked_s=stream.blocked_s,
-                   overlap_streaming=overlap_streaming, run_fn=run,
+                   overlap_streaming=overlap_streaming,
+                   run_fn=run_with(lambda xs: _gpipe_outputs(
+                       stage_fns, mesh.streams, xs, devices)),
+                   compose_fn=run_with(lambda xs: _composed_outputs(
+                       stage_fns, mesh.streams, devices, xs)),
                    probe_fns=[make_probe(s) for s in range(plan.n_stages)],
                    bring_up=bring_up)
 
@@ -700,10 +861,14 @@ class SpmdPipelineExecutor:
                batch_size: Optional[int] = None,
                seq_len: Optional[int] = None) -> "SpmdPipelineExecutor":
         """The block ranges of a dense or moe ``cfg``: each stage's blocks
-        streamed in the model's dtype from pinned host copies (dropped
-        once they are on the card), then made fp32 on the card; calls
-        take (B, S) tokens, run the blocks on fp32 activations and return
-        fp32 logits (B, S, V) (the reference's numerics)."""
+        streamed in the model's dtype from pinned host copies to its
+        stage's card (the copies dropped once they are there), then made
+        fp32 there; the embedding in fp32 on the first stage's card, the
+        final norm and head on the last's.  Calls take (B, S) tokens, run
+        the blocks on fp32 activations and return fp32 logits (B, S, V) on
+        the last stage's device (the reference's numerics).  ``params``
+        may lie on the host: a model that no card holds is streamed
+        stage by stage."""
         _require_unreplicated(plan)
         if cfg.family not in ("dense", "moe"):
             raise ValueError(f"SPMD LM executor supports the dense/moe "
@@ -711,12 +876,21 @@ class SpmdPipelineExecutor:
         if mesh is None:
             mesh = default_stage_mesh(plan.n_stages)
         _check_mesh(plan, mesh)
-        dev = mesh.device
+        devices = _stage_devices(mesh)
         m = n_microbatches
-        # embedding (an fp32 table gives the bf16 rows' values exactly),
-        # final norm and head, in fp32 on the card
-        rest = tree_map(lambda t: t.to(dev, torch.float32),
-                         {k: v for k, v in params.items() if k != "blocks"})
+        # the embedding (an fp32 table gives the bf16 rows' values
+        # exactly) on the first card, the final norm and head on the last,
+        # in fp32; one copy of a leaf a card
+        placed: Dict[Tuple[str, torch.device], Params] = {}
+
+        def put(key: str, dev: torch.device) -> Params:
+            if (key, dev) not in placed:
+                placed[key, dev] = _to(params[key], dev, torch.float32)
+            return placed[key, dev]
+
+        rest_in = {"embed": put("embed", devices[0])}
+        rest_out = {k: put(k, devices[-1]) for k in (
+            "final_norm", "embed" if cfg.tie_embeddings else "head")}
         bring_up = None
         if batch_size is not None and seq_len is not None:
             shape = (m, -(-batch_size // m), seq_len, cfg.d_model)
@@ -732,17 +906,19 @@ class SpmdPipelineExecutor:
         del streamed
 
         def stage_fns_at(seq: int) -> List[Callable]:
-            positions = torch.arange(seq, device=dev)[None, :]
-            return [_lm_stage(cfg, blocks, positions) for blocks in blocks32]
+            return [_lm_stage(cfg, blocks,
+                              torch.arange(seq, device=dev)[None, :])
+                    for blocks, dev in zip(blocks32, devices)]
 
-        def run(tokens: torch.Tensor) -> torch.Tensor:
-            b = tokens.shape[0]
-            tokens = _pad_batch(tokens.to(dev), m)
-            x = lm.embed_tokens(cfg, rest, tokens)
-            bp, s, d = x.shape
-            h = _gpipe_outputs(stage_fns_at(s), mesh.streams,
-                               x.reshape(m, bp // m, s, d))
-            return lm.unembed(cfg, rest, h.reshape(bp, s, d))[:b]
+        def run_with(pipe: Callable) -> Callable:
+            def run(tokens: torch.Tensor) -> torch.Tensor:
+                b = tokens.shape[0]
+                tokens = _pad_batch(tokens.to(devices[0]), m)
+                x = lm.embed_tokens(cfg, rest_in, tokens)
+                bp, s, d = x.shape
+                h = pipe(stage_fns_at(s), x.reshape(m, bp // m, s, d))
+                return lm.unembed(cfg, rest_out, h.reshape(bp, s, d))[:b]
+            return run
 
         mb_probe = max(1, (batch_size or m) // m)
         probe_seq = seq_len or 16
@@ -750,14 +926,18 @@ class SpmdPipelineExecutor:
         def make_probe(s):
             def build():
                 x0 = torch.zeros((mb_probe, probe_seq, cfg.d_model),
-                                 device=dev)
+                                 device=devices[s])
                 return _stage_probe(stage_fns_at(probe_seq)[s],
                                     mesh.streams[s], x0)
             return build
 
         return cls(kind="lm", plan=plan, mesh=mesh, n_microbatches=m,
                    fill_s=stream.fill_s, fill_blocked_s=stream.blocked_s,
-                   overlap_streaming=overlap_streaming, run_fn=run,
+                   overlap_streaming=overlap_streaming,
+                   run_fn=run_with(lambda fns, xs: _gpipe_outputs(
+                       fns, mesh.streams, xs, devices)),
+                   compose_fn=run_with(lambda fns, xs: _composed_outputs(
+                       fns, mesh.streams, devices, xs)),
                    probe_fns=[make_probe(s) for s in range(plan.n_stages)],
                    bring_up=bring_up)
 
@@ -766,6 +946,15 @@ class SpmdPipelineExecutor:
         if self._closed:
             raise RuntimeError("executor is closed")
         return self._run(batch)
+
+    def compose(self, batch: torch.Tensor) -> torch.Tensor:
+        """``batch`` through the same stage callables and weights as a
+        call, without the schedule: microbatch by microbatch, each stage
+        in order on its card's current stream, moved between cards by a
+        plain ``to`` (one card: the one-stream composition)."""
+        if self._closed:
+            raise RuntimeError("executor is closed")
+        return self._compose(batch)
 
     def run_batch(self, items: Sequence[Any]) -> Tuple[List[Any], Dict]:
         """Host-executor-shaped batch entry: a list of unbatched items in,
@@ -789,9 +978,9 @@ class SpmdPipelineExecutor:
 
     def achieved_stage_times(self, reps: int = 5, warmup: int = 2
                              ) -> List[float]:
-        """Each stage's callable timed alone on its own stream (host clock
-        ending in that stream's synchronize; median of ``reps``): the
-        'achieved' column of the modeled-vs-real loop."""
+        """Each stage's callable timed alone on its own stream and card
+        (host clock ending in that stream's synchronize; median of
+        ``reps``): the 'achieved' column of the modeled-vs-real loop."""
         return [_achieved(build(), reps, warmup) for build in self._probe_fns]
 
     # -- lifecycle (host-executor parity) ------------------------------------

@@ -22,7 +22,12 @@ schedule over one CUDA stream per stage, ``--microbatch`` microbatches,
 the stage weights streamed during bring-up; dense and moe archs, fp32
 activations as in the reference): a warm-up batch, the timed batch,
 predicted and achieved stage times, and the first request against the
-direct forward in the executor's numerics.
+direct forward in the executor's numerics.  ``--cards K`` spreads the
+stages over K cards (stage ``s`` on ``cuda:(s * K // stages)``; it raises
+when fewer are visible): the weights are then made a block at a time and
+kept on the host, so a model that no card holds is served, and the
+first request is held against the executor's stage functions composed
+without the schedule.
 
 The decode workload (``--workload decode``): plan with the
 ``decode_placement`` strategy at the ``(--decode-concurrency,
@@ -59,6 +64,10 @@ token, so the grouping of a forward changes no token's output).
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --backend spmd \\
         --seq 1024 --requests 8 --microbatch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3.5-moe-42b-a6.6b --backend spmd --stages 4 --cards 4 \\
+        --seq 1024 --requests 8 --microbatch 4 \\
+        --plan-device-bytes 80000000000
     PYTHONPATH=src python -m repro_torch.launch.serve --workload decode \\
         --decode-concurrency 8 --max-context 2048 --prompt-len 1024 \\
         --max-new-tokens 64 --requests 16 --plan-device-bytes 21000000000
@@ -286,6 +295,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "schedule over --microbatch microbatches with "
                          "overlapped weight streaming; the requests run "
                          "as one batch)")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="--backend spmd: spread the stages over this many "
+                         "cards (cuda:0 .. cuda:K-1, contiguous groups of "
+                         "stages); raises when fewer are visible or K > "
+                         "--stages.  Above 1 the weights are made on the "
+                         "first card a block at a time and kept on the "
+                         "host, and the pipeline is checked against its "
+                         "stage functions composed without the schedule")
     ap.add_argument("--microbatch", type=int, default=1,
                     help="stage-level dynamic micro-batching bucket size "
                          "(stack up to k same-shape in-flight requests "
@@ -360,9 +377,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=8,
                     help="tokens per decode prompt")
     ap.add_argument("--plan-device-bytes", type=int, default=0,
-                    help="decode planning: memory per stage of the device "
-                         "the plan is priced for (0: the reference's 8 MiB "
-                         "Edge TPU)")
+                    help="memory per stage of the device the plan is "
+                         "priced for (0: the reference's 8 MiB Edge TPU); "
+                         "one card's, so the planner's memory check sees "
+                         "each card")
     ap.add_argument("--moe-capacity-factor", type=float, default=0.0,
                     help="moe archs: the routing capacity factor (0: the "
                          "config's; n_experts / top_k drops no token)")
@@ -386,14 +404,21 @@ def setup(args: argparse.Namespace):
     device = resolve_device(args.device)
     cfg = config_from_args(args)
     gen = torch.Generator(device).manual_seed(args.seed)
-    params = lm.init_params(cfg, device, generator=gen)
+    # over several cards the model may be one that no card holds: made on
+    # the card a block at a time, kept on the host and streamed from there
+    params = lm.init_params(
+        cfg, device, generator=gen,
+        keep_on=torch.device("cpu") if args.cards > 1 else None)
     g = lm_graph.lm_layer_graph(cfg, seq_len=args.seq)
 
     def fns_for(p: PlacementPlan) -> List[Callable]:
         return make_stage_fns(cfg, params,
                               stage_block_counts(p, cfg.n_layers), device)
 
-    dep = deploy(spec_from_args(args), graph=g, stage_fn_builder=fns_for)
+    base = (EdgeTPUSpec(onchip_bytes=args.plan_device_bytes)
+            if args.plan_device_bytes else None)
+    dep = deploy(spec_from_args(args), graph=g, stage_fn_builder=fns_for,
+                 base_spec=base)
     rng = np.random.default_rng(args.seed)
     reqs = [concrete_batch(cfg, args.seq, 1, rng=rng, kind="prefill")["tokens"]
             for _ in range(args.requests)]
@@ -460,20 +485,22 @@ def run(args: argparse.Namespace) -> Dict[str, Any]:
 
 def run_spmd(args: argparse.Namespace) -> Dict[str, Any]:
     """``--backend spmd``: the request set as one batch through the SPMD
-    executor (``--microbatch`` microbatches): a warm-up batch of one
-    request, the timed batch, predicted and achieved stage times, and the
-    first request's last-token logits against the direct forward in the
-    executor's numerics (fp32 activations on the model's weights made
-    fp32).  Exits when the plan has replicated stages (the front door fell
-    back to the host executor).  Returns the config, weights, plan,
-    requests, outputs, the batch's stats, the stage times, wall time and
-    the pipeline-vs-direct error."""
-    from .pipeline_spmd import default_stage_mesh
+    executor (``--microbatch`` microbatches) on a mesh of ``--cards``
+    cards: a warm-up batch of one request, the timed batch, predicted and
+    achieved stage times, and the first request's last-token logits
+    against a reference in the executor's numerics (fp32 activations on
+    the model's weights made fp32): the direct forward on one card; over
+    several, the executor's own stage functions composed without the
+    schedule (:meth:`SpmdPipelineExecutor.compose`), since no card need
+    hold the model.  Exits when the plan has replicated stages (the front
+    door fell back to the host executor).  Returns the config, weights,
+    plan, requests, outputs, the batch's stats, the stage times, wall
+    time, the pipeline-vs-reference error and the hops' peer access."""
+    from .pipeline_spmd import default_stage_mesh, peer_access
 
+    mesh = default_stage_mesh(args.stages, args.device, cards=args.cards)
     cfg, params, dep, reqs = setup(args)
-    ex = dep.executor(backend="spmd", model=cfg, params=params,
-                      mesh=default_stage_mesh(dep.plan.n_stages,
-                                              args.device),
+    ex = dep.executor(backend="spmd", model=cfg, params=params, mesh=mesh,
                       n_microbatches=max(1, args.microbatch),
                       batch_size=args.requests, seq_len=args.seq)
     if isinstance(ex, PipelineExecutor):        # replicated-plan fallback
@@ -488,13 +515,17 @@ def run_spmd(args: argparse.Namespace) -> Dict[str, Any]:
         seconds = time.perf_counter() - t0
         pred = ex.predicted_stage_times()
         ach = ex.achieved_stage_times()
-    ref = lm.forward(cfg, tree_map(torch.Tensor.float, params),
-                     {"tokens": reqs[0]}, last_token_only=True)
-    err = float((outs[0][-1:] - ref[0]).abs().max())
+        if args.cards > 1:
+            ref = ex.compose(reqs[0])[:, -1:]
+    if args.cards == 1:
+        ref = lm.forward(cfg, tree_map(torch.Tensor.float, params),
+                         {"tokens": reqs[0]}, last_token_only=True)
+    err = float((outs[0][-1:] - ref[0].to(outs[0].device)).abs().max())
     return {"cfg": cfg, "params": params, "plan": dep.plan,
             "requests": reqs, "outs": outs, "stats": stats,
             "seconds": seconds, "predicted_s": pred, "achieved_s": ach,
-            "max_err": err}
+            "max_err": err, "cards": [str(d) for d in mesh.devices],
+            "peer_access": peer_access(mesh)}
 
 
 def main_spmd(args: argparse.Namespace) -> Dict[str, Any]:
@@ -503,6 +534,8 @@ def main_spmd(args: argparse.Namespace) -> Dict[str, Any]:
     print("plan:", pl.describe())
     print("report:", pl.report.describe())
     print("blocks per stage:", stage_block_counts(pl, res["cfg"].n_layers))
+    print("stage devices:", res["cards"], "peer access of the hops:",
+          res["peer_access"] or "none (one card)")
     print(f"{len(res['outs'])} requests in {res['seconds'] * 1e3:.1f} ms "
           f"({stats['items_per_s']:.1f} req/s, "
           f"m={stats['n_microbatches']}, weight-stream fill "
@@ -512,9 +545,10 @@ def main_spmd(args: argparse.Namespace) -> Dict[str, Any]:
           [round(t, 4) for t in res["predicted_s"]])
     print("achieved stage times (s): ",
           [round(t, 4) for t in res["achieved_s"]])
-    print(f"pipeline vs direct max err: {res['max_err']:.2e}")
+    what = "direct" if len(set(res["cards"])) == 1 else "composed"
+    print(f"pipeline vs {what} max err: {res['max_err']:.2e}")
     if not res["max_err"] < 2e-2:
-        raise SystemExit(f"pipeline output differs from the direct forward "
+        raise SystemExit(f"pipeline output differs from the {what} forward "
                          f"by {res['max_err']:.2e} (bound 2e-2)")
     return res
 
@@ -684,6 +718,11 @@ def run_fleet(args: argparse.Namespace) -> Dict[str, Any]:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
+    if args.cards != 1 and (args.backend != "spmd"
+                            or args.workload != "batch"):
+        raise SystemExit("--cards spreads the SPMD tier's stages over "
+                         "cards: it needs --backend spmd and the batch "
+                         "workload")
     if args.fleet:
         return run_fleet(args)
     if configs.get(args.arch).config().family not in SERVED_FAMILIES:

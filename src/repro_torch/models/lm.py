@@ -194,22 +194,35 @@ def block_params(cfg: LMConfig, dtype, device, generator) -> Params:
 
 
 def init_params(cfg: LMConfig, device: torch.device,
-                generator: Optional[torch.Generator] = None) -> Params:
+                generator: Optional[torch.Generator] = None,
+                keep_on: Optional[torch.device] = None) -> Params:
     """Random parameters with the reference's shapes, dtypes and init
     scales (not its numbers: the generators differ).  ``generator`` must
-    live on ``device``; ``device="meta"`` gives shapes without storage."""
+    live on ``device``; ``device="meta"`` gives shapes without storage.
+    ``keep_on``: each piece (the embedding, a block, the head) moves there
+    once it is made, so that a model no card holds is made on the card a
+    block at a time and kept on the host, with the numbers it has when
+    made on ``device``."""
     require_ported(cfg, ATTN_FAMILIES)
     dtype = cfg.dtype
+
+    def keep(tree: Params) -> Params:
+        if keep_on is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: keep(v) for k, v in tree.items()}
+        return tree.to(keep_on)
+
     params: Params = {
-        "embed": _dense_init((cfg.vocab, cfg.d_model), dtype, device,
-                             generator, scale=0.02),
-        "blocks": [block_params(cfg, dtype, device, generator)
+        "embed": keep(_dense_init((cfg.vocab, cfg.d_model), dtype, device,
+                                  generator, scale=0.02)),
+        "blocks": [keep(block_params(cfg, dtype, device, generator))
                    for _ in range(cfg.n_layers)],
-        "final_norm": norm_params(cfg, dtype, device),
+        "final_norm": keep(norm_params(cfg, dtype, device)),
     }
     if not cfg.tie_embeddings:
-        params["head"] = _dense_init((cfg.d_model, cfg.vocab), dtype, device,
-                                     generator)
+        params["head"] = keep(_dense_init((cfg.d_model, cfg.vocab), dtype,
+                                          device, generator))
     return params
 
 

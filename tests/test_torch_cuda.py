@@ -1250,3 +1250,186 @@ def test_spmd_lm_executor_on_card_matches_cpu(sm90):
                 0 if dev == cpu else cfg.n_layers * 9)
             assert all(t > 0 for t in ex.achieved_stage_times(2, 1))
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
+
+
+def test_spmd_compose_right_after_build_waits_for_the_stage_weights(sm90):
+    """``compose`` called first, with no call and no sync after the
+    executor is built: it runs on the cards' current streams, while the
+    blocks' fp32 copies of the bf16 weights are made on the stage streams,
+    here held back by a sleep of at least 2 s queued on each before the
+    build.  The host path is warmed first by an executor of other
+    weights, and the build must return well inside the sleep, so that
+    ``compose`` is issued while the copies are still queued.  It equals
+    the CPU executor's output within 1e-4, on one card and, where two or
+    more are visible, over them."""
+    import dataclasses
+    from repro_torch.launch import pipeline_spmd as spmd
+    from repro_torch.models import lm_graph
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get("qwen3-1.7b").smoke_config(),
+                              dtype=torch.bfloat16)
+    cpu = torch.device("cpu")
+    params, other = (api.init(cfg, cpu, torch.Generator(cpu).manual_seed(s))
+                     for s in (5, 6))
+    pl = tapi.plan(tapi.DeploymentSpec(stages=4,
+                                       strategy="balanced_norefine"),
+                   graph=lm_graph.lm_layer_graph(cfg, seq_len=64))
+    tokens = concrete_batch(cfg, 64, 4, kind="prefill")["tokens"]
+
+    def executor(mesh, p):
+        return spmd.SpmdPipelineExecutor.for_lm(cfg, p, pl, mesh=mesh,
+                                                n_microbatches=4)
+
+    with executor(spmd.default_stage_mesh(4, cpu), params) as ex:
+        want = ex(tokens)
+    n = min(torch.cuda.device_count(), 4)
+    for k in sorted({1, n if n >= 2 else 1}):
+        mesh = spmd.default_stage_mesh(4, "cuda", cards=k)
+        with executor(mesh, other) as ex:
+            ex.compose(tokens).cpu()
+        for dev in mesh.cards:
+            torch.cuda.synchronize(dev)
+        for st in mesh.streams:
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(4_000_000_000)   # >= 2 s at 1.98 GHz
+        t0 = time.perf_counter()
+        with executor(mesh, params) as ex:
+            built_s = time.perf_counter() - t0
+            got = ex.compose(tokens)
+            assert got.device == mesh.devices[-1]
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                       atol=1e-4)
+        assert built_s < 1.0, built_s
+
+
+# ---------------------------------------------------------------------------
+# several cards: per-device launch setup and the SPMD tier over cards
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cards(sm90):
+    """Every visible card, up to four; skips with fewer than two."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return [torch.device("cuda", c) for c in range(min(n, 4))]
+
+
+def _card_kernel_cases(dev):
+    """(name, run, plain, tol) of each launcher that sets up its dynamic
+    shared memory per device, at a shape above 48 KB of it (flash_decode
+    bf16 D 128: 108 KB; rwkv6_scan's 64-step chunks; the rglru scans'
+    staged routes), on ``dev``; the backwards from the forward epilogue's
+    states / checkpoints."""
+    g = torch.Generator(dev).manual_seed(0)
+    q = torch.randn(2, 16, 128, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(2, 8, 512, 128, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    rx, rdy, rds = _rwkv6_bwd_case(dev, 1, 2, 128, 64, "float32", False)
+    a, gx, h0 = (t.to(dev) for t in _rglru_bwd_inputs(1, 128, 256,
+                                                      "float32", False))
+    gdy = torch.randn(1, 128, 256, generator=g, device=dev)
+    gdh = torch.randn(1, 256, generator=g, device=dev)
+
+    def rwkv6_bwd():
+        states = rw._forward(*rx, None, with_states=True)[2]
+        return rw.rwkv6_scan_bwd(*rx, rdy, rds, states)
+
+    def rglru_bwd():
+        ckpt = rg._forward(a, gx, h0, with_checkpoints=True)[2]
+        return rg.rglru_scan_bwd(a, gx, h0, gdy, gdh, ckpt)
+
+    return (
+        ("flash_decode", lambda: fd.flash_decode(q, k, v, 512),
+         lambda: flash_decode_ref(q, k, v, 512), 2e-2),
+        ("rwkv6_scan", lambda: rw.rwkv6_scan(*rx),
+         lambda: rwkv6_scan_ref(*rx), 2e-4),
+        ("rwkv6_scan_bwd", rwkv6_bwd,
+         lambda: rwkv6_scan_bwd_ref(*rx, rdy, rds), None),
+        ("rglru_scan", lambda: rg.rglru_scan(a, gx, h0),
+         lambda: rglru_scan_ref(a, gx, h0), 1e-5),
+        ("rglru_scan_bwd", rglru_bwd,
+         lambda: rglru_scan_bwd_ref(a, gx, h0, gdy, gdh), None))
+
+
+def test_launchers_set_up_shared_memory_on_every_card(cards):
+    """Each launcher that raises its dynamic shared-memory limit does so on
+    every card it launches on: a setup kept per process fails the first
+    launch on the second card.  Each card in turn, against the plain
+    version there; the launches counted by card."""
+    _build.reset_launches()
+    for dev in cards:
+        for name, run, plain, tol in _card_kernel_cases(dev):
+            got, want = run(), plain()
+            torch.cuda.synchronize(dev)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            assert all(t.device == dev for t in got), name
+            if tol is None:
+                _assert_scan_grads(got, want, "float32")
+            else:
+                for x, y in zip(got, want):
+                    torch.testing.assert_close(x.float(), y.float(),
+                                               rtol=tol, atol=tol)
+    every = {dev.index: 1 for dev in cards}
+    for name in ("flash_decode", "rwkv6_scan_bwd", "rglru_scan_bwd"):
+        assert _build.launches_by_card(name) == every, name
+    for name in ("rwkv6_scan", "rglru_scan"):     # and the backwards' own
+        assert _build.launches_by_card(name) == {
+            dev.index: 2 for dev in cards}, name
+
+
+def test_spmd_executors_over_cards_match_one_card(cards):
+    """qwen3's smoke config and a synthetic CNN over the cards, a stage
+    each (4 stages over 2 cards: two each), against the same executors on
+    one card's streams, within 1e-4; outputs on the last stage's card;
+    flash_attention launched on every card as its blocks say."""
+    from repro_torch.launch import pipeline_spmd as spmd
+    from repro_torch.models import lm_graph
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = len(cards)
+    cpu = torch.device("cpu")
+    cfg = configs.get("qwen3-1.7b").smoke_config()
+    params = api.init(cfg, cpu, torch.Generator(cpu).manual_seed(0))
+    pl = tapi.plan(tapi.DeploymentSpec(stages=4,
+                                       strategy="balanced_norefine"),
+                   graph=lm_graph.lm_layer_graph(cfg, seq_len=64))
+    counts = serve.stage_block_counts(pl, cfg.n_layers)
+    tokens = concrete_batch(cfg, 64, 8, kind="prefill")["tokens"]
+    m = cnn.synthetic_cnn(8, L=6, hw=32)
+    cpl = tapi.plan(tapi.DeploymentSpec(stages=4,
+                                        strategy="balanced_norefine"),
+                    graph=m.to_layer_graph())
+    cparams = m.init(cpu, torch.Generator(cpu).manual_seed(0))
+    x = torch.randn((8,) + m.input_shape,
+                    generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for k in (1, n):
+        mesh = spmd.default_stage_mesh(4, "cuda", cards=k)
+        assert [d.index for d in mesh.devices] == spmd.stage_cards(4, k)
+        with spmd.SpmdPipelineExecutor.for_lm(
+                cfg, params, pl, mesh=mesh, n_microbatches=4,
+                batch_size=8, seq_len=64) as ex:
+            _build.reset_launches()
+            got = ex(tokens)
+            for dev in mesh.cards:
+                torch.cuda.synchronize(dev)
+            want = {}
+            for dev, c in zip(mesh.devices, counts):
+                want[dev.index] = want.get(dev.index, 0) + 4 * c
+            assert _build.launches_by_card("flash_attention") == want
+            assert got.device == mesh.devices[-1]
+            outs["lm", k] = got.cpu()
+            outs["lm composed", k] = ex.compose(tokens).cpu()
+            assert all(t > 0 for t in ex.achieved_stage_times(2, 1))
+        with spmd.SpmdPipelineExecutor.for_cnn(
+                m, cparams, cpl, mesh=mesh, n_microbatches=4,
+                batch_size=8) as ex:
+            got = ex(x)
+            assert got.device == mesh.devices[-1]
+            outs["cnn", k] = got.cpu()
+    for kind in ("lm", "lm composed", "cnn"):
+        torch.testing.assert_close(outs[kind, n], outs[kind, 1], rtol=1e-4,
+                                   atol=1e-4)
+    torch.testing.assert_close(outs["lm", n], outs["lm composed", n],
+                               rtol=1e-4, atol=1e-4)
