@@ -58,6 +58,14 @@ the fill (the reference casts the embedded activations to float32 and
 jnp promotes every bf16 weight); :func:`pipeline_logits` runs in the
 model's dtype.
 
+**Spans** (:func:`~repro_torch.profiling.spans.span`, nothing without a
+profiler): :data:`CALL_SPAN` around a call of the executor,
+``stage_spans(S)[s]`` around stage ``s``'s work on one microbatch in the
+schedule (the hop into it, the stage, and for the last stage the copy
+into the output buffer), :data:`BOUNDARY_SPAN` around each boundary
+unpack and pack of a CNN stage and the call's input pack and output
+unpack.  The benchmark's per-layer metrics read them from its trace.
+
 Replicated-stage plans belong to the host executor:
 :func:`_require_unreplicated` fails fast for direct low-level calls, and
 the front door (``Deployment.executor``) downgrades that to a logged
@@ -80,10 +88,22 @@ from ..core.placement import PlacementPlan
 from ..kernels import _build
 from ..models import lm
 from ..models.layers import GraphModel
+from ..profiling.spans import span
 from .serve import stage_block_counts
 
 Params = Any
 Specs = List[Tuple[str, Tuple[int, ...]]]
+
+CALL_SPAN = "spmd.call"
+BOUNDARY_SPAN = "spmd.boundary"
+STAGE_SPAN = "spmd.stage."
+
+
+@functools.lru_cache(maxsize=None)
+def stage_spans(n_stages: int) -> Tuple[str, ...]:
+    """The span names of the stages of an ``n_stages``-stage schedule:
+    ``spmd.stage.<s>``, made once a stage count."""
+    return tuple(f"{STAGE_SPAN}{s}" for s in range(n_stages))
 
 
 # ---------------------------------------------------------------------------
@@ -280,11 +300,12 @@ def _gpipe_outputs(stage_fns: Sequence[Callable[[torch.Tensor],
         # x_all and outputs were made on the callers' streams
         for dev, st in zip(devices, streams):
             st.wait_stream(torch.cuda.current_stream(dev))
+    names = stage_spans(n)
     hops: List[Any] = [None] * n    # (tensor, event) of stage s at step t-1
     for t in range(m + n - 1):
         handed: List[Any] = [None] * n
         for s in range(max(0, t - m + 1), min(n, t + 1)):
-            with _on(streams[s]):
+            with _on(streams[s]), span(names[s]):
                 x = x_all[t] if s == 0 else _hop(*hops[s - 1], devices[s],
                                                  streams[s])
                 y = stage_fns[s](x)
@@ -546,10 +567,12 @@ def make_cnn_pipeline(model: GraphModel, plan: PlacementPlan,
         nxt = B[s + 1] if s + 1 < plan.n_stages else out_spec
 
         def branch(buf: torch.Tensor) -> torch.Tensor:
-            boundary = _unpack(buf, in_specs)
+            with span(BOUNDARY_SPAN):
+                boundary = _unpack(buf, in_specs)
             acts = model.apply_subset(stage_params, boundary,
                                       stage_layers[s])
-            return _pack({**boundary, **acts}, nxt, flat)
+            with span(BOUNDARY_SPAN):
+                return _pack({**boundary, **acts}, nxt, flat)
 
         return branch
 
@@ -591,15 +614,17 @@ class _CnnLowering:
 
     def pack_input(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
-        buf = _pack({GraphModel.INPUT: x}, self.B[0], self.flat)
-        return buf.reshape(self.m, b // self.m, self.flat)
+        with span(BOUNDARY_SPAN):
+            buf = _pack({GraphModel.INPUT: x}, self.B[0], self.flat)
+            return buf.reshape(self.m, b // self.m, self.flat)
 
     def unpack_output(self, out_last: torch.Tensor, b: int) -> torch.Tensor:
         m, mb, _ = out_last.shape
         _, shape = self.out_spec[0]
         n = int(np.prod(shape))
-        flat_out = out_last.reshape(m * mb, self.flat)
-        return flat_out[:b, :n].reshape((b,) + tuple(shape))
+        with span(BOUNDARY_SPAN):
+            flat_out = out_last.reshape(m * mb, self.flat)
+            return flat_out[:b, :n].reshape((b,) + tuple(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -945,7 +970,8 @@ class SpmdPipelineExecutor:
     def __call__(self, batch: torch.Tensor) -> torch.Tensor:
         if self._closed:
             raise RuntimeError("executor is closed")
-        return self._run(batch)
+        with span(CALL_SPAN):
+            return self._run(batch)
 
     def compose(self, batch: torch.Tensor) -> torch.Tensor:
         """``batch`` through the same stage callables and weights as a

@@ -103,7 +103,7 @@ KINDS = (("flash_attention", ("flash_attention",)),
          ("elementwise", ("elementwise",)))
 
 
-# record_function ranges of the models: the kernels their ops launch are
+# the models' spans (profiling/spans.py): the kernels their ops launch are
 # summed apart (recurrentgemma's pointwise gates around rglru_scan)
 SPANS = (rglru.GATES_SPAN,)
 
@@ -146,9 +146,7 @@ def span_device_s(prof, name: str) -> Tuple[float, int, int]:
 
 
 def summarize(prof, wall_s: float, label: str, top: int = 10) -> Dict:
-    # the device-side copies of the named ranges are not kernels
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and e.name not in SPANS]
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_s = _union_us([(e.time_range.start, e.time_range.end)
                         for e in kernels]) / 1e6
     by_kind: Dict[str, float] = {}

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.rglru_scan import rglru_scan
+from ..profiling.spans import span
 from . import attention as A
 from . import lm
 from .lm import LMConfig, _dense_init, require_ported
@@ -124,7 +125,7 @@ def rg_lru(p: Params, x: torch.Tensor, h0: torch.Tensor):
     """x: (B, S, R); h0: (B, R) fp32.  Returns (y in x's dtype, h_last).
     The pointwise gates around the scan run in a profiler range named
     :data:`GATES_SPAN` (``launch/profile_serve.py`` sums its kernels)."""
-    with torch.profiler.record_function(GATES_SPAN):
+    with span(GATES_SPAN):
         xf = x.float()
         r = torch.sigmoid(xf * p["a_gate_w"] + p["a_gate_b"])
         i = torch.sigmoid(xf * p["i_gate_w"] + p["i_gate_b"])

@@ -19,7 +19,9 @@ balanced cuts.  This package provides that loop on the card:
 * :class:`LiveTraceBuilder` — the online variant: fold serving telemetry
   (observed per-stage per-item times) into a rolling partial trace and a
   continuously-refit calibrated source, the feedback half of the
-  self-healing loop (:mod:`repro_torch.runtime.selfheal`).
+  self-healing loop (:mod:`repro_torch.runtime.selfheal`);
+* :func:`spans.span` — the program's one way to open a named range in
+  the profiler's CPU trace (one flag check with no profiler running).
 
 ``trace.py``, ``calibrate.py``, ``sources.py`` and ``live.py`` are copies
 of the reference's jax-free modules.

@@ -423,6 +423,10 @@ def test_gates_range_holds_the_pointwise_chain_and_its_kernels_sum():
         trglru.rg_lru(p, torch.ones(1, 3, r), torch.zeros(1, r))
     names = [e.name for e in prof.events()]
     assert trglru.GATES_SPAN in names and "aten::sigmoid" in names
+    # opened by the program's span helper: no user annotation, which the
+    # trace would repeat on the device timeline
+    gates = [e for e in prof.events() if e.name == trglru.GATES_SPAN]
+    assert gates and not any(e.is_user_annotation for e in gates)
 
     def ev(name, thread, lo, hi, kernels=(), dev=DeviceType.CPU):
         return NS(name=name, thread=thread, device_type=dev,
