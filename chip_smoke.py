@@ -16,8 +16,8 @@ With no arguments:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the model paths from the sources in this
    checkout (flash_attention, flash_attention_bwd, flash_decode,
-   rwkv6_scan, rwkv6_scan_bwd, rglru_scan, rglru_scan_bwd, matmul_qi8;
-   one nvcc per source, started together), prints ptxas's
+   rwkv6_scan, rwkv6_scan_bwd, rglru_scan, rglru_scan_bwd, matmul_qi8,
+   bn_epilogue; one nvcc per source, started together), prints ptxas's
    registers and spills of each kernel (failing if flash_decode,
    rwkv6_scan, rglru_scan or any of the three backwards spills) and the
    tensor-core instructions in
@@ -44,7 +44,13 @@ With no arguments:
    recurrentgemma's full window and beside one torch.sum over as many
    bytes, rwkv6_scan also at S = 1,
    rglru_scan in fp32 and bf16 and at S = 1 (B 2 and 16) beside one
-   torch.add over as many bytes;
+   torch.add over as many bytes; ``bn_epilogue`` (the CNN forward's BN
+   with its add and ReLU, no TPU counterpart) equal bit for bit to the
+   eager ops at ResNet50's BN shapes (microbatch 32, with and without the
+   residual, none / relu / relu6, a ragged C and an offset pointer),
+   timed at the largest BN and at a residual block's output beside the
+   eager chain and the byte bound, with the host's time a call of the
+   wrapper and of the eager chain;
 4. holds the full model on the card against the same model on the CPU at
    the smoke configs of qwen3-1.7b, rwkv6-1.6b, recurrentgemma-9b and the
    six archs of the LM-families slice (qwen2.5-14b, minitron-4b,
@@ -216,7 +222,8 @@ With no arguments:
    25) through ``launch/train.py`` (one JSON line);
 13. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
    synthetic_cnn(64) at their published input sizes, one forward each on
-   the card against the CPU; ResNet50 planned by the analytic Edge TPU
+   the card against the CPU, with one ``bn_epilogue`` launch for each of
+   the forward's fused groups; ResNet50 planned by the analytic Edge TPU
    model (balanced, 4 stages) and served through ``cnn_stage_fns`` (64
    single-image requests), then profiled depth by depth on the card and
    re-planned from that trace (balanced_cost, ``trace:``) for the
@@ -253,7 +260,8 @@ With no arguments:
    autoscaler ticked after each window: the pool split before and after,
    its events, attainment and the audit (0 lost, 0 misordered, every
    output equal to its member's direct forward); the phases 14 to 17
-   launch no hand-written kernel but the prefill's flash_attention;
+   launch no hand-written kernel but the prefill's flash_attention and
+   the CNN forwards' bn_epilogue (uncounted there);
 18. prints one JSON line of CNN results, one of the fault-tolerance,
    self-healing and fleet results, one of kernel results, then, as the
    last line, ``{"ok": true, "device": {...}}``.
@@ -306,6 +314,7 @@ from repro_torch.decode.engine import PipelineDecodeEngine  # noqa: E402
 from repro_torch.fleet import (FleetMemberSpec, FleetSpec,  # noqa: E402
                                deploy_fleet)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import bn_epilogue as be  # noqa: E402
 from repro_torch.kernels import ref as kernel_ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
@@ -420,7 +429,14 @@ DESIGNS = {
     "matmul_qi8": "mma.sync m16n8k32 s8 -> s32, cp.async 2-stage x ring, w "
                   "transposed by prmt on load, 64 x 64 or 16 x 64 tiles, "
                   "split-K with int32 atomics",
+    "bn_epilogue": "one pass: 16-byte loads and stores, 2 chunks a thread "
+                   "loaded before any is computed, per-channel values "
+                   "through the read-only cache; a scalar route for C % 4 "
+                   "or a misaligned pointer; the eager chain's rounding",
 }
+# the hand-written kernel of the CNN forward: no TPU counterpart, and not
+# in KERNELS, whose counts the LM and serving phases pin
+EPILOGUE = "bn_epilogue"
 
 ARCH = "qwen3-1.7b"
 SEQ = 1024
@@ -466,6 +482,15 @@ WINDOWED = (1, 16, 1, 4096, 256, 2048)
 QI8_SHAPES = ((512, 512, 512), (8, 2048, 1000), (8 * 56 * 56, 64, 256),
               (1000, 30, 300))
 QI8_HEAD = (8, 2048, 1000)
+# bn_epilogue: ResNet50's BN outputs at the benchmark's microbatch of 32
+# (each C and spatial size), then a ragged C; timed at the largest BN
+# (bn+relu) and at a residual block's output (bn+add+relu)
+BN_SHAPES = ((32, 112, 112, 64), (32, 56, 56, 64), (32, 56, 56, 256),
+             (32, 28, 28, 128), (32, 28, 28, 512), (32, 14, 14, 256),
+             (32, 14, 14, 1024), (32, 7, 7, 512), (32, 7, 7, 2048),
+             (4, 9, 9, 30))
+BN_TIMED = (((32, 112, 112, 64), False), ((32, 56, 56, 256), True))
+HOST_CALLS = 50         # calls a host-time sample issues while the card sleeps
 # the CNN path: the analytic plan of paper Table 5 / examples/quickstart.py,
 # then the same model planned from its own trace on the card
 CNN = "ResNet50"
@@ -1442,14 +1467,162 @@ def check_matmul_qi8():
     return record
 
 
+def bn_inputs(shape, residual, offset=0, seed=0):
+    """x and r (or None) of ``shape`` on the card, ``offset`` floats into
+    their buffers, with values past relu6's 6; random mean, var, gamma,
+    beta."""
+    g = torch.Generator(CARD).manual_seed(seed)
+    n, c = int(np.prod(shape)), shape[-1]
+
+    def act(scale):
+        buf = torch.randn(n + offset, generator=g, device=CARD) * scale
+        return buf[offset:].view(shape)
+
+    x = act(4.0)
+    r = act(3.0) if residual else None
+    ps = [torch.randn(c, generator=g, device=CARD) * 0.5,
+          torch.rand(c, generator=g, device=CARD) * 2 + 0.01,
+          torch.rand(c, generator=g, device=CARD) + 0.5,
+          torch.randn(c, generator=g, device=CARD)]
+    return x, r, ps
+
+
+def host_us(fn, calls=HOST_CALLS, samples=7):
+    """The host's time a call of ``fn`` (us), its calls issued while the
+    card sleeps, so no launch waits for the device: the median of
+    ``samples`` rounds of ``calls`` calls (the host is shared and noisy)."""
+    fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(samples):
+        torch.cuda._sleep(BACKLOG_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        rounds.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(rounds))
+
+
+def check_bn_epilogue():
+    """``bn_epilogue`` against the eager ops (``bn_epilogue_ref``) at every
+    BN_SHAPES entry, with and without the residual, for no activation,
+    relu and relu6, and with x and r 4 bytes off 16 (the scalar route):
+    equal bit for bit, one counted launch a call.  Times kernel, eager
+    chain and bound at BN_TIMED, and the host's time a call of each.
+    Returns the record of the first timed shape, both under ``shapes``."""
+    checked = 0
+    with torch.no_grad():
+        for shape in BN_SHAPES:
+            for residual in (False, True):
+                for offset in (0, 1):
+                    x, r, ps = bn_inputs(shape, residual, offset)
+                    for act in (None, "relu", "relu6"):
+                        before = _build.launches(EPILOGUE)
+                        got = be.bn_epilogue(x, *ps, r, act)
+                        expect = kernel_ref.bn_epilogue_ref(x, *ps, r, act)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(got, expect) and
+                                _build.launches(EPILOGUE) == before + 1):
+                            err = (got - expect).abs().max().item()
+                            raise SystemExit(
+                                f"bn_epilogue differs from the eager ops "
+                                f"at {shape} residual {residual} offset "
+                                f"{offset} act {act}: {err}")
+                        checked += 1
+            del x, r, got, expect
+        print(f"bn_epilogue: {checked} calls equal bit for bit to the eager "
+              f"ops, one launch each")
+        shapes = []
+        for shape, residual in BN_TIMED:
+            x, r, ps = bn_inputs(shape, residual)
+
+            def kernel():
+                return be.bn_epilogue(x, *ps, r, "relu")
+
+            def plain():
+                return kernel_ref.bn_epilogue_ref(x, *ps, r, "relu")
+
+            # the wrapper's host time in parts: the output's allocation,
+            # and the bare C call on ready arguments
+            fn, raw_stream = be._kernel()
+            y = torch.empty_like(x)
+            args = (x.data_ptr(), None if r is None else r.data_ptr(),
+                    y.data_ptr(), *(p.data_ptr() for p in ps), x.numel(),
+                    shape[-1], 1, x.get_device(),
+                    raw_stream(x.get_device()))
+            bound_ms, bound_by = cost_bound(
+                be.epilogue_cost(x, residual, "relu"), torch.float32)
+            row = {"shape": list(shape), "residual": residual, "act": "relu",
+                   "max_abs_err": (kernel() - plain()).abs().max().item(),
+                   "ms": cuda_ms([kernel]),
+                   "plain_ms": cuda_ms([plain]), "bound_ms": bound_ms,
+                   "bound_by": bound_by, "host_us": host_us(kernel),
+                   "plain_host_us": host_us(plain),
+                   "host_empty_like_us": host_us(
+                       lambda: torch.empty_like(x)),
+                   "host_c_call_us": host_us(lambda: fn(*args))}
+            print(f"bn_epilogue timing at {shape} "
+                  f"{'bn+add+relu' if residual else 'bn+relu'}: max "
+                  f"|kernel - eager| {row['max_abs_err']:g}; kernel "
+                  f"{row['ms']:.4f} ms, eager chain {row['plain_ms']:.4f} "
+                  f"ms, bound {bound_ms:.4f} ms ({bound_by}); host a call "
+                  f"{row['host_us']:.2f} us (of it the output's "
+                  f"allocation {row['host_empty_like_us']:.2f} us, the C "
+                  f"call {row['host_c_call_us']:.2f} us), eager chain "
+                  f"{row['plain_host_us']:.2f} us")
+            shapes.append(row)
+            del x, r, y
+    torch.cuda.empty_cache()
+    return {"name": EPILOGUE, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bn_epilogue.cu",
+            "replaces": None, **{k: shapes[0][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "host_us", "plain_host_us")},
+            "library_ms": None,
+            "library_null_reason": "no single PyTorch call computes it "
+                                   "(the eager chain is the plain version)",
+            "checked_calls": checked, "shapes": shapes}
+
+
+def resnet50_epilogue_launches():
+    """One ResNet50 forward (batch 2, fp32, TF32 off): its fused groups'
+    bn_epilogue launches (53) and the output equal bit for bit to the
+    nodes run one by one on the card."""
+    m = cnn.REAL_CNNS[CNN]()
+    dev = torch.device(CARD)
+    params = m.init(dev, torch.Generator(dev).manual_seed(0))
+    x = torch.randn((2,) + m.input_shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    want = len(m.program().groups)
+    with torch.no_grad():
+        _build.reset_launches()
+        y = m.apply(params, x)
+        torch.cuda.synchronize()
+        n = _build.launches(EPILOGUE)
+        acts = {m.INPUT: x}
+        for name in m._order:
+            node = m.nodes[name]
+            acts[name] = node.apply(params.get(name, {}),
+                                    [acts[i] for i in node.inputs])
+        same = torch.equal(y, acts[m.output])
+    print(f"{CNN} forward: {n} bn_epilogue launches (expected {want}); "
+          f"equal bit for bit to the unfused nodes: {same}")
+    if n != want or want != 53 or not same:
+        raise SystemExit(f"{CNN}: {n} bn_epilogue launches of {want}, "
+                         f"unfused equal {same}")
+    return n
+
+
 def check_cnn_zoo():
     """Every Table-1 model and synthetic_cnn(64) at its published input
     size, batch 1: graph totals against the model's own and the paper's
     Table 1 (the reference's bounds), the initialized tensors against the
     params count, and one fp32 forward on the card against the same port
     weights on the CPU within CNN_TOL of max |y| (TF32 off; cuDNN's and the
-    CPU's convolutions sum in other orders).  Kernel launches must stay 0:
-    the CNN forward runs cuDNN, as the reference runs XLA."""
+    CPU's convolutions sum in other orders).  The KERNELS' launches must
+    stay 0 (the convolutions run cuDNN, as the reference runs XLA), and
+    bn_epilogue launches once for each of the forward's fused groups."""
     exempt = {"NASNetMobile", "ResNet50V2", "ResNet101V2", "ResNet152V2"}
     cpu = torch.device("cpu")
     worst = 0.0
@@ -1470,15 +1643,22 @@ def check_cnn_zoo():
         x = torch.randn((1,) + m.input_shape,
                         generator=torch.Generator(cpu).manual_seed(1))
         y_cpu = m.apply(params, x)
+        before = _build.launches(EPILOGUE)
         t0 = time.perf_counter()
         y = m.apply(to_card(params), x.cuda())
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        groups = len(m.program().groups)
+        if _build.launches(EPILOGUE) - before != groups:
+            raise SystemExit(f"cnn {name}: "
+                             f"{_build.launches(EPILOGUE) - before} "
+                             f"bn_epilogue launches, {groups} groups")
         scale = y_cpu.abs().max().item()
         rel = (y.cpu() - y_cpu).abs().max().item() / scale
         worst = max(worst, rel)
         print(f"cnn {name} {m.input_shape}: {m.total_params} params, "
-              f"{m.total_macs} MACs, depth {g.depth}; card vs CPU max_abs_err "
+              f"{m.total_macs} MACs, depth {g.depth}, {groups} bn_epilogue "
+              f"launches; card vs CPU max_abs_err "
               f"/ max|y| {rel:.3e} (tol {CNN_TOL:g}; max|y| {scale:.3e}), "
               f"out {tuple(y.shape)}, first card forward {dt * 1e3:.1f} ms")
         if not (ok and rel <= CNN_TOL and bool(torch.isfinite(y).all())):
@@ -4979,7 +5159,7 @@ def main() -> int:
         return spmd_cards_only(smi)
 
     t0 = time.perf_counter()
-    libs = _build.build(KERNELS)
+    libs = _build.build(KERNELS + (EPILOGUE,))
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -5043,6 +5223,8 @@ def main() -> int:
     rwkv_record = check_rwkv6_scan()
     rglru_record = check_rglru_scan()
     qi8_record = check_matmul_qi8()
+    bn_record = check_bn_epilogue()
+    bn_record["launches_resnet50"] = resnet50_epilogue_launches()
     torch.cuda.empty_cache()
     # max_len 300 puts qwen3's cache over two flash_decode splits
     check_family_on_card(ARCH, seq=200, prompt_len=40, n_new=8, max_len=300,
@@ -5163,7 +5345,8 @@ def main() -> int:
 
     bwd_record, rwkv_bwd_record, rglru_bwd_record = bwd_records
     kernels = [record, bwd_record, decode_record, rwkv_record,
-               rwkv_bwd_record, rglru_record, rglru_bwd_record, qi8_record]
+               rwkv_bwd_record, rglru_record, rglru_bwd_record, qi8_record,
+               bn_record]
     for rec in kernels:
         rec["design"] = DESIGNS[rec["name"]]
         if rec["name"] in tensor_ops:

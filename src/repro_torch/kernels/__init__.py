@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel of
-``repro.kernels`` on the ported paths.
+``repro.kernels`` on the ported paths, and ``bn_epilogue`` (the CNN
+forward's BatchNorm with the add and activation after it), which has no
+TPU counterpart.
 
 Each ``csrc/<name>.cu`` is built by ``_build`` at first use and bound with
 ctypes; its wrapper module checks inputs, launches it on the current CUDA

@@ -303,3 +303,24 @@ def matmul_qi8_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cuda":
         return (x.double() @ w.double()).to(torch.int32)
     return x.to(torch.int32) @ w.to(torch.int32)
+
+
+BN_EPS = 1e-3
+# the activations a bn_epilogue call applies, as the CNN forward's act
+# nodes compute them
+EPILOGUE_ACTS = {"relu": torch.relu,
+                 "relu6": lambda v: torch.clamp(v, 0, 6)}
+
+
+def bn_epilogue_ref(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                    gamma: torch.Tensor, beta: torch.Tensor,
+                    r: Optional[torch.Tensor] = None,
+                    act: Optional[str] = None) -> torch.Tensor:
+    """Inference BatchNorm over the last axis of ``x`` (eps 1e-3), then
+    ``+ r`` and ``act`` ("relu", "relu6" or None) where given: the CNN
+    forward's ``bn``, ``add`` and ``act`` nodes, op for op."""
+    inv = torch.rsqrt(var + BN_EPS)
+    y = (x - mean) * inv * gamma + beta
+    if r is not None:
+        y = y + r
+    return y if act is None else EPILOGUE_ACTS[act](y)

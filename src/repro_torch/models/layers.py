@@ -35,6 +35,26 @@ NHWC again.  The reference's numerics that torch does not give by default:
   eps 1e-3; parameter counts include the 4 per-channel BN tensors,
   matching Keras' "params" metric used by the paper's Table 1.
 
+Execution runs a program computed once per (layer subset, boundary names)
+and cached on the model (:meth:`GraphModel.program`): the nodes in order,
+each ``bn`` node run together with the ``add`` and ``act`` nodes that
+follow it as one :class:`FusedGroup`, a call of
+:func:`~repro_torch.kernels.bn_epilogue.bn_epilogue` (one CUDA launch on
+the card, the same plain ops on the CPU, equal bit for bit).  A group is a
+``bn``, then optionally an ``add`` of one other tensor that reads it, then
+optionally a ``relu`` or ``relu6`` ``act`` that reads the node before; it
+takes in a node only where the node before has it as its only consumer,
+it lies in the subset, and the node before is not among the tensors the
+subset returns.  So a stage cut inside a group hands over the unfused
+tensor, and a profile that times one depth level at a time fuses nothing.
+A group runs at its last node's place in the order.  Where autograd
+records through one of its inputs or parameters, a group runs the nodes'
+plain ops (:func:`~repro_torch.kernels.ref.bn_epilogue_ref`): the kernel
+has no backward.  On the card a group raises for an activation the kernel
+does not take (not fp32, not contiguous), so a change of the forward's
+layout or dtype cannot take it off the kernel unseen.  Node names, kinds,
+costs and ``to_layer_graph`` do not see the groups.
+
 Parameters are a ``{node: {"w", "b", "gamma", ...}}`` dict of tensors; each
 node's ``init`` draws from an explicit :class:`torch.Generator` on the
 device it is given.
@@ -43,16 +63,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, FrozenSet, List, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.graph import LayerGraph
+from ..kernels.bn_epilogue import bn_epilogue
+from ..kernels.ref import EPILOGUE_ACTS, bn_epilogue_ref
 
 Params = Dict[str, Any]
-BN_EPS = 1e-3
 
 
 @dataclasses.dataclass
@@ -67,10 +89,60 @@ class OpNode:
     out_shape: Tuple[int, ...]                   # per-single-input (no batch)
     kind: str = "generic"
     act_dtype_bytes: int = 1                     # int8 CNN path by default
+    activation: Optional[str] = None             # an act node's function
 
     @property
     def out_bytes(self) -> int:
         return int(np.prod(self.out_shape)) * self.act_dtype_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedGroup:
+    """A ``bn`` node and the ``add`` (with its other input, ``residual``)
+    and ``act`` (of function ``fn``) nodes after it that run with it as
+    one ``bn_epilogue`` call."""
+    bn: str
+    add: Optional[str] = None
+    residual: Optional[str] = None
+    act: Optional[str] = None
+    fn: Optional[str] = None
+
+    @property
+    def nodes(self) -> Tuple[str, ...]:
+        return tuple(n for n in (self.bn, self.add, self.act) if n)
+
+    @property
+    def out(self) -> str:
+        return self.nodes[-1]
+
+
+# one step of a program: (output name, fn(params, inputs), input names,
+# the params' node)
+Step = Tuple[str, Callable[[Params, List[torch.Tensor]], torch.Tensor],
+             Tuple[str, ...], str]
+
+
+class Program(NamedTuple):
+    """What :meth:`GraphModel.apply_subset` runs for one (layer subset,
+    boundary names): the steps in order, the fused groups among them, and
+    the names of the activations it returns."""
+    steps: Tuple[Step, ...]
+    groups: Tuple[FusedGroup, ...]
+    returns: Tuple[str, ...]
+
+
+def _epilogue_step(act: Optional[str], residual: bool):
+    """A group's step: one ``bn_epilogue`` call, or the nodes' plain ops
+    where autograd records through an input or a parameter (the kernel
+    has no backward; on the CPU both are the same ops)."""
+    def run(p: Params, xs: List[torch.Tensor]) -> torch.Tensor:
+        args = (xs[0], p["mean"], p["var"], p["gamma"], p["beta"],
+                xs[1] if residual else None)
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in args):
+            return bn_epilogue_ref(*args, act)
+        return bn_epilogue(*args, act)
+    return run
 
 
 class GraphModel:
@@ -83,6 +155,8 @@ class GraphModel:
         self._order: List[str] = []
         self.output: Optional[str] = None
         self._depths: Dict[str, int] = {}
+        self._programs: Dict[Tuple[Optional[Tuple[str, ...]],
+                                   FrozenSet[str]], Program] = {}
 
     INPUT = "__input__"
 
@@ -107,6 +181,7 @@ class GraphModel:
         self.nodes[node.name] = node
         self._order.append(node.name)
         self.output = node.name
+        self._programs.clear()
         return node.name
 
     def shape_of(self, name: str) -> Tuple[int, ...]:
@@ -138,11 +213,7 @@ class GraphModel:
     # -- execution --------------------------------------------------------------
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C) -> the output node's activation."""
-        acts: Dict[str, torch.Tensor] = {self.INPUT: x}
-        for name in self._order:
-            node = self.nodes[name]
-            xs = [acts[i] for i in node.inputs]
-            acts[name] = node.apply(params.get(name, {}), xs)
+        acts = self._run(self.program(), params, {self.INPUT: x})
         assert self.output is not None
         return acts[self.output]
 
@@ -154,27 +225,88 @@ class GraphModel:
         later layers (plus the model output if produced).  A boundary
         activation that a layer past the range still reads (a skip
         connection over the whole stage) is passed on too."""
-        subset = set(layer_names)
-        acts: Dict[str, torch.Tensor] = dict(boundary)
-        for name in self._order:
-            if name not in subset:
-                continue
-            node = self.nodes[name]
-            xs = [acts[i] for i in node.inputs]
-            acts[name] = node.apply(params.get(name, {}), xs)
+        prog = self.program(layer_names, boundary)
+        acts = self._run(prog, params, dict(boundary))
+        return {name: acts[name] for name in prog.returns}
+
+    def _run(self, prog: Program, params: Params,
+             acts: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        for out, fn, inputs, owner in prog.steps:
+            acts[out] = fn(params.get(owner, {}),
+                           [acts[i] for i in inputs])
+        return acts
+
+    def program(self, layer_names: Optional[Sequence[str]] = None,
+                boundary: Sequence[str] = (INPUT,)) -> Program:
+        """The program of ``layer_names`` (None: every node) fed the
+        ``boundary`` names, built on first use and cached."""
+        key = (None if layer_names is None else tuple(layer_names),
+               frozenset(boundary))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = self._build_program(*key)
+        return prog
+
+    def _build_program(self, layer_names: Optional[Tuple[str, ...]],
+                       boundary: FrozenSet[str]) -> Program:
+        subset = set(self._order if layer_names is None else layer_names)
         # outputs = activations consumed outside the subset, or final output
         depth = self.depths()
         last = max(depth[n] for n in subset)
-        needed: Dict[str, torch.Tensor] = {}
+        returns: Dict[str, None] = {}
+        consumers: Dict[str, List[str]] = {}
         for name in self._order:
-            if name in subset:
-                continue
             for i in self.nodes[name].inputs:
-                if i in subset or (i in boundary and depth[name] > last):
-                    needed[i] = acts[i]
+                consumers.setdefault(i, []).append(name)
+                if name not in subset and (
+                        i in subset or (i in boundary and depth[name] > last)):
+                    returns[i] = None
         if self.output in subset:
-            needed[self.output] = acts[self.output]
-        return needed
+            returns[self.output] = None
+
+        def next_of(name: str) -> Optional[OpNode]:
+            """The node a group may take in after ``name``."""
+            after = consumers.get(name, [])
+            if len(after) == 1 and after[0] in subset and name not in returns:
+                return self.nodes[after[0]]
+            return None
+
+        group_of: Dict[str, FusedGroup] = {}
+        for name in self._order:
+            if name not in subset or self.nodes[name].kind != "bn":
+                continue
+            add = residual = act = fn = None
+            nxt = next_of(name)
+            if (nxt is not None and nxt.kind == "add"
+                    and len(nxt.inputs) == 2 and nxt.name not in group_of):
+                other = (nxt.inputs[1] if nxt.inputs[0] == name
+                         else nxt.inputs[0])
+                if (other != name
+                        and self.shape_of(other) == self.shape_of(name)):
+                    add, residual = nxt.name, other
+                    nxt = next_of(add)
+            if (nxt is not None and nxt.kind == "act"
+                    and nxt.activation in EPILOGUE_ACTS):
+                act, fn = nxt.name, nxt.activation
+            group = FusedGroup(name, add, residual, act, fn)
+            for n in group.nodes:
+                group_of[n] = group
+
+        steps: List[Step] = []
+        for name in self._order:
+            if name not in subset:
+                continue
+            group = group_of.get(name)
+            if group is None:
+                node = self.nodes[name]
+                steps.append((name, node.apply, tuple(node.inputs), name))
+            elif name == group.out:
+                inputs = (self.nodes[group.bn].inputs[0],) + (
+                    (group.residual,) if group.residual else ())
+                steps.append((name, _epilogue_step(
+                    group.fn, group.residual is not None), inputs, group.bn))
+        groups = tuple(dict.fromkeys(group_of.values()))
+        return Program(tuple(steps), groups, tuple(returns))
 
     # -- lowering to the segmentation representation ----------------------------
     def to_layer_graph(self) -> LayerGraph:
@@ -279,8 +411,8 @@ class Builder:
                     "var": torch.ones(c, device=device)}
 
         def apply(p: Params, xs: List[torch.Tensor]) -> torch.Tensor:
-            inv = torch.rsqrt(p["var"] + BN_EPS)
-            return (xs[0] - p["mean"]) * inv * p["gamma"] + p["beta"]
+            return bn_epilogue_ref(xs[0], p["mean"], p["var"], p["gamma"],
+                                   p["beta"])
 
         # Keras counts all 4 BN tensors in "params" (2 trainable + 2 stats)
         self.model.add(OpNode(nm, [x], init, apply, 4 * c, 0, (h, w, c),
@@ -290,16 +422,13 @@ class Builder:
     def act(self, x: str, fn: str = "relu", name: Optional[str] = None) -> str:
         shape = self.model.shape_of(x)
         nm = name or self._uniq(fn)
-        f = {"relu": torch.relu,
-             "relu6": lambda v: torch.clamp(v, 0, 6),
-             "swish": F.silu,
-             "sigmoid": torch.sigmoid}[fn]
+        f = {**EPILOGUE_ACTS, "swish": F.silu, "sigmoid": torch.sigmoid}[fn]
 
         def apply(p: Params, xs: List[torch.Tensor]) -> torch.Tensor:
             return f(xs[0])
 
         self.model.add(OpNode(nm, [x], _no_params, apply, 0, 0, shape,
-                              kind="act"))
+                              kind="act", activation=fn))
         return nm
 
     def pool(self, x: str, kind: str, size: int, stride: int,

@@ -13,7 +13,9 @@ flash_attention also rounds P to bf16 for the tensor cores).  The scans:
 rtol = atol = 2e-4 (rwkv6_scan) and 1e-5 (rglru_scan) in fp32, 2e-2 in
 bf16, the tolerances of the reference's own kernel tests.  matmul_qi8 and
 the int8 API: exact.  The CNN forward: 1e-4 of max |y| against the CPU
-(fp32, TF32 off; convolution algorithms sum in other orders).  The
+(fp32, TF32 off; convolution algorithms sum in other orders).
+``bn_epilogue`` and the CNN forward through it: equal bit for bit to the
+eager ops on the card (``torch.equal``: the sign of a zero may differ).  The
 flash-attention backward: each of dq, dk and dv within 1e-4 (fp32) or
 2e-2 (bf16, which also rounds P and dS to bf16 for the tensor cores) of
 its scale max(1, max |plain|), within 1e-5 (fp32) or 1e-2 (bf16)
@@ -33,6 +35,7 @@ from repro_torch import api as tapi
 from repro_torch import configs
 from repro_torch.configs.common import concrete_batch
 from repro_torch.kernels import _build
+from repro_torch.kernels import bn_epilogue as be
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import matmul_qi8 as mq
@@ -40,7 +43,7 @@ from repro_torch.kernels import quant
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.checkpoint.store import tree_map
-from repro_torch.kernels.ref import (flash_attention_bwd_ref,
+from repro_torch.kernels.ref import (bn_epilogue_ref, flash_attention_bwd_ref,
                                      flash_attention_ref, flash_decode_ref,
                                      matmul_qi8_ref, rglru_scan_bwd_ref,
                                      rglru_scan_ref, rwkv6_scan_bwd_ref,
@@ -603,6 +606,196 @@ def test_replica_workers_overlap_on_their_own_streams(sm90):
     for x, out in zip(xs, outs):
         assert torch.equal(out["y"], x * 2 + 1)
     assert two < 1.5 * one, (one, two)
+
+
+# ResNet50's BN outputs at the benchmark's microbatch of 32
+BN_SHAPES = [(32, 112, 112, 64), (32, 56, 56, 64), (32, 56, 56, 256),
+             (32, 28, 28, 128), (32, 28, 28, 512), (32, 14, 14, 256),
+             (32, 14, 14, 1024), (32, 7, 7, 512), (32, 7, 7, 2048)]
+
+
+def _bn_case(dev, shape, residual, offset=0, seed=5):
+    """x and r (or None) of ``shape`` starting ``offset`` floats into their
+    buffers, values past relu6's 6, and random per-channel vectors."""
+    g = torch.Generator(dev).manual_seed(seed)
+    n, c = int(np.prod(shape)), shape[-1]
+
+    def act(scale):
+        buf = torch.randn(n + offset, generator=g, device=dev) * scale
+        return buf[offset:].view(shape)
+
+    x = act(4.0)
+    r = act(3.0) if residual else None
+    ps = [torch.randn(c, generator=g, device=dev) * 0.5,
+          torch.rand(c, generator=g, device=dev) * 2 + 0.01,
+          torch.rand(c, generator=g, device=dev) + 0.5,
+          torch.randn(c, generator=g, device=dev)]
+    return x, r, ps
+
+
+def _epilogue_equal(x, r, ps, act):
+    before = _build.launches("bn_epilogue")
+    got = be.bn_epilogue(x, *ps, r, act)
+    expect = bn_epilogue_ref(x, *ps, r, act)
+    torch.cuda.synchronize()
+    assert _build.launches("bn_epilogue") == before + 1
+    assert got.shape == x.shape and got.is_contiguous()
+    assert torch.equal(got, expect), (got - expect).abs().max().item()
+
+
+@pytest.mark.parametrize("act", [None, "relu", "relu6"])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape", BN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in BN_SHAPES])
+def test_bn_epilogue_equals_the_eager_ops(sm90, shape, residual, act):
+    with torch.no_grad():
+        _epilogue_equal(*_bn_case(sm90, shape, residual), act)
+
+
+# the scalar route: C % 4 != 0, and x / r off 16 bytes
+@pytest.mark.parametrize("act", [None, "relu", "relu6"])
+@pytest.mark.parametrize("shape,offset", [((4, 9, 9, 30), 0),
+                                          ((2, 7, 7, 3), 0),
+                                          ((8, 14, 14, 64), 1),
+                                          ((8, 14, 14, 64), 2)],
+                         ids=["c30", "c3", "offset1", "offset2"])
+def test_bn_epilogue_scalar_route_equals_the_eager_ops(sm90, shape, offset,
+                                                       act):
+    x, r, ps = _bn_case(sm90, shape, True, offset)
+    with torch.no_grad():
+        _epilogue_equal(x, r, ps, act)
+        _epilogue_equal(x, None, ps, act)
+
+
+def test_bn_epilogue_refuses_2_31_elements(sm90):
+    """The kernel indexes in 32 bits: its C entry refuses 2^31 elements
+    (cudaErrorInvalidValue, before any launch: the pointers are null), as
+    it refuses a negative count and an unknown activation, and accepts
+    2^31 - 64 up to the launch it would make."""
+    fn, raw_stream = be._kernel()
+    dev = torch.cuda.current_device()
+
+    def call(n, act=1):
+        return fn(None, None, None, None, None, None, None, n, 64, act, dev,
+                  raw_stream(dev))
+
+    assert call(2 ** 31) == call(2 ** 40) == call(-64) == 1
+    assert call(64, act=3) == 1
+    assert be.MAX_ELEMENTS == 2 ** 31 - 1
+    assert call(0) == 0
+
+
+# (case, the error): what the kernel does not take raises on the card, and
+# nothing runs in its place
+REFUSED_ON_CARD = [("transposed", ValueError), ("offset_view", ValueError),
+                   ("float64", TypeError), ("bfloat16", TypeError),
+                   ("mean_on_cpu", ValueError), ("r_on_cpu", ValueError),
+                   ("requires_grad", RuntimeError)]
+
+
+@pytest.mark.parametrize("case,error", REFUSED_ON_CARD,
+                         ids=[case for case, _ in REFUSED_ON_CARD])
+def test_bn_epilogue_refuses_on_the_card(sm90, case, error):
+    x, r, ps = _bn_case(sm90, (4, 8, 8, 64), True)
+    if case == "transposed":
+        x = x.transpose(1, 2)
+    elif case == "offset_view":
+        x = x[:, :, :, :32]
+        r = r[:, :, :, :32]
+        ps = [p[:32] for p in ps]
+    elif case == "float64":
+        x = x.double()
+    elif case == "bfloat16":
+        x, r = x.bfloat16(), r.bfloat16()
+    elif case == "mean_on_cpu":
+        ps[0] = ps[0].cpu()
+    elif case == "r_on_cpu":
+        r = r.cpu()
+    else:
+        x = x.detach().requires_grad_(True)
+    before = _build.launches("bn_epilogue")
+    with pytest.raises(error):
+        be.bn_epilogue(x, *ps, r, "relu")
+    assert _build.launches("bn_epilogue") == before
+
+
+def test_bn_epilogue_launches_on_the_current_stream(sm90):
+    """On a side stream, after the card has slept there: the kernel reads x
+    only once that stream has written it."""
+    x0, r, ps = _bn_case(sm90, (32, 28, 28, 512), True)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.no_grad(), torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        x = x0 * 1
+        got = be.bn_epilogue(x, *ps, r, "relu")
+        expect = bn_epilogue_ref(x, *ps, r, "relu")
+    torch.cuda.synchronize()
+    assert torch.equal(got, expect)
+
+
+def test_bn_epilogue_on_a_second_card(sm90):
+    """A call on cuda:1 while cuda:0 is current: the launch goes to card 1
+    and the current device is left as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    dev = torch.device("cuda", 1)
+    x, r, ps = _bn_case(dev, (8, 14, 14, 256), True)
+    torch.cuda.set_device(0)
+    with torch.no_grad():
+        got = be.bn_epilogue(x, *ps, r, "relu")
+    assert torch.cuda.current_device() == 0 and got.device == dev
+    assert torch.equal(got, bn_epilogue_ref(x, *ps, r, "relu"))
+    assert _build.launches_by_card("bn_epilogue").get(1, 0) >= 1
+
+
+def test_resnet50_forward_is_53_epilogue_launches(sm90):
+    """One ResNet50 forward: 53 ``bn_epilogue`` launches (33 bn+relu, 16
+    bn+add+relu, 4 lone bn), and the output equal bit for bit to the nodes
+    run one by one on the card (the same cuDNN convolutions)."""
+    m = cnn.REAL_CNNS["ResNet50"]()
+    params = m.init(sm90, torch.Generator(sm90).manual_seed(0))
+    for name, node in m.nodes.items():
+        if node.kind == "bn":
+            g = torch.Generator(sm90).manual_seed(len(name))
+            params[name] = {k: t.uniform_(0.5, 1.5, generator=g)
+                            for k, t in params[name].items()}
+    x = torch.randn((2,) + m.input_shape, device=sm90,
+                    generator=torch.Generator(sm90).manual_seed(1))
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        _build.reset_launches()
+        y = m.apply(params, x)
+        torch.cuda.synchronize()
+        assert _build.launches("bn_epilogue") == 53
+        acts = {m.INPUT: x}
+        for name in m._order:
+            node = m.nodes[name]
+            acts[name] = node.apply(params.get(name, {}),
+                                    [acts[i] for i in node.inputs])
+    assert _build.launches("bn_epilogue") == 53
+    assert torch.equal(y, acts[m.output])
+
+
+def test_resnet50_forward_under_autograd_runs_the_plain_ops(sm90):
+    """With an input that requires grad, ``GraphModel`` runs each group's
+    plain ops (no ``bn_epilogue`` launch, as the kernel has no backward),
+    equal bit for bit to the kernel's forward, and the input gets a
+    gradient."""
+    m = cnn.REAL_CNNS["ResNet50"]()
+    params = m.init(sm90, torch.Generator(sm90).manual_seed(0))
+    x = torch.randn((1,) + m.input_shape, device=sm90,
+                    generator=torch.Generator(sm90).manual_seed(1))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with torch.no_grad():
+            fused = m.apply(params, x)
+        _build.reset_launches()
+        xg = x.clone().requires_grad_(True)
+        y = m.apply(params, xg)
+        assert _build.launches("bn_epilogue") == 0
+        y.sum().backward()
+    assert torch.equal(y.detach(), fused)
+    assert xg.grad is not None and bool(torch.isfinite(xg.grad).all())
 
 
 # whisper-tiny's attention shapes (6/6 heads, D 64): the encoder's
