@@ -55,6 +55,10 @@ does not take (not fp32, not contiguous), so a change of the forward's
 layout or dtype cannot take it off the kernel unseen.  Node names, kinds,
 costs and ``to_layer_graph`` do not see the groups.
 
+A grouped (depthwise) convolution runs its pad and its ``conv2d`` inside
+the profiler span :data:`DWCONV_SPAN` (nothing without a profiler), which
+the benchmark's depthwise metrics read; an ungrouped one opens none.
+
 Parameters are a ``{node: {"w", "b", "gamma", ...}}`` dict of tensors; each
 node's ``init`` draws from an explicit :class:`torch.Generator` on the
 device it is given.
@@ -73,8 +77,10 @@ import torch.nn.functional as F
 from ..core.graph import LayerGraph
 from ..kernels.bn_epilogue import bn_epilogue
 from ..kernels.ref import EPILOGUE_ACTS, bn_epilogue_ref
+from ..profiling.spans import span
 
 Params = Dict[str, Any]
+DWCONV_SPAN = "cnn.dwconv"
 
 
 @dataclasses.dataclass
@@ -387,6 +393,13 @@ class Builder:
                 v = F.pad(v, pads)
             return _nhwc(F.conv2d(v, p["w"], p.get("b"), stride=stride,
                                   groups=groups))
+
+        if groups > 1:
+            conv = apply
+
+            def apply(p: Params, xs: List[torch.Tensor]) -> torch.Tensor:
+                with span(DWCONV_SPAN):
+                    return conv(p, xs)
 
         self.model.add(OpNode(nm, [x], init, apply, pcount, macs,
                               (oh, ow, filters), kind="conv"))
