@@ -17,8 +17,8 @@ With no arguments:
 2. builds every CUDA kernel of the model paths from the sources in this
    checkout (flash_attention, flash_attention_bwd, flash_decode,
    rwkv6_scan, rwkv6_scan_bwd, rglru_scan, rglru_scan_bwd, matmul_qi8,
-   bn_epilogue; one nvcc per source, started together), prints ptxas's
-   registers and spills of each kernel (failing if flash_decode,
+   bn_epilogue, dwconv; one nvcc per source, started together), prints
+   ptxas's registers and spills of each kernel (failing if flash_decode,
    rwkv6_scan, rglru_scan or any of the three backwards spills) and the
    tensor-core instructions in
    the SASS of bf16 flash_attention, its backward and flash_decode
@@ -50,7 +50,15 @@ With no arguments:
    residual, none / relu / relu6, a ragged C and an offset pointer),
    timed at the largest BN and at a residual block's output beside the
    eager chain and the byte bound, with the host's time a call of the
-   wrapper and of the eager chain;
+   wrapper and of the eager chain; ``dwconv`` (the CNN forward's depthwise
+   convolution, its SAME pads inside the kernel, no TPU counterpart):
+   ptxas's registers and spills of its k 3, 5 and 7 instantiations, the
+   kernel within 4 ulp of max |plain| at MobileNetV2's depthwise shapes
+   (microbatch 256) and at k 5 and 7, timed at MobileNetV2's expansions 1
+   and 2 beside the byte bound, the plain version (F.pad and cuDNN's
+   grouped conv2d, the port's route before the kernel: also its
+   ``library_ms``) and cuDNN's conv alone on an input padded beforehand,
+   with the host's time a call; a MobileNetV2 forward's 17 launches;
 4. holds the full model on the card against the same model on the CPU at
    the smoke configs of qwen3-1.7b, rwkv6-1.6b, recurrentgemma-9b and the
    six archs of the LM-families slice (qwen2.5-14b, minitron-4b,
@@ -223,7 +231,8 @@ With no arguments:
 13. the paper's CNN path (fp32, TF32 off): all 21 Table-1 models and
    synthetic_cnn(64) at their published input sizes, one forward each on
    the card against the CPU, with one ``bn_epilogue`` launch for each of
-   the forward's fused groups; ResNet50 planned by the analytic Edge TPU
+   the forward's fused groups and one ``dwconv`` launch for each
+   depthwise convolution; ResNet50 planned by the analytic Edge TPU
    model (balanced, 4 stages) and served through ``cnn_stage_fns`` (64
    single-image requests), then profiled depth by depth on the card and
    re-planned from that trace (balanced_cost, ``trace:``) for the
@@ -261,7 +270,7 @@ With no arguments:
    its events, attainment and the audit (0 lost, 0 misordered, every
    output equal to its member's direct forward); the phases 14 to 17
    launch no hand-written kernel but the prefill's flash_attention and
-   the CNN forwards' bn_epilogue (uncounted there);
+   the CNN forwards' bn_epilogue and dwconv (uncounted there);
 18. prints one JSON line of CNN results, one of the fault-tolerance,
    self-healing and fleet results, one of kernel results, then, as the
    last line, ``{"ok": true, "device": {...}}``.
@@ -294,6 +303,7 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -315,6 +325,7 @@ from repro_torch.fleet import (FleetMemberSpec, FleetSpec,  # noqa: E402
                                deploy_fleet)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bn_epilogue as be  # noqa: E402
+from repro_torch.kernels import dwconv as dw  # noqa: E402
 from repro_torch.kernels import ref as kernel_ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
@@ -340,8 +351,8 @@ from repro_torch.optim import AdamWConfig, adamw_update  # noqa: E402
 from repro_torch.optim.adamw import PIECE  # noqa: E402
 from repro_torch.launch.cuda_reporter import (  # noqa: E402
     CudaSegmentReporter)
-from repro_torch.models import (api, cnn, lm, lm_graph,  # noqa: E402
-                                rglru, rwkv6, whisper)
+from repro_torch.models import (api, cnn, layers, lm,  # noqa: E402
+                                lm_graph, rglru, rwkv6, whisper)
 from repro_torch.profiling import profile_model  # noqa: E402
 from repro_torch.runtime import (ChaosEvent, ChaosMonkey,  # noqa: E402
                                  ElasticPlanner, FaultPolicy,
@@ -433,10 +444,17 @@ DESIGNS = {
                    "loaded before any is computed, per-channel values "
                    "through the read-only cache; a scalar route for C % 4 "
                    "or a misaligned pointer; the eager chain's rounding",
+    "dwconv": "SAME pads as offsets, no padded copy: a block stages its "
+              "chunk of channel quads' taps tap-major in shared memory; a "
+              "thread owns 4 channels (16-byte loads and stores) and a strip "
+              "of 8 output columns (4 at stride 2 or k 5 and 7), loads each "
+              "input row's window before its FMAs; halo rows and strip "
+              "overlaps re-read from L1 and L2",
 }
-# the hand-written kernel of the CNN forward: no TPU counterpart, and not
+# the hand-written kernels of the CNN forward: no TPU counterpart, and not
 # in KERNELS, whose counts the LM and serving phases pin
 EPILOGUE = "bn_epilogue"
+DWCONV = "dwconv"
 
 ARCH = "qwen3-1.7b"
 SEQ = 1024
@@ -491,6 +509,18 @@ BN_SHAPES = ((32, 112, 112, 64), (32, 56, 56, 64), (32, 56, 56, 256),
              (4, 9, 9, 30))
 BN_TIMED = (((32, 112, 112, 64), False), ((32, 56, 56, 256), True))
 HOST_CALLS = 50         # calls a host-time sample issues while the card sleeps
+# dwconv: MobileNetV2's depthwise convolutions at the benchmark's microbatch
+# of 256 (N, H, W, C, k, stride), checked against the plain ops; timed at
+# its expansion 1 (the largest input, stride 2) and expansion 2 (stride 1)
+DW_SHAPES = ((256, 112, 112, 32, 3, 1), (256, 112, 112, 96, 3, 2),
+             (256, 56, 56, 144, 3, 1), (256, 56, 56, 144, 3, 2),
+             (256, 28, 28, 192, 3, 1), (256, 28, 28, 192, 3, 2),
+             (256, 14, 14, 384, 3, 1), (256, 14, 14, 576, 3, 1),
+             (256, 14, 14, 576, 3, 2), (256, 7, 7, 960, 3, 1),
+             (8, 111, 111, 32, 5, 2), (8, 56, 56, 44, 5, 1),
+             (8, 15, 15, 16, 7, 1))
+DW_TIMED = ((256, 112, 112, 96, 3, 2), (256, 56, 56, 144, 3, 1))
+DW_ULPS = 4             # kernel vs plain ops, of max |plain| (sum order)
 # the CNN path: the analytic plan of paper Table 5 / examples/quickstart.py,
 # then the same model planned from its own trace on the card
 CNN = "ResNet50"
@@ -1585,6 +1615,147 @@ def check_bn_epilogue():
             "checked_calls": checked, "shapes": shapes}
 
 
+def dw_inputs(shape, seed=0):
+    """x (N, H, W, C), the (C, 1, k, k) channels_last weight scaled by
+    fan-in ** -0.5, the stride and XLA's SAME pads in ``F.pad``'s order."""
+    n, h, w, c, k, stride = shape
+    g = torch.Generator(CARD).manual_seed(seed)
+    x = torch.randn((n, h, w, c), generator=g, device=CARD)
+    wt = (torch.randn((c, 1, k, k), generator=g, device=CARD) / k).contiguous(
+        memory_format=torch.channels_last)
+    (pt, pb), (pl, pr) = (layers.same_pads(h, k, stride),
+                          layers.same_pads(w, k, stride))
+    return x, wt, stride, (pl, pr, pt, pb)
+
+
+def dw_ptxas(log):
+    """Registers and spill store bytes of each dwconv instantiation in a
+    ``-Xptxas -v`` log: {"k3 s1": (registers, spill bytes), ...}."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '[^']*dwconv_kernel"
+                      r"ILi(\d)ELi(\d)E", line)
+        if m:
+            key = f"k{m.group(1)} s{m.group(2)}"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and key is not None:
+            out[key] = [None, int(m.group(1))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key in out:
+            out[key][0] = int(m.group(1))
+            key = None
+    return {k: tuple(v) for k, v in sorted(out.items())}
+
+
+def check_dwconv(log):
+    """``dwconv`` against its plain version (``dwconv_ref``: ``F.pad`` and
+    cuDNN's grouped ``conv2d``) at DW_SHAPES: one counted launch a call,
+    within DW_ULPS of max |plain|.  Prints ptxas's registers and spills of
+    each instantiation (``log``: the build's), and times kernel, plain
+    version, cuDNN's convolution alone on an input padded beforehand and
+    the bound at DW_TIMED, with the host's time a call of the wrapper and
+    of the plain version.  The plain version is also the library's route
+    (``library_ms``): F.pad then cuDNN, the port's route before the
+    kernel, which it no longer calls.  Returns the record of the first
+    timed shape, both under ``shapes``."""
+    regs = dw_ptxas(log)
+    print(f"dwconv ptxas (registers, spill bytes) by instantiation: {regs}")
+    if sorted(regs) != ["k3 s1", "k3 s2", "k5 s1", "k5 s2", "k7 s1",
+                        "k7 s2"]:
+        raise SystemExit(f"dwconv: instantiations not found: {regs}")
+    eps = torch.finfo(torch.float32).eps
+    worst = 0.0
+    with torch.no_grad():
+        for shape in DW_SHAPES:
+            x, wt, stride, pads = dw_inputs(shape)
+            before = _build.launches(DWCONV)
+            got = dw.dwconv(x, wt, None, stride, pads)
+            expect = kernel_ref.dwconv_ref(x, wt, None, stride, pads)
+            torch.cuda.synchronize()
+            err = ((got - expect).abs().max().item()
+                   / expect.abs().max().item() / eps)
+            worst = max(worst, err)
+            if not (err <= DW_ULPS and got.shape == expect.shape
+                    and _build.launches(DWCONV) == before + 1):
+                raise SystemExit(f"dwconv at {shape}: {err:.2f} ulp of max "
+                                 f"|plain| (tol {DW_ULPS}), shape "
+                                 f"{tuple(got.shape)}")
+            del x, got, expect
+        print(f"dwconv: {len(DW_SHAPES)} shapes within {worst:.2f} ulp of "
+              f"max |plain| (tol {DW_ULPS}), one launch each")
+        shapes = []
+        for shape in DW_TIMED:
+            x, wt, stride, pads = dw_inputs(shape)
+            padded = F.pad(x.permute(0, 3, 1, 2), pads)
+
+            def kernel():
+                return dw.dwconv(x, wt, None, stride, pads)
+
+            def plain():
+                return kernel_ref.dwconv_ref(x, wt, None, stride, pads)
+
+            def cudnn():
+                return F.conv2d(padded, wt, None, stride=stride,
+                                groups=x.shape[-1])
+
+            y = kernel()
+            bound_ms, bound_by = cost_bound(
+                dw.dwconv_cost(x, shape[4], y.shape[1], y.shape[2], False),
+                torch.float32)
+            row = {"shape": list(shape), "pads": list(pads),
+                   "max_abs_err": (y - plain()).abs().max().item(),
+                   "ms": cuda_ms([kernel]), "plain_ms": cuda_ms([plain]),
+                   "cudnn_conv_alone_ms": cuda_ms([cudnn]),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "host_us": host_us(kernel), "plain_host_us": host_us(plain)}
+            row["library_ms"] = row["plain_ms"]
+            row["roofline"] = row["bound_ms"] / row["ms"]
+            print(f"dwconv timing at {shape} pads {pads}: max |kernel - "
+                  f"plain| {row['max_abs_err']:g}; kernel {row['ms']:.4f} "
+                  f"ms ({row['roofline']:.1%} of the bound {bound_ms:.4f} "
+                  f"ms, {bound_by}), plain = library (F.pad + cuDNN) "
+                  f"{row['plain_ms']:.4f} ms, "
+                  f"cuDNN's conv alone on a padded input "
+                  f"{row['cudnn_conv_alone_ms']:.4f} ms; host a call "
+                  f"{row['host_us']:.2f} us, plain {row['plain_host_us']:.2f}"
+                  f" us")
+            shapes.append(row)
+            del x, padded, y
+    torch.cuda.empty_cache()
+    return {"name": DWCONV, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dwconv.cu",
+            "replaces": None, **{k: shapes[0][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "host_us", "plain_host_us")},
+            "library": "F.pad + cuDNN's grouped conv2d (the plain version)",
+            "worst_ulps": worst, "ptxas": regs, "shapes": shapes}
+
+
+def mobilenetv2_dwconv_launches():
+    """One MobileNetV2 forward (batch 2, fp32, TF32 off): 17 dwconv
+    launches, the output within 1.5e-5 of max |y| (the benchmark cell's
+    limit) of the forward through the plain version."""
+    m = cnn.REAL_CNNS["MobileNetV2"]()
+    dev = torch.device(CARD)
+    params = m.init(dev, torch.Generator(dev).manual_seed(0))
+    x = torch.randn((2,) + m.input_shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    with torch.no_grad():
+        _build.reset_launches()
+        y = m.apply(params, x)
+        torch.cuda.synchronize()
+        n = _build.launches(DWCONV)
+        with unittest.mock.patch.object(layers, "dwconv",
+                                        kernel_ref.dwconv_ref):
+            plain = m.apply(params, x)
+    err = (y - plain).abs().max().item() / plain.abs().max().item()
+    print(f"MobileNetV2 forward: {n} dwconv launches (expected 17); "
+          f"max_abs_err / max|y| against the plain route {err:.3e}")
+    if n != 17 or not err <= 1.5e-5:
+        raise SystemExit(f"MobileNetV2: {n} dwconv launches, {err:.3e}")
+    return n
+
+
 def resnet50_epilogue_launches():
     """One ResNet50 forward (batch 2, fp32, TF32 off): its fused groups'
     bn_epilogue launches (53) and the output equal bit for bit to the
@@ -1621,8 +1792,10 @@ def check_cnn_zoo():
     params count, and one fp32 forward on the card against the same port
     weights on the CPU within CNN_TOL of max |y| (TF32 off; cuDNN's and the
     CPU's convolutions sum in other orders).  The KERNELS' launches must
-    stay 0 (the convolutions run cuDNN, as the reference runs XLA), and
-    bn_epilogue launches once for each of the forward's fused groups."""
+    stay 0 (the convolutions run cuDNN, as the reference runs XLA, but
+    for the depthwise ones), bn_epilogue launches once for each of the
+    forward's fused groups and dwconv once for each depthwise
+    convolution."""
     exempt = {"NASNetMobile", "ResNet50V2", "ResNet101V2", "ResNet152V2"}
     cpu = torch.device("cpu")
     worst = 0.0
@@ -1643,22 +1816,29 @@ def check_cnn_zoo():
         x = torch.randn((1,) + m.input_shape,
                         generator=torch.Generator(cpu).manual_seed(1))
         y_cpu = m.apply(params, x)
-        before = _build.launches(EPILOGUE)
+        before = _build.launches(EPILOGUE), _build.launches(DWCONV)
         t0 = time.perf_counter()
         y = m.apply(to_card(params), x.cuda())
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         groups = len(m.program().groups)
-        if _build.launches(EPILOGUE) - before != groups:
-            raise SystemExit(f"cnn {name}: "
-                             f"{_build.launches(EPILOGUE) - before} "
-                             f"bn_epilogue launches, {groups} groups")
+        # depthwise: a (C, 1, k, k) weight over C > 1 input channels
+        depthwise = sum(
+            1 for n, node in m.nodes.items() if node.kind == "conv"
+            and params[n]["w"].shape[1] == 1
+            and params[n]["w"].shape[0] == m.shape_of(node.inputs[0])[-1] > 1)
+        launched = (_build.launches(EPILOGUE) - before[0],
+                    _build.launches(DWCONV) - before[1])
+        if launched != (groups, depthwise):
+            raise SystemExit(f"cnn {name}: (bn_epilogue, dwconv) launches "
+                             f"{launched}, groups and depthwise convs "
+                             f"{(groups, depthwise)}")
         scale = y_cpu.abs().max().item()
         rel = (y.cpu() - y_cpu).abs().max().item() / scale
         worst = max(worst, rel)
         print(f"cnn {name} {m.input_shape}: {m.total_params} params, "
               f"{m.total_macs} MACs, depth {g.depth}, {groups} bn_epilogue "
-              f"launches; card vs CPU max_abs_err "
+              f"and {depthwise} dwconv launches; card vs CPU max_abs_err "
               f"/ max|y| {rel:.3e} (tol {CNN_TOL:g}; max|y| {scale:.3e}), "
               f"out {tuple(y.shape)}, first card forward {dt * 1e3:.1f} ms")
         if not (ok and rel <= CNN_TOL and bool(torch.isfinite(y).all())):
@@ -5159,7 +5339,7 @@ def main() -> int:
         return spmd_cards_only(smi)
 
     t0 = time.perf_counter()
-    libs = _build.build(KERNELS + (EPILOGUE,))
+    libs = _build.build(KERNELS + (EPILOGUE, DWCONV))
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
@@ -5225,6 +5405,8 @@ def main() -> int:
     qi8_record = check_matmul_qi8()
     bn_record = check_bn_epilogue()
     bn_record["launches_resnet50"] = resnet50_epilogue_launches()
+    dw_record = check_dwconv(libs[DWCONV].with_suffix(".log").read_text())
+    dw_record["launches_mobilenetv2"] = mobilenetv2_dwconv_launches()
     torch.cuda.empty_cache()
     # max_len 300 puts qwen3's cache over two flash_decode splits
     check_family_on_card(ARCH, seq=200, prompt_len=40, n_new=8, max_len=300,
@@ -5346,7 +5528,7 @@ def main() -> int:
     bwd_record, rwkv_bwd_record, rglru_bwd_record = bwd_records
     kernels = [record, bwd_record, decode_record, rwkv_record,
                rwkv_bwd_record, rglru_record, rglru_bwd_record, qi8_record,
-               bn_record]
+               bn_record, dw_record]
     for rec in kernels:
         rec["design"] = DESIGNS[rec["name"]]
         if rec["name"] in tensor_ops:

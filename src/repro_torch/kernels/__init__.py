@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel of
-``repro.kernels`` on the ported paths, and ``bn_epilogue`` (the CNN
-forward's BatchNorm with the add and activation after it), which has no
-TPU counterpart.
+``repro.kernels`` on the ported paths, and two of the CNN forward that
+have no TPU counterpart: ``bn_epilogue`` (BatchNorm with the add and
+activation after it) and ``dwconv`` (the depthwise convolution, its SAME
+padding taken inside the kernel).
 
 Each ``csrc/<name>.cu`` is built by ``_build`` at first use and bound with
 ctypes; its wrapper module checks inputs, launches it on the current CUDA

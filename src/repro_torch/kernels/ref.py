@@ -2,9 +2,10 @@
 kernels are held against, and what a wrapper runs for CPU tensors."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -324,3 +325,18 @@ def bn_epilogue_ref(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     if r is not None:
         y = y + r
     return y if act is None else EPILOGUE_ACTS[act](y)
+
+
+def dwconv_ref(x: torch.Tensor, w: torch.Tensor,
+               b: Optional[torch.Tensor] = None, stride: int = 1,
+               pads: Tuple[int, int, int, int] = (0, 0, 0, 0)) -> torch.Tensor:
+    """Depthwise convolution of NHWC ``x`` (N, H, W, C) by ``w`` (C, 1, k,
+    k), plus ``b`` (C,) where given, after zero padding ``pads`` (``F.pad``'s
+    order: left, right, top, bottom) -> (N, OH, OW, C): the CNN forward's
+    depthwise ops, x viewed NCHW, ``F.pad``, a grouped ``F.conv2d``, the
+    result viewed NHWC."""
+    v = x.permute(0, 3, 1, 2)
+    if any(pads):
+        v = F.pad(v, pads)
+    return F.conv2d(v, w, b, stride=stride,
+                    groups=x.shape[-1]).permute(0, 2, 3, 1)

@@ -25,7 +25,8 @@ NHWC again.  The reference's numerics that torch does not give by default:
 * ``padding="same"`` is XLA's SAME: a total pad of
   ``max((ceil(h/s) - 1) * s + k - h, 0)`` per spatial axis, ``total // 2``
   before and the rest after (asymmetric on strided convs; torch's
-  ``padding='same'`` rejects stride > 1), applied with ``F.pad``;
+  ``padding='same'`` rejects stride > 1), applied with ``F.pad``, except
+  where a depthwise conv's kernel takes them as offsets (below);
 * max pool SAME pads with -inf; avg pool divides the window sum by the
   count of unpadded cells (a pooled ones tensor, as the reference);
 * depthwise conv is a grouped conv whose reference HWIO weight
@@ -55,9 +56,16 @@ does not take (not fp32, not contiguous), so a change of the forward's
 layout or dtype cannot take it off the kernel unseen.  Node names, kinds,
 costs and ``to_layer_graph`` do not see the groups.
 
-A grouped (depthwise) convolution runs its pad and its ``conv2d`` inside
-the profiler span :data:`DWCONV_SPAN` (nothing without a profiler), which
-the benchmark's depthwise metrics read; an ungrouped one opens none.
+A depthwise convolution (``groups`` = input = output channels) is one
+call of :func:`~repro_torch.kernels.dwconv.dwconv`, which takes the SAME
+pads as offsets and makes no padded tensor (one CUDA launch on the card;
+on the CPU the ``F.pad`` and grouped ``F.conv2d`` above; where autograd
+records through its input or weight, those plain ops on any device: the
+kernel has no backward).  Another grouped convolution (none in the zoo)
+keeps the ``F.pad`` and ``conv2d`` route.  Either runs inside the profiler
+span :data:`DWCONV_SPAN` (nothing without a profiler), which the
+benchmark's depthwise metrics read; the route and the span are chosen when
+the node is built, and an ungrouped convolution opens none.
 
 Parameters are a ``{node: {"w", "b", "gamma", ...}}`` dict of tensors; each
 node's ``init`` draws from an explicit :class:`torch.Generator` on the
@@ -76,7 +84,8 @@ import torch.nn.functional as F
 
 from ..core.graph import LayerGraph
 from ..kernels.bn_epilogue import bn_epilogue
-from ..kernels.ref import EPILOGUE_ACTS, bn_epilogue_ref
+from ..kernels.dwconv import dwconv
+from ..kernels.ref import EPILOGUE_ACTS, bn_epilogue_ref, dwconv_ref
 from ..profiling.spans import span
 
 Params = Dict[str, Any]
@@ -394,7 +403,18 @@ class Builder:
             return _nhwc(F.conv2d(v, p["w"], p.get("b"), stride=stride,
                                   groups=groups))
 
-        if groups > 1:
+        if groups > 1 and groups == cin == filters:
+            # depthwise, multiplier 1: the kernel pads as it reads; the
+            # plain ops where autograd records (the kernel has no backward)
+            def apply(p: Params, xs: List[torch.Tensor]) -> torch.Tensor:
+                args = (xs[0], p["w"], p.get("b"), stride, pads)
+                with span(DWCONV_SPAN):
+                    if torch.is_grad_enabled() and any(
+                            t is not None and t.requires_grad
+                            for t in args[:3]):
+                        return dwconv_ref(*args)
+                    return dwconv(*args)
+        elif groups > 1:
             conv = apply
 
             def apply(p: Params, xs: List[torch.Tensor]) -> torch.Tensor:

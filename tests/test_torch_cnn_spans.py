@@ -83,3 +83,42 @@ def test_the_spmd_stages_open_the_span_a_depthwise_conv_a_microbatch():
         e.cpu_parent.name for e in events if e.name == DWCONV_SPAN)
     assert sum(by_stage.values()) == 2 * 17
     assert set(by_stage) <= set(spmd.stage_spans(4))
+
+
+@pytest.fixture
+def sm90():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if torch.cuda.get_device_capability() < (9, 0):
+        pytest.skip("the kernels are built for sm_90a")
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        yield torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_on_the_card_the_span_holds_one_dwconv_kernel(sm90):
+    """A MobileNetV2 forward on the card: each of the 17 spans holds the
+    kernels of its depthwise conv, which are one ``dwconv`` launch and no
+    pad, fill or cuDNN kernel."""
+    net = cnn.REAL_CNNS["MobileNetV2"]()
+    params = net.init(sm90, torch.Generator(sm90).manual_seed(0))
+    x = torch.randn((2,) + net.input_shape, device=sm90,
+                    generator=torch.Generator(sm90).manual_seed(1))
+    with torch.no_grad():
+        net.apply(params, x)                # builds the kernels
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            net.apply(params, x)
+            torch.cuda.synchronize()
+    events = prof.events()
+    spans = {id(e): [] for e in events if e.name == DWCONV_SPAN}
+    assert len(spans) == 17
+    for e in events:
+        p = e
+        while p is not None and p.name != DWCONV_SPAN:
+            p = p.cpu_parent
+        if p is not None:
+            spans[id(p)] += [k.name for k in e.kernels]
+    assert all(len(names) == 1 and "dwconv_kernel" in names[0]
+               for names in spans.values()), list(spans.values())
