@@ -147,8 +147,8 @@ With no arguments:
    flash_attention's fp32 route timed at the microbatch's shape beside
    SDPA in fp32; then
    ResNet50 (analytic balanced and comp plans, batch 8 and 7) and
-   MobileNetV2 over C4's balanced cuts [125, 126, 147] (a tensor skips
-   stage 1 in the boundary buffer), each within 1e-4 of max |y| of the
+   MobileNetV2 over C4's balanced cuts [125, 126, 147] (a tensor rides
+   through stage 1 as it is), each within 1e-4 of max |y| of the
    direct forward; for qwen3 and ResNet50 the fill and blocked seconds of
    overlapped and serial weight streaming (medians of 5 interleaved
    samples from pinned host copies), modeled vs achieved stage times,
@@ -3601,8 +3601,7 @@ def run_spmd_cnn(name, smi, expect_cuts=None):
 
 def run_spmd_phase(record, smi):
     """The SPMD tier on the card: qwen3-1.7b, ResNet50 and MobileNetV2
-    (C4's balanced cuts, a tensor skipping stage 1 in the boundary
-    buffer)."""
+    (C4's balanced cuts, a tensor riding through stage 1 as it is)."""
     t0 = time.perf_counter()
     out = {"lm": run_spmd_lm(record, smi)}
     torch.cuda.empty_cache()

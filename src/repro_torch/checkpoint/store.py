@@ -26,7 +26,7 @@ import os
 import shutil
 import threading
 import zlib
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,32 +42,36 @@ def tree_flatten(tree: Params) -> Tuple[List[Any], Any]:
     ``None`` no leaf.  ``treedef`` is the tree with every leaf replaced by
     ``"*"``."""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: walk(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(c) for c in node)
-        leaves.append(node)
-        return "*"
-    return leaves, walk(tree)
+
+def _flatten(node: Params, leaves: List[Any]) -> Any:
+    # module-level recursion: a nested function that calls itself is a
+    # reference cycle, which would keep ``leaves`` (tensors a schedule
+    # hands on each microbatch) alive until the cyclic collector runs
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _flatten(node[k], leaves) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_flatten(c, leaves) for c in node)
+    leaves.append(node)
+    return "*"
 
 
 def tree_unflatten(treedef: Any, leaves: List[Any]) -> Params:
     """Inverse of :func:`tree_flatten`."""
-    it = iter(leaves)
+    return _unflatten(treedef, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        return next(it)
-    return build(treedef)
+
+def _unflatten(node: Any, it: Iterator[Any]) -> Params:
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _unflatten(v, it) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_unflatten(c, it) for c in node)
+    return next(it)
 
 
 def tree_map(fn: Callable[[Any], Any], tree: Params) -> Params:

@@ -13,10 +13,11 @@ on the one card, a stream each.  On the CPU the stages run in order, with
 no streams.
 
 * **CNN GraphModels** -- each stage's layer range runs through
-  ``GraphModel.apply_subset``; the tensors crossing each cut (a skip
-  connection included: a tensor made in stage 0 and read in stage 3 rides
-  through the stages between) are packed into one ``(microbatch, FLAT)``
-  fp32 buffer, so every stage has one signature.
+  ``GraphModel.apply_subset`` on the dict of the tensors crossing its cut,
+  by name, and hands the next stage the dict of the next cut's; a skip
+  connection (a tensor made in stage 0 and read in stage 3) rides through
+  the stages between as the same tensor.  The last stage hands on the
+  output node's (microbatch, classes) tensor.
 * **LM block families** (dense, moe) -- contiguous block ranges per
   stage, each stage looping over exactly its own blocks (no padding
   slots, so uneven counts cost nothing).
@@ -29,17 +30,19 @@ GPipe circular schedule, M microbatches over S stages::
       stage S-1 writes microbatch t-S+1 into the output buffer
 
 The host issues the whole schedule, then synchronizes once, on the last
-stage's stream.  :func:`_hop` hands a stage's output to the next stage:
-on one card the reader's stream waits on the writer's event and the
-buffer is handed on with ``record_stream``, so the caching allocator does
-not reuse it while the reader may still run; across cards the reader's
-stream waits on the writer's event and copies the buffer into one of its
-own card (over NVLink where the cards have peer access, else through the
-host).  The output is the last stage's ``(M, mb, ...)`` buffer on the last
-stage's device: there is no per-stage output to index.
+stage's stream.  :func:`_hop` hands each tensor of a stage's output to the
+next stage: on one card the reader's stream waits on the writer's event
+and the tensor is handed on with ``record_stream``, so the caching
+allocator does not reuse it while the reader may still run; across cards
+the reader's stream waits on the writer's event and copies the tensor
+into one of its own card (over NVLink where the cards have peer access,
+else through the host).  The output is the last stage's ``(M, mb, ...)``
+buffer on the last stage's device: there is no per-stage output to index.
 
 **Weight streaming** (:func:`stream_stage_weights`): each stage's
-weights are copied from pinned host memory to its card on that card's copy
+weights -- a CNN stage's ``{node: params}``, an LM stage's block list,
+host copies that keep each tensor's strides (:func:`host_stage_weights`)
+-- are copied from pinned host memory to its card on that card's copy
 stream, in stage order; the cards' copies run at once, each over its own
 link.  With ``overlap=True`` every copy is in flight while ``compile_fn``
 -- the bring-up that needs only shapes: loading the kernel libraries the
@@ -62,9 +65,10 @@ model's dtype.
 profiler): :data:`CALL_SPAN` around a call of the executor,
 ``stage_spans(S)[s]`` around stage ``s``'s work on one microbatch in the
 schedule (the hop into it, the stage, and for the last stage the copy
-into the output buffer), :data:`BOUNDARY_SPAN` around each boundary
-unpack and pack of a CNN stage and the call's input pack and output
-unpack.  The benchmark's per-layer metrics read them from its trace.
+into the output buffer), :data:`BOUNDARY_SPAN` around each CNN stage's
+choice of the tensors it hands on and the call's input wrap and output
+pick (no copies on one card).  The benchmark's per-layer metrics read them
+from its trace.
 
 Replicated-stage plans belong to the host executor:
 :func:`_require_unreplicated` fails fast for direct low-level calls, and
@@ -218,11 +222,6 @@ def default_stage_mesh(n_stages: int, device="cuda",
                      tuple(copy[d] for d in devices))
 
 
-def _stage_devices(mesh: StageMesh) -> List[torch.device]:
-    """The device of each pipeline stage."""
-    return list(mesh.devices)
-
-
 def peer_access(mesh: StageMesh) -> Dict[Tuple[int, int], bool]:
     """``torch.cuda.can_device_access_peer`` of each hop between two cards
     of the mesh, keyed by (sender, receiver) index; empty on one card.
@@ -252,10 +251,10 @@ def _check_mesh(plan: PlacementPlan, mesh: StageMesh) -> None:
 def _hop(x: torch.Tensor, done: Optional[torch.cuda.Event],
          device: torch.device,
          stream: Optional[torch.cuda.Stream]) -> torch.Tensor:
-    """Hand a stage's output ``x`` to the next stage, which runs on
-    ``device`` and ``stream`` (None off a card: the stages run in order,
-    and ``x`` is moved, a no-op on the same device).  ``done`` is the
-    event the sender recorded on its stream after making ``x``.
+    """Hand a tensor ``x`` of a stage's output to the next stage, which
+    runs on ``device`` and ``stream`` (None off a card: the stages run in
+    order, and ``x`` is moved, a no-op on the same device).  ``done`` is
+    the event the sender recorded on its stream after making its output.
 
     * same card -- the reader's stream waits on ``done``, and ``x`` is
       handed on with ``record_stream`` (made on the sender's stream, read
@@ -280,34 +279,61 @@ def _hop(x: torch.Tensor, done: Optional[torch.cuda.Event],
     return y
 
 
-def _gpipe_outputs(stage_fns: Sequence[Callable[[torch.Tensor],
-                                                torch.Tensor]],
+def _hand_on(y: Params, done: Optional[torch.cuda.Event],
+             device: torch.device,
+             stream: Optional[torch.cuda.Stream]) -> Params:
+    """A stage's output ``y`` -- a tensor, or a dict of them by name --
+    with :func:`_hop` of each tensor: on the reader's card each is handed
+    on as it is (a skip tensor riding through a stage included), across
+    cards each is copied.  The reader's stream waits on ``done`` before
+    each tensor; after the first, the wait is already met."""
+    return tree_map(lambda t: _hop(t, done, device, stream), y)
+
+
+def _to(tree: Params, device: torch.device,
+        dtype: Optional[torch.dtype] = None) -> Params:
+    """``tree`` on ``device`` (and in ``dtype``); leaves already there are
+    kept, not copied."""
+    return tree_map(lambda t: t.to(device, dtype), tree)
+
+
+def _microbatch(x_all: Params, t: int) -> Params:
+    """Microbatch ``t`` of each (M, mb, ...) tensor of ``x_all``."""
+    return tree_map(lambda a: a[t], x_all)
+
+
+def _gpipe_outputs(stage_fns: Sequence[Callable[[Params], Params]],
                    streams: Sequence[Optional[torch.cuda.Stream]],
-                   x_all: torch.Tensor,
+                   x_all: Params, out_shape: Tuple[int, ...],
                    devices: Optional[Sequence[torch.device]] = None
                    ) -> torch.Tensor:
-    """Run the schedule of ``stage_fns`` (each maps a microbatch to one
-    of the same shape) over ``x_all`` (M, mb, ...) on the first stage's
-    device; ``devices`` are the stages' (default: all ``x_all``'s).
-    Returns the last stage's (M, mb, ...) outputs on its device, finished
-    (the host has synchronized the last stage's stream)."""
-    n, m = len(stage_fns), x_all.shape[0]
-    devices = list(devices or [x_all.device] * n)
+    """Run the schedule of ``stage_fns`` over ``x_all`` -- an (M, mb, ...)
+    tensor, or a dict of them by name -- on the first stage's device;
+    ``devices`` are the stages' (default: all ``x_all``'s).  Stage 0 reads
+    a microbatch of ``x_all``, every later stage what the stage before it
+    returned, and the last stage returns one (mb, ...) microbatch of
+    ``out_shape`` (M, mb, ...).  Returns the last stage's outputs on its
+    device, in ``x_all``'s dtype, finished (the host has synchronized the
+    last stage's stream)."""
+    n = len(stage_fns)
+    first = tree_flatten(x_all)[0][0]
+    devices = list(devices or [first.device] * n)
     on_card = streams[0] is not None
-    x_all = x_all.to(devices[0])
-    outputs = torch.empty_like(x_all, device=devices[-1])
+    x_all = _to(x_all, devices[0])
+    outputs = torch.empty(out_shape, dtype=first.dtype, device=devices[-1])
     if on_card:
         # x_all and outputs were made on the callers' streams
         for dev, st in zip(devices, streams):
             st.wait_stream(torch.cuda.current_stream(dev))
     names = stage_spans(n)
-    hops: List[Any] = [None] * n    # (tensor, event) of stage s at step t-1
+    m = first.shape[0]
+    hops: List[Any] = [None] * n    # (output, event) of stage s at step t-1
     for t in range(m + n - 1):
         handed: List[Any] = [None] * n
         for s in range(max(0, t - m + 1), min(n, t + 1)):
             with _on(streams[s]), span(names[s]):
-                x = x_all[t] if s == 0 else _hop(*hops[s - 1], devices[s],
-                                                 streams[s])
+                x = (_microbatch(x_all, t) if s == 0 else
+                     _hand_on(*hops[s - 1], devices[s], streams[s]))
                 y = stage_fns[s](x)
                 if s == n - 1:
                     outputs[t - s].copy_(y)
@@ -320,11 +346,10 @@ def _gpipe_outputs(stage_fns: Sequence[Callable[[torch.Tensor],
     return outputs
 
 
-def _composed_outputs(stage_fns: Sequence[Callable[[torch.Tensor],
-                                                   torch.Tensor]],
+def _composed_outputs(stage_fns: Sequence[Callable[[Params], Params]],
                       streams: Sequence[Optional[torch.cuda.Stream]],
                       devices: Sequence[torch.device],
-                      x_all: torch.Tensor) -> torch.Tensor:
+                      x_all: Params) -> torch.Tensor:
     """The same stage functions without the schedule: microbatch by
     microbatch, each stage in order on its device's current stream, moved
     between devices by a plain ``to`` -- the one-stream composition the
@@ -335,9 +360,10 @@ def _composed_outputs(stage_fns: Sequence[Callable[[torch.Tensor],
             # was made on the stages' streams
             torch.cuda.current_stream(dev).wait_stream(st)
     outs = []
-    for x in x_all:
+    for t in range(tree_flatten(x_all)[0][0].shape[0]):
+        x = _microbatch(x_all, t)
         for dev, fn in zip(devices, stage_fns):
-            x = fn(x.to(dev))
+            x = fn(_to(x, dev))
         outs.append(x)
     return torch.stack(outs)
 
@@ -373,13 +399,6 @@ def _lm_stage(cfg: lm.LMConfig, blocks: Sequence[Params],
     return apply
 
 
-def _to(tree: Params, device: torch.device,
-        dtype: Optional[torch.dtype] = None) -> Params:
-    """``tree`` on ``device`` (and in ``dtype``); leaves already there are
-    kept, not copied."""
-    return tree_map(lambda t: t.to(device, dtype), tree)
-
-
 def make_pipeline_hidden(cfg: lm.LMConfig, mesh: StageMesh,
                          plan: PlacementPlan, n_microbatches: int):
     """Returns ``hidden_fn(params, batch) -> (B, S, D)`` hidden states in
@@ -391,7 +410,7 @@ def make_pipeline_hidden(cfg: lm.LMConfig, mesh: StageMesh,
     _require_unreplicated(plan)
     _check_mesh(plan, mesh)
     counts = stage_block_counts(plan, cfg.n_layers)
-    devices = _stage_devices(mesh)
+    devices = list(mesh.devices)
     m = n_microbatches
 
     def hidden_fn(params: Params,
@@ -410,8 +429,8 @@ def make_pipeline_hidden(cfg: lm.LMConfig, mesh: StageMesh,
                      for blocks, dev in zip(
                          build_stage_blocks(params["blocks"], counts),
                          devices)]
-        out = _gpipe_outputs(stage_fns, mesh.streams,
-                             x.reshape(m, b // m, s, d), devices)
+        xs = x.reshape(m, b // m, s, d)
+        out = _gpipe_outputs(stage_fns, mesh.streams, xs, xs.shape, devices)
         return out.reshape(b, s, d)
 
     return hidden_fn
@@ -430,7 +449,7 @@ def pipeline_logits(cfg: lm.LMConfig, mesh: StageMesh, plan: PlacementPlan,
 
 
 # ---------------------------------------------------------------------------
-# CNN lowering: apply_subset ranges behind flat boundary buffers
+# CNN lowering: apply_subset ranges, boundaries by name
 # ---------------------------------------------------------------------------
 def _cnn_stage_of(model: GraphModel, plan: PlacementPlan) -> Dict[str, int]:
     stage_of: Dict[str, int] = {}
@@ -452,8 +471,8 @@ def cnn_boundary_specs(model: GraphModel, plan: PlacementPlan
     the model input for stage 0, and for later stages every tensor
     produced at a stage ``< s`` with a consumer at a stage ``>= s``
     (skip connections make these multi-tensor and make tensors ride
-    through intermediate stages unchanged).  Also returns the packed
-    output spec of the last stage."""
+    through intermediate stages unchanged).  Also returns the output
+    spec of the last stage."""
     S = plan.n_stages
     stage_of = _cnn_stage_of(model, plan)
     consumers: Dict[str, List[str]] = {}
@@ -477,154 +496,41 @@ def cnn_boundary_specs(model: GraphModel, plan: PlacementPlan
     return B, out_spec
 
 
-def _specs_elems(specs: Sequence[Tuple[str, Tuple[int, ...]]]) -> int:
-    return int(sum(int(np.prod(shape)) for _, shape in specs))
-
-
-def _pack(acts: Dict[str, torch.Tensor], specs: Specs,
-          flat: int) -> torch.Tensor:
-    """The ``specs`` tensors of ``acts``, each (mb, ...), side by side in
-    one (mb, flat) fp32 buffer, zero past their end."""
-    first = acts[specs[0][0]]
-    buf = first.new_empty((first.shape[0], flat), dtype=torch.float32)
-    off = 0
-    for name, shape in specs:
-        n = int(np.prod(shape))
-        buf[:, off:off + n] = acts[name].reshape(buf.shape[0], n)
-        off += n
-    buf[:, off:].zero_()
-    return buf
-
-
-def _unpack(buf: torch.Tensor, specs: Specs) -> Dict[str, torch.Tensor]:
-    out: Dict[str, torch.Tensor] = {}
-    off = 0
-    for name, shape in specs:
-        n = int(np.prod(shape))
-        out[name] = buf[:, off:off + n].reshape(
-            (buf.shape[0],) + tuple(shape)).contiguous()
-        off += n
-    return out
-
-
-def _channels_last(t: torch.Tensor) -> bool:
-    """A conv weight held channels_last (it flattens in its memory order,
-    so that it unflattens as a channels_last view)."""
-    return (t.dim() == 4 and not t.is_contiguous()
-            and t.is_contiguous(memory_format=torch.channels_last))
-
-
-def _flatten_stage_params(params: Params, layer_names: Sequence[str]):
-    """One fp32 vector of a stage's parameters, and the layout that
-    rebuilds them from it: ``(flat, treedef, layout)``."""
-    sub = {n: params[n] for n in layer_names if n in params and params[n]}
-    leaves, treedef = tree_flatten(sub)
-    layout = [(tuple(t.shape), t.dtype, _channels_last(t)) for t in leaves]
-    if not leaves:
-        return torch.zeros((0,), dtype=torch.float32), treedef, layout
-    flat = torch.cat([
-        (t.permute(0, 2, 3, 1) if cl else t).reshape(-1).float()
-        for t, (_, _, cl) in zip(leaves, layout)])
-    return flat, treedef, layout
-
-
-def _unflatten_stage_params(w: torch.Tensor, treedef, layout) -> Params:
-    """The stage's parameters as views of ``w`` (fp32 leaves; others
-    cast), conv weights that were channels_last channels_last again."""
-    leaves, off = [], 0
-    for shape, dtype, channels_last in layout:
-        n = int(np.prod(shape)) if shape else 1
-        part = w[off:off + n]
-        if channels_last:
-            o, i, h, k = shape
-            leaf = part.view(o, h, k, i).permute(0, 3, 1, 2)
-        else:
-            leaf = part.view(shape)
-        leaves.append(leaf.to(dtype))
-        off += n
-    return tree_unflatten(treedef, leaves)
-
-
 def make_cnn_pipeline(model: GraphModel, plan: PlacementPlan,
                       mesh: StageMesh):
-    """Boundary and packing metadata for lowering a CNN GraphModel + plan.
+    """Boundary metadata and stage callables for lowering a CNN GraphModel
+    + plan.
 
-    Returns ``(B, out_spec, flat, make_branch)``: the per-stage input
-    boundary specs, the packed output spec, the flat buffer width, and a
-    factory ``make_branch(s, stage_params)`` of stage ``s``'s callable
-    ``branch(buf) -> buf`` (unpack the boundary, ``apply_subset`` over the
-    stage's layer range, pack the next boundary).
+    Returns ``(B, out_spec, make_branch)``: the per-stage input boundary
+    specs, the output spec, and a factory ``make_branch(s, stage_params)``
+    of stage ``s``'s callable ``branch(boundary)``: ``apply_subset`` over
+    the stage's layer range on ``boundary`` (``{name: (mb, ...) tensor}``
+    of ``B[s]``), returning ``{name: tensor}`` of ``B[s + 1]`` (a tensor
+    of ``boundary`` that a later stage reads rides through as it is:
+    ``apply_subset`` passes it on) or, from the last stage, the output
+    node's (mb, ...) tensor.
     :meth:`SpmdPipelineExecutor.for_cnn` runs these through the schedule;
     the achieved-time probes run them alone."""
     _require_unreplicated(plan)
     _check_mesh(plan, mesh)
     B, out_spec = cnn_boundary_specs(model, plan)
-    flat = max(max(_specs_elems(b) for b in B), _specs_elems(out_spec))
     stage_layers = plan.stage_layers
 
     def make_branch(s: int, stage_params: Params):
-        in_specs = B[s]
-        nxt = B[s + 1] if s + 1 < plan.n_stages else out_spec
+        last = s + 1 == plan.n_stages
+        nxt = [] if last else [name for name, _ in B[s + 1]]
 
-        def branch(buf: torch.Tensor) -> torch.Tensor:
-            with span(BOUNDARY_SPAN):
-                boundary = _unpack(buf, in_specs)
+        def branch(boundary: Dict[str, torch.Tensor]) -> Params:
             acts = model.apply_subset(stage_params, boundary,
                                       stage_layers[s])
             with span(BOUNDARY_SPAN):
-                return _pack({**boundary, **acts}, nxt, flat)
+                if last:
+                    return acts[model.output]
+                return {name: acts[name] for name in nxt}
 
         return branch
 
-    return B, out_spec, flat, make_branch
-
-
-def _stage_rows(params: Params, plan: PlacementPlan, pin: bool):
-    """One flat fp32 row of each stage's parameters, side by side in an
-    (S, Wmax) host buffer (pinned when ``pin``; the reference's
-    ``stacked_host``), and each row's ``(treedef, layout)``."""
-    flats, layouts = [], []
-    for layers in plan.stage_layers:
-        w, treedef, layout = _flatten_stage_params(params, layers)
-        flats.append(w)
-        layouts.append((treedef, layout))
-    wmax = max(1, max(f.numel() for f in flats))
-    stacked = torch.zeros((plan.n_stages, wmax), pin_memory=pin)
-    for s, f in enumerate(flats):
-        stacked[s, :f.numel()].copy_(f)
-    return stacked, layouts
-
-
-class _CnnLowering:
-    """Everything the executor needs for one CNN plan on one mesh, bar
-    the weights (``layouts`` rebuilds each stage's from its row)."""
-
-    def __init__(self, model: GraphModel, plan: PlacementPlan,
-                 mesh: StageMesh, n_microbatches: int, layouts):
-        self.m = n_microbatches
-        B, out_spec, flat, self.make_branch = make_cnn_pipeline(
-            model, plan, mesh)
-        self.B, self.out_spec, self.flat = B, out_spec, flat
-        self.layouts = layouts
-
-    def branches(self, rows: Sequence[torch.Tensor]) -> List[Callable]:
-        """Each stage's callable over its streamed weight row."""
-        return [self.make_branch(s, _unflatten_stage_params(row, *layout))
-                for s, (row, layout) in enumerate(zip(rows, self.layouts))]
-
-    def pack_input(self, x: torch.Tensor) -> torch.Tensor:
-        b = x.shape[0]
-        with span(BOUNDARY_SPAN):
-            buf = _pack({GraphModel.INPUT: x}, self.B[0], self.flat)
-            return buf.reshape(self.m, b // self.m, self.flat)
-
-    def unpack_output(self, out_last: torch.Tensor, b: int) -> torch.Tensor:
-        m, mb, _ = out_last.shape
-        _, shape = self.out_spec[0]
-        n = int(np.prod(shape))
-        with span(BOUNDARY_SPAN):
-            flat_out = out_last.reshape(m * mb, self.flat)
-            return flat_out[:b, :n].reshape((b,) + tuple(shape))
+    return B, out_spec, make_branch
 
 
 # ---------------------------------------------------------------------------
@@ -709,44 +615,51 @@ def stream_stage_weights(mesh: StageMesh, stage_trees: Sequence[Params], *,
 
 
 def _host_copy(t: torch.Tensor, pin: bool) -> torch.Tensor:
-    """A copy of ``t`` in host memory, pinned (``pin``) so that a
-    non-blocking copy to the card is asynchronous."""
-    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+    """A copy of ``t`` in host memory with ``t``'s strides (a conv weight
+    stays channels_last), pinned (``pin``) so that a non-blocking copy to
+    the card is asynchronous."""
+    out = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                              pin_memory=pin)
     return out.copy_(t)
 
 
 def host_stage_weights(model, params: Params, plan: PlacementPlan, *,
                        pin: bool = True) -> List[Params]:
-    """What the executor streams, as host copies (pinned when ``pin``, so
-    that the copies to the card are asynchronous): a GraphModel's one
-    flat fp32 row per stage, an LMConfig's per-stage block lists in their
-    own dtype.  The executor drops its own once they are on the card; a
-    fill is measured again by streaming these with
+    """What the executor streams, as host copies in their own dtype and
+    strides (pinned when ``pin``, so that the copies to the card are
+    asynchronous): a GraphModel's ``{node: params[node]}`` of each stage's
+    nodes that have parameters, an LMConfig's per-stage block lists.  The
+    executor drops its own once they are on the card; a fill is measured
+    again by streaming these with
     ``stream_stage_weights(ex.mesh, ..., compile_fn=ex.bring_up)``."""
     if isinstance(model, GraphModel):
-        return list(_stage_rows(params, plan, pin)[0])
-    counts = stage_block_counts(plan, model.n_layers)
-    return [tree_map(lambda t: _host_copy(t, pin), blocks)
-            for blocks in build_stage_blocks(params["blocks"], counts)]
+        stages = [{n: params[n] for n in layers if params.get(n)}
+                  for layers in plan.stage_layers]
+    else:
+        stages = build_stage_blocks(
+            params["blocks"], stage_block_counts(plan, model.n_layers))
+    return [tree_map(lambda t: _host_copy(t, pin), tree) for tree in stages]
 
 
-def _bring_up(mesh: StageMesh, shape: Tuple[int, ...], dtype: torch.dtype,
+def _bring_up(mesh: StageMesh, in_shape: Tuple[int, ...],
+              out_shape: Tuple[int, ...], dtype: torch.dtype,
               kernels: Sequence[str]) -> None:
     """The bring-up that needs only shapes: load the hand-written kernel
     libraries the lowering launches (built at first use), and reserve the
     schedule's buffers -- its (M, mb, ...) input on the first stage's card
     and output on the last's, on the callers' streams, and a microbatch
-    hop on each stage's stream and card -- in the caching allocators, so
-    the first run allocates no device memory of its own."""
+    of the input on each stage's stream and card -- in the caching
+    allocators, so the first run allocates less device memory of its
+    own."""
     if not mesh.on_card:
         return
     for name in kernels:
         _build.load(name)
-    keep = [torch.empty(shape, dtype=dtype, device=mesh.devices[0]),
-            torch.empty(shape, dtype=dtype, device=mesh.devices[-1])]
+    keep = [torch.empty(in_shape, dtype=dtype, device=mesh.devices[0]),
+            torch.empty(out_shape, dtype=dtype, device=mesh.devices[-1])]
     for dev, stream in zip(mesh.devices, mesh.streams):
         with _on(stream):
-            keep.append(torch.empty(shape[1:], dtype=dtype, device=dev))
+            keep.append(torch.empty(in_shape[1:], dtype=dtype, device=dev))
     del keep
 
 
@@ -832,49 +745,58 @@ class SpmdPipelineExecutor:
                 n_microbatches: int = 4, overlap_streaming: bool = True,
                 batch_size: Optional[int] = None) -> "SpmdPipelineExecutor":
         """``model``'s fp32 weights (``params``, on any device) streamed
-        from a pinned (S, Wmax) host copy of one flat row per stage, each
-        row to its stage's card, and the host copy dropped once they are
+        from pinned host copies of each stage's ``{node: params}``, each
+        stage's to its card, and the host copies dropped once they are
         there.  Calls take (B, H, W, C) images and return the output
         node's (B, ...) activations on the last stage's device."""
         _require_unreplicated(plan)
         if mesh is None:
             mesh = default_stage_mesh(plan.n_stages)
-        devices = _stage_devices(mesh)
-        stacked, layouts = _stage_rows(params, plan, mesh.on_card)
-        low = _CnnLowering(model, plan, mesh, n_microbatches, layouts)
+        devices = list(mesh.devices)
+        B, out_spec, make_branch = make_cnn_pipeline(model, plan, mesh)
+        out_item = out_spec[0][1]
         m = n_microbatches
         bring_up = None
         if batch_size is not None:
-            shape = (m, -(-batch_size // m), low.flat)
-            bring_up = functools.partial(_bring_up, mesh, shape,
-                                         torch.float32, ())
-        rows, _, stream = stream_stage_weights(
-            mesh, list(stacked), overlap=overlap_streaming,
-            compile_fn=bring_up)
-        del stacked
-        stage_fns = low.branches(rows)
+            mb = -(-batch_size // m)
+            bring_up = functools.partial(
+                _bring_up, mesh, (m, mb) + tuple(model.input_shape),
+                (m, mb) + out_item, torch.float32, ())
+        placed, _, stream = stream_stage_weights(
+            mesh, host_stage_weights(model, params, plan, pin=mesh.on_card),
+            overlap=overlap_streaming, compile_fn=bring_up)
+        stage_fns = [make_branch(s, tree) for s, tree in enumerate(placed)]
+        del placed
 
         def run_with(pipe: Callable) -> Callable:
             def run(x: torch.Tensor) -> torch.Tensor:
                 b = x.shape[0]
                 x = _pad_batch(x.to(devices[0], torch.float32), m)
-                return low.unpack_output(pipe(low.pack_input(x)), b)
+                bp = x.shape[0]
+                with span(BOUNDARY_SPAN):
+                    xs = {GraphModel.INPUT: x.reshape(
+                        (m, bp // m) + tuple(x.shape[1:]))}
+                out = pipe(xs, (m, bp // m) + out_item)
+                with span(BOUNDARY_SPAN):
+                    return out.reshape((bp,) + out_item)[:b]
             return run
 
         mb_probe = max(1, (batch_size or m) // m)
 
         def make_probe(s):
             def build():
-                buf = torch.zeros((mb_probe, low.flat), device=devices[s])
-                return _stage_probe(stage_fns[s], mesh.streams[s], buf)
+                boundary = {name: torch.zeros((mb_probe,) + shape,
+                                              device=devices[s])
+                            for name, shape in B[s]}
+                return _stage_probe(stage_fns[s], mesh.streams[s], boundary)
             return build
 
         return cls(kind="cnn", plan=plan, mesh=mesh, n_microbatches=m,
                    fill_s=stream.fill_s, fill_blocked_s=stream.blocked_s,
                    overlap_streaming=overlap_streaming,
-                   run_fn=run_with(lambda xs: _gpipe_outputs(
-                       stage_fns, mesh.streams, xs, devices)),
-                   compose_fn=run_with(lambda xs: _composed_outputs(
+                   run_fn=run_with(lambda xs, shape: _gpipe_outputs(
+                       stage_fns, mesh.streams, xs, shape, devices)),
+                   compose_fn=run_with(lambda xs, shape: _composed_outputs(
                        stage_fns, mesh.streams, devices, xs)),
                    probe_fns=[make_probe(s) for s in range(plan.n_stages)],
                    bring_up=bring_up)
@@ -901,7 +823,7 @@ class SpmdPipelineExecutor:
         if mesh is None:
             mesh = default_stage_mesh(plan.n_stages)
         _check_mesh(plan, mesh)
-        devices = _stage_devices(mesh)
+        devices = list(mesh.devices)
         m = n_microbatches
         # the embedding (an fp32 table gives the bf16 rows' values
         # exactly) on the first card, the final norm and head on the last,
@@ -919,7 +841,7 @@ class SpmdPipelineExecutor:
         bring_up = None
         if batch_size is not None and seq_len is not None:
             shape = (m, -(-batch_size // m), seq_len, cfg.d_model)
-            bring_up = functools.partial(_bring_up, mesh, shape,
+            bring_up = functools.partial(_bring_up, mesh, shape, shape,
                                          torch.float32, ("flash_attention",))
         streamed, _, stream = stream_stage_weights(
             mesh, host_stage_weights(cfg, params, plan, pin=mesh.on_card),
@@ -941,7 +863,8 @@ class SpmdPipelineExecutor:
                 tokens = _pad_batch(tokens.to(devices[0]), m)
                 x = lm.embed_tokens(cfg, rest_in, tokens)
                 bp, s, d = x.shape
-                h = pipe(stage_fns_at(s), x.reshape(m, bp // m, s, d))
+                xs = x.reshape(m, bp // m, s, d)
+                h = pipe(stage_fns_at(s), xs)
                 return lm.unembed(cfg, rest_out, h.reshape(bp, s, d))[:b]
             return run
 
@@ -960,7 +883,7 @@ class SpmdPipelineExecutor:
                    fill_s=stream.fill_s, fill_blocked_s=stream.blocked_s,
                    overlap_streaming=overlap_streaming,
                    run_fn=run_with(lambda fns, xs: _gpipe_outputs(
-                       fns, mesh.streams, xs, devices)),
+                       fns, mesh.streams, xs, xs.shape, devices)),
                    compose_fn=run_with(lambda fns, xs: _composed_outputs(
                        fns, mesh.streams, devices, xs)),
                    probe_fns=[make_probe(s) for s in range(plan.n_stages)],
@@ -1027,12 +950,12 @@ class SpmdPipelineExecutor:
 
 
 def _stage_probe(fn: Callable, stream: Optional[torch.cuda.Stream],
-                 x: torch.Tensor) -> Callable[[], None]:
+                 x: Params) -> Callable[[], None]:
     """``fn(x)`` on ``stream``, returning once the stream has finished."""
     def probe() -> None:
         if stream is not None:
             # x, and what fn closes over, were made on the caller's stream
-            stream.wait_stream(torch.cuda.current_stream(x.device))
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
         with _on(stream):
             fn(x)
         if stream is not None:

@@ -9,8 +9,10 @@ either package is restored by the other bit for bit, and the leaf files
 of the same arrays are byte-equal (bf16 under the ``'<V2'`` header).
 Inputs are drawn from a seed with numpy.  Exact throughout.
 """
+import gc
 import json
 import os
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -99,6 +101,27 @@ def test_unflatten_inverts_flatten():
     assert isinstance(again["blocks"][2], tuple)
     assert [_bits(x) for x in tree_flatten(again)[0]] == \
         [_bits(x) for x in leaves]
+
+
+def test_tree_walks_hold_no_leaf_once_they_return():
+    """A tree's leaves are freed as soon as no caller holds them: the
+    walks leave no reference cycle for the cyclic collector to break (the
+    SPMD schedule hands each microbatch's tensors on through ``tree_map``,
+    and a cycle kept them on the card past the call)."""
+    from repro_torch.checkpoint.store import tree_map
+    tree = _ttree()
+    refs = [weakref.ref(t) for t in tree_flatten(tree)[0]]
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        again = tree_unflatten(*reversed(tree_flatten(tree)))
+        doubled = tree_map(lambda t: t * 2, again)
+        del tree, again
+        assert [r() for r in refs] == [None] * len(refs)
+        assert len(tree_flatten(doubled)[0]) == len(refs)
+    finally:
+        if was_on:
+            gc.enable()
 
 
 def test_checkpoint_roundtrip(tmp_path):

@@ -1406,7 +1406,7 @@ def test_stream_schedule_equals_one_stream(sm90, m, slow, pressure):
     fns = [stage(s) for s in range(4)]
     x_all = torch.randn(m, 32, 256, generator=g, device=sm90)
     mesh = spmd.default_stage_mesh(4)
-    got = spmd._gpipe_outputs(fns, mesh.streams, x_all)
+    got = spmd._gpipe_outputs(fns, mesh.streams, x_all, x_all.shape)
     expect = []
     for i in range(m):
         y = x_all[i]

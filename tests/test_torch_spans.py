@@ -7,8 +7,9 @@ tier opens them (``launch/pipeline_spmd.py``), on the CPU.
   user annotation (which the trace would repeat on the device timeline),
   and the operators run inside it take it as their parent.
 * A profiled CNN executor call opens one ``spmd.call``, S x M stage spans
-  under it, two boundary spans under each stage span and two directly
-  under the call, and returns what an unprofiled call returns.
+  under it, one boundary span under each stage span (the choice of the
+  tensors it hands on) and two directly under the call (the input wrap
+  and the output pick), and returns what an unprofiled call returns.
 """
 import collections
 
@@ -97,7 +98,7 @@ def test_a_profiled_cnn_call_opens_its_spans(width, layers, hw, stages, m,
             (spmd.BOUNDARY_SPAN, spmd.CALL_SPAN): 2}
     for name in spmd.stage_spans(stages):
         want[name, spmd.CALL_SPAN] = m
-        want[spmd.BOUNDARY_SPAN, name] = 2 * m
+        want[spmd.BOUNDARY_SPAN, name] = m
     assert tree == want
 
 
@@ -107,7 +108,7 @@ def test_the_schedule_opens_a_stage_span_a_microbatch_without_a_call():
     fns = [lambda x, k=k: x + k for k in range(3)]
     x_all = torch.zeros(2, 5)
     got, events = _profiled(lambda: spmd._gpipe_outputs(
-        fns, [None] * 3, x_all))
+        fns, [None] * 3, x_all, x_all.shape))
     assert torch.equal(got, torch.full((2, 5), 3.0))
     assert _span_tree(events) == {(name, None): 2
                                   for name in spmd.stage_spans(3)}

@@ -143,21 +143,62 @@ def test_cnn_executor_matches_reference_apply(name, stages, strategy, batch,
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-4, atol=1e-4)
 
 
-def test_cnn_stage_params_are_views_of_the_streamed_row():
-    """A stage's weights rebuild from its flat row as views, conv weights
-    channels_last again, equal to the model's."""
-    m = tcnn.synthetic_cnn(4, L=5, hw=16)
+def test_cnn_stage_params_stream_as_the_models_with_their_strides():
+    """Each stage's streamed parameters are the model's of its nodes, with
+    their strides (conv weights channels_last), in storage of their own,
+    apart from the host copies they were streamed from."""
+    m, pl = _cnn("synthetic4", 2, "balanced_norefine", "port")
     params = m.init(CPU, torch.Generator().manual_seed(0))
-    layers = list(params)
-    flat, treedef, layout = tspmd._flatten_stage_params(params, layers)
-    back = tspmd._unflatten_stage_params(flat, treedef, layout)
-    for name in layers:
-        for key, t in params[name].items():
-            got = back[name][key]
-            assert torch.equal(got, t)
-            assert got.stride() == t.stride()
-            assert got.untyped_storage().data_ptr() == \
-                flat.untyped_storage().data_ptr()
+    host = tspmd.host_stage_weights(m, params, pl, pin=False)
+    placed, _, _ = tspmd.stream_stage_weights(_mesh(2), host)
+    convs = 0
+    for layers, hosted, tree in zip(pl.stage_layers, host, placed):
+        assert set(tree) == {n for n in layers if params.get(n)}
+        for name in tree:
+            for key, t in params[name].items():
+                got = tree[name][key]
+                assert torch.equal(got, t) and got.dtype == t.dtype
+                assert got.stride() == t.stride()
+                convs += t.dim() == 4 and got.is_contiguous(
+                    memory_format=torch.channels_last)
+                assert got.untyped_storage().data_ptr() not in (
+                    hosted[name][key].untyped_storage().data_ptr(),
+                    t.untyped_storage().data_ptr())
+    assert convs == sum(1 for n in params for t in params[n].values()
+                        if t.dim() == 4) > 0
+
+
+def test_a_skip_tensor_reaches_a_later_stage_as_the_same_storage(
+        monkeypatch):
+    """MobileNetV2's plan (cuts [125, 126, 147]): ``bn_70``, made in stage
+    0, is read in stage 2 and rides through stage 1 (one depth level).
+    Stage 2 reads the very tensor stage 0 made, not a copy."""
+    m, pl = _cnn("MobileNetV2", 4, "balanced", "port")
+    assert pl.cuts == [125, 126, 147]
+    calls = []
+    real = tlayers.GraphModel.apply_subset
+
+    def spy(self, params, boundary, layer_names):
+        out = real(self, params, boundary, layer_names)
+        calls.append((list(layer_names), boundary, out))
+        return out
+
+    monkeypatch.setattr(tlayers.GraphModel, "apply_subset", spy)
+    params = m.init(CPU, torch.Generator().manual_seed(0))
+    x = torch.randn((2,) + tuple(m.input_shape),
+                    generator=torch.Generator().manual_seed(1))
+    with tspmd.SpmdPipelineExecutor.for_cnn(m, params, pl, mesh=_mesh(4),
+                                            n_microbatches=2) as ex:
+        ex(x)
+    made = [out["bn_70"] for layers, _, out in calls
+            if layers == pl.stage_layers[0]]
+    read = [boundary["bn_70"] for layers, boundary, _ in calls
+            if layers == pl.stage_layers[2]]
+    assert len(made) == len(read) == 2
+    for a, b in zip(made, read):
+        assert b is a
+        assert b.untyped_storage().data_ptr() == \
+            a.untyped_storage().data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -337,24 +378,24 @@ def test_stream_stage_weights_overlap_matches_serial():
 
 def test_host_stage_weights_restream_what_the_executor_streamed():
     """The executor keeps no host copy of its weights; a fill is measured
-    again from ``host_stage_weights`` with the executor's bring-up: one
-    flat row per stage that rebuilds the stage's parameters (CNN), each
-    stage's blocks in their own dtype (LM)."""
+    again from ``host_stage_weights`` with the executor's bring-up: each
+    stage's ``{node: params}`` (CNN), each stage's blocks in their own
+    dtype (LM)."""
     m, pl = _cnn("synthetic4", 2, "balanced_norefine", "port")
     params = m.init(CPU, torch.Generator().manual_seed(0))
     with tspmd.SpmdPipelineExecutor.for_cnn(m, params, pl, mesh=_mesh(2),
                                             batch_size=4) as ex:
-        rows = tspmd.host_stage_weights(m, params, pl, pin=False)
-        assert [r.dtype for r in rows] == [torch.float32] * 2
+        trees = tspmd.host_stage_weights(m, params, pl, pin=False)
         for overlap in (True, False):
             got, _, rep = tspmd.stream_stage_weights(
-                ex.mesh, rows, overlap=overlap, compile_fn=ex.bring_up)
+                ex.mesh, trees, overlap=overlap, compile_fn=ex.bring_up)
             assert 0 <= rep.blocked_s <= rep.fill_s
-            for layers, row in zip(pl.stage_layers, got):
-                flat, treedef, layout = tspmd._flatten_stage_params(
-                    params, layers)
-                assert torch.equal(row[:flat.numel()], flat)
-                assert not row[flat.numel():].any()
+            for layers, tree in zip(pl.stage_layers, got):
+                want = {n: params[n] for n in layers if params.get(n)}
+                assert want and set(tree) == set(want)
+                for a, b in zip(tspmd.tree_flatten(tree)[0],
+                                tspmd.tree_flatten(want)[0]):
+                    assert torch.equal(a, b) and a.stride() == b.stride()
     _, _, tcfg, tparams, tpl = _lm("qwen3_6_layers_comp")
     counts = tserve.stage_block_counts(tpl, tcfg.n_layers)
     stages = tspmd.host_stage_weights(tcfg, tparams, tpl, pin=False)
@@ -369,7 +410,7 @@ def test_host_stage_weights_restream_what_the_executor_streamed():
 def test_stage_mesh_on_the_cpu_has_no_streams():
     mesh = _mesh(3)
     assert mesh.n_stages == 3 and mesh.streams == (None,) * 3
-    assert tspmd._stage_devices(mesh) == [CPU] * 3
+    assert mesh.devices == (CPU,) * 3
     assert not mesh.on_card
 
 

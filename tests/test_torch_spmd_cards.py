@@ -142,7 +142,6 @@ def test_one_card_mesh_on_the_cpu_is_the_stages_in_order(cards):
     mesh = tspmd.default_stage_mesh(3, "cpu", cards=cards)
     assert mesh.devices == (CPU,) * 3 and mesh.cards == (CPU,)
     assert mesh.streams == mesh.copy_streams == (None,) * 3
-    assert tspmd._stage_devices(mesh) == [CPU] * 3
     assert tspmd.peer_access(mesh) == {}
     assert not mesh.on_card
 
@@ -152,29 +151,46 @@ def test_stage_mesh_needs_a_device_stream_and_copy_stream_a_stage():
         tspmd.StageMesh((CPU,) * 3, (None,) * 2, (None,) * 3)
     mesh = _mixed_mesh()
     assert mesh.n_stages == 4 and mesh.cards == (CPU, META)
-    assert tspmd._stage_devices(mesh) == list(MIXED)
+    assert mesh.devices == MIXED
 
 
 # ---------------------------------------------------------------------------
 # the hop
 # ---------------------------------------------------------------------------
-def test_hop_off_a_card_moves_the_tensor_to_the_reader():
+@pytest.mark.parametrize("payload", ["tensor", "dict"])
+def test_hop_off_a_card_moves_the_tensor_to_the_reader(payload):
+    """A tensor, or a stage's dict of them by name (``_hand_on``: a hop
+    each): kept as it is on its own device, moved to another."""
     x = torch.arange(6.0).reshape(2, 3)
-    assert tspmd._hop(x, None, CPU, None) is x
-    y = tspmd._hop(x, None, META, None)
-    assert y.device == META and y.shape == x.shape and y.dtype == x.dtype
+    if payload == "tensor":
+        hop, out = tspmd._hop, x
+    else:
+        hop, out = tspmd._hand_on, {"a": x, "skip": torch.ones(2, 2, 4)}
+    same = hop(out, None, CPU, None)
+    moved = hop(out, None, META, None)
+    if payload == "dict":
+        assert set(same) == set(moved) == set(out)
+        same, moved, out = ([d[k] for k in sorted(out)]
+                            for d in (same, moved, out))
+    else:
+        same, moved, out = [same], [moved], [out]
+    for a, b, c in zip(same, moved, out):
+        assert a is c
+        assert b.device == META and b.shape == c.shape and b.dtype == c.dtype
 
 
 class _Spy:
-    """Records the calls of a module function and passes them on."""
+    """Records the calls of a module function and their results, and
+    passes them on."""
 
     def __init__(self, monkeypatch, name):
-        self.calls = []
+        self.calls, self.results = [], []
         real = getattr(tspmd, name)
 
-        def spy(*args):
+        def spy(*args, **kwargs):
             self.calls.append(args)
-            return real(*args)
+            self.results.append(real(*args, **kwargs))
+            return self.results[-1]
 
         monkeypatch.setattr(tspmd, name, spy)
 
@@ -301,9 +317,9 @@ def test_pipeline_logits_across_devices(monkeypatch):
 # the CNN lowering and the weight streaming across devices
 # ---------------------------------------------------------------------------
 def test_cnn_executor_across_devices(monkeypatch):
-    """The flat boundary buffers cross to ``meta`` as the LM's hidden
-    states do: each stage's weight row on its device, the hop out of
-    stage 1 equal to the all-CPU mesh's, the output on ``meta``."""
+    """The boundary tensors cross to ``meta`` as the LM's hidden states
+    do: each stage's placed weights on its device, the hop out of stage 1
+    equal to the all-CPU mesh's, the output on ``meta``."""
     m = tcnn.synthetic_cnn(8, L=6, hw=32)
     pl = tapi.plan(tapi.DeploymentSpec(stages=4,
                                        strategy="balanced_norefine"),
@@ -315,11 +331,14 @@ def test_cnn_executor_across_devices(monkeypatch):
     for name, mesh in (("cpu", tspmd.default_stage_mesh(4, "cpu")),
                        ("mixed", _mixed_mesh())):
         spy = _Spy(monkeypatch, "_hop")
-        rows = _Spy(monkeypatch, "_unflatten_stage_params")
+        streamed = _Spy(monkeypatch, "stream_stage_weights")
         with tspmd.SpmdPipelineExecutor.for_cnn(
                 m, params, pl, mesh=mesh, n_microbatches=4) as ex:
             outs[name] = ex(x)
-        assert [w.device for w, *_ in rows.calls] == list(mesh.devices)
+        placed, _, _ = streamed.results[0]
+        assert [{t.device for t in tspmd.tree_flatten(tree)[0]}
+                for tree in placed] == [{d} for d in mesh.devices]
+        # one tensor crosses each of this net's cuts: a hop a stage
         hops[name] = _into_stage(spy.calls, 2, 4, 4)
         monkeypatch.undo()
     direct = m.apply(params, x)
