@@ -449,12 +449,16 @@ DESIGNS = {
               "thread owns 4 channels (16-byte loads and stores) and a strip "
               "of 8 output columns (4 at stride 2 or k 5 and 7), loads each "
               "input row's window before its FMAs; halo rows and strip "
-              "overlaps re-read from L1 and L2",
+              "overlaps re-read from L1 and L2; the BN and ReLU / ReLU6 "
+              "after it, where its group takes them, in an epilogue on the "
+              "accumulators (bn_epilogue.cuh's arithmetic, the per-channel "
+              "values loaded after the tap loop)",
 }
 # the hand-written kernels of the CNN forward: no TPU counterpart, and not
 # in KERNELS, whose counts the LM and serving phases pin
 EPILOGUE = "bn_epilogue"
 DWCONV = "dwconv"
+DWCONV_BN = "dwconv.bn"         # dwconv's launches with the BN epilogue
 
 ARCH = "qwen3-1.7b"
 SEQ = 1024
@@ -1630,13 +1634,15 @@ def dw_inputs(shape, seed=0):
 
 def dw_ptxas(log):
     """Registers and spill store bytes of each dwconv instantiation in a
-    ``-Xptxas -v`` log: {"k3 s1": (registers, spill bytes), ...}."""
+    ``-Xptxas -v`` log: {"k3 s1": (registers, spill bytes), "k3 s1 bn":
+    ..., ...} (``bn``: with the BN epilogue)."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '[^']*dwconv_kernel"
-                      r"ILi(\d)ELi(\d)E", line)
+                      r"ILi(\d)ELi(\d)ELb([01])E", line)
         if m:
-            key = f"k{m.group(1)} s{m.group(2)}"
+            key = (f"k{m.group(1)} s{m.group(2)}"
+                   + (" bn" if m.group(3) == "1" else ""))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and key is not None:
             out[key] = [None, int(m.group(1))]
@@ -1647,22 +1653,37 @@ def dw_ptxas(log):
     return {k: tuple(v) for k, v in sorted(out.items())}
 
 
+def dw_bn(c, seed=1):
+    """Per-channel (mean, var, gamma, beta) on the card that send a
+    depthwise output of unit scale past ReLU6's 0 and 6."""
+    g = torch.Generator(CARD).manual_seed(seed)
+    return (torch.randn(c, generator=g, device=CARD) * 0.5,
+            torch.rand(c, generator=g, device=CARD) * 0.1 + 0.01,
+            torch.rand(c, generator=g, device=CARD) * 2 + 0.5,
+            torch.randn(c, generator=g, device=CARD) * 2)
+
+
 def check_dwconv(log):
     """``dwconv`` against its plain version (``dwconv_ref``: ``F.pad`` and
     cuDNN's grouped ``conv2d``) at DW_SHAPES: one counted launch a call,
-    within DW_ULPS of max |plain|.  Prints ptxas's registers and spills of
-    each instantiation (``log``: the build's), and times kernel, plain
-    version, cuDNN's convolution alone on an input padded beforehand and
-    the bound at DW_TIMED, with the host's time a call of the wrapper and
-    of the plain version.  The plain version is also the library's route
-    (``library_ms``): F.pad then cuDNN, the port's route before the
-    kernel, which it no longer calls.  Returns the record of the first
-    timed shape, both under ``shapes``."""
+    within DW_ULPS of max |plain|; with the BN and ReLU6 epilogue, one
+    launch equal bit for bit to ``dwconv`` then ``bn_epilogue``.  Prints
+    ptxas's registers and spills of each instantiation (``log``: the
+    build's; none may spill), and times kernel, plain version, cuDNN's
+    convolution alone on an input padded beforehand and the bound at
+    DW_TIMED, with the host's time a call of the wrapper and of the plain
+    version; and the fused launch beside the unfused pair (``dwconv`` then
+    ``bn_epilogue`` with ReLU6), each against its byte bound.  The plain
+    version is also the library's route (``library_ms``): F.pad then
+    cuDNN, the port's route before the kernel, which it no longer calls.
+    Returns the record of the first timed shape, both under ``shapes``."""
     regs = dw_ptxas(log)
     print(f"dwconv ptxas (registers, spill bytes) by instantiation: {regs}")
-    if sorted(regs) != ["k3 s1", "k3 s2", "k5 s1", "k5 s2", "k7 s1",
-                        "k7 s2"]:
+    plain_keys = ["k3 s1", "k3 s2", "k5 s1", "k5 s2", "k7 s1", "k7 s2"]
+    if sorted(regs) != sorted(plain_keys + [f"{k} bn" for k in plain_keys]):
         raise SystemExit(f"dwconv: instantiations not found: {regs}")
+    if any(spill != 0 for _, spill in regs.values()):
+        raise SystemExit(f"dwconv: an instantiation spills: {regs}")
     eps = torch.finfo(torch.float32).eps
     worst = 0.0
     with torch.no_grad():
@@ -1680,13 +1701,27 @@ def check_dwconv(log):
                 raise SystemExit(f"dwconv at {shape}: {err:.2f} ulp of max "
                                  f"|plain| (tol {DW_ULPS}), shape "
                                  f"{tuple(got.shape)}")
-            del x, got, expect
+            ps = dw_bn(shape[3])
+            before = _build.launches(DWCONV), _build.launches(DWCONV_BN)
+            fused = dw.dwconv(x, wt, None, stride, pads, ps, "relu6")
+            pair = be.bn_epilogue(got, *ps, None, "relu6")
+            torch.cuda.synchronize()
+            if not (torch.equal(fused, pair) and (
+                    _build.launches(DWCONV), _build.launches(DWCONV_BN)) == (
+                    before[0] + 1, before[1] + 1)):
+                raise SystemExit(f"dwconv with the BN epilogue at {shape}: "
+                                 f"max |fused - pair| "
+                                 f"{(fused - pair).abs().max().item():g}")
+            del x, got, expect, fused, pair
         print(f"dwconv: {len(DW_SHAPES)} shapes within {worst:.2f} ulp of "
-              f"max |plain| (tol {DW_ULPS}), one launch each")
+              f"max |plain| (tol {DW_ULPS}), one launch each; with the BN "
+              f"and ReLU6 epilogue equal bit for bit to dwconv then "
+              f"bn_epilogue, one launch each")
         shapes = []
         for shape in DW_TIMED:
             x, wt, stride, pads = dw_inputs(shape)
             padded = F.pad(x.permute(0, 3, 1, 2), pads)
+            ps = dw_bn(shape[3])
 
             def kernel():
                 return dw.dwconv(x, wt, None, stride, pads)
@@ -1698,10 +1733,23 @@ def check_dwconv(log):
                 return F.conv2d(padded, wt, None, stride=stride,
                                 groups=x.shape[-1])
 
+            def fused():
+                return dw.dwconv(x, wt, None, stride, pads, ps, "relu6")
+
+            def pair():
+                return be.bn_epilogue(kernel(), *ps, None, "relu6")
+
             y = kernel()
             bound_ms, bound_by = cost_bound(
                 dw.dwconv_cost(x, shape[4], y.shape[1], y.shape[2], False),
                 torch.float32)
+            fused_bound = cost_bound(dw.dwconv_cost(
+                x, shape[4], y.shape[1], y.shape[2], False, True, "relu6"),
+                torch.float32)
+            pair_cost = [a + b for a, b in zip(
+                dw.dwconv_cost(x, shape[4], y.shape[1], y.shape[2], False),
+                be.epilogue_cost(y, False, "relu6"))]
+            pair_bound = cost_bound(pair_cost, torch.float32)
             row = {"shape": list(shape), "pads": list(pads),
                    "max_abs_err": (y - plain()).abs().max().item(),
                    "ms": cuda_ms([kernel]), "plain_ms": cuda_ms([plain]),
@@ -1710,6 +1758,12 @@ def check_dwconv(log):
                    "host_us": host_us(kernel), "plain_host_us": host_us(plain)}
             row["library_ms"] = row["plain_ms"]
             row["roofline"] = row["bound_ms"] / row["ms"]
+            row.update(fused_ms=cuda_ms([fused]), pair_ms=cuda_ms([pair]),
+                       fused_bound_ms=fused_bound[0],
+                       pair_bound_ms=pair_bound[0],
+                       fused_host_us=host_us(fused))
+            row["fused_roofline"] = row["fused_bound_ms"] / row["fused_ms"]
+            row["pair_roofline"] = row["pair_bound_ms"] / row["pair_ms"]
             print(f"dwconv timing at {shape} pads {pads}: max |kernel - "
                   f"plain| {row['max_abs_err']:g}; kernel {row['ms']:.4f} "
                   f"ms ({row['roofline']:.1%} of the bound {bound_ms:.4f} "
@@ -1719,6 +1773,14 @@ def check_dwconv(log):
                   f"{row['cudnn_conv_alone_ms']:.4f} ms; host a call "
                   f"{row['host_us']:.2f} us, plain {row['plain_host_us']:.2f}"
                   f" us")
+            print(f"dwconv with the BN and ReLU6 at {shape}: fused "
+                  f"{row['fused_ms']:.4f} ms ({row['fused_roofline']:.1%} of "
+                  f"its bound {row['fused_bound_ms']:.4f} ms, "
+                  f"{fused_bound[1]}); dwconv then bn_epilogue "
+                  f"{row['pair_ms']:.4f} ms ({row['pair_roofline']:.1%} of "
+                  f"its bound {row['pair_bound_ms']:.4f} ms, "
+                  f"{pair_bound[1]}); host a fused call "
+                  f"{row['fused_host_us']:.2f} us")
             shapes.append(row)
             del x, padded, y
     torch.cuda.empty_cache()
@@ -1733,6 +1795,7 @@ def check_dwconv(log):
 
 def mobilenetv2_dwconv_launches():
     """One MobileNetV2 forward (batch 2, fp32, TF32 off): 17 dwconv
+    launches, each with the BN and ReLU6 epilogue, 35 bn_epilogue
     launches, the output within 1.5e-5 of max |y| (the benchmark cell's
     limit) of the forward through the plain version."""
     m = cnn.REAL_CNNS["MobileNetV2"]()
@@ -1745,14 +1808,16 @@ def mobilenetv2_dwconv_launches():
         y = m.apply(params, x)
         torch.cuda.synchronize()
         n = _build.launches(DWCONV)
+        counts = (n, _build.launches(DWCONV_BN), _build.launches(EPILOGUE))
         with unittest.mock.patch.object(layers, "dwconv",
                                         kernel_ref.dwconv_ref):
             plain = m.apply(params, x)
     err = (y - plain).abs().max().item() / plain.abs().max().item()
-    print(f"MobileNetV2 forward: {n} dwconv launches (expected 17); "
-          f"max_abs_err / max|y| against the plain route {err:.3e}")
-    if n != 17 or not err <= 1.5e-5:
-        raise SystemExit(f"MobileNetV2: {n} dwconv launches, {err:.3e}")
+    print(f"MobileNetV2 forward: (dwconv, dwconv.bn, bn_epilogue) launches "
+          f"{counts} (expected (17, 17, 35)); max_abs_err / max|y| against "
+          f"the plain route {err:.3e}")
+    if counts != (17, 17, 35) or not err <= 1.5e-5:
+        raise SystemExit(f"MobileNetV2: launches {counts}, {err:.3e}")
     return n
 
 
@@ -1794,8 +1859,9 @@ def check_cnn_zoo():
     CPU's convolutions sum in other orders).  The KERNELS' launches must
     stay 0 (the convolutions run cuDNN, as the reference runs XLA, but
     for the depthwise ones), bn_epilogue launches once for each of the
-    forward's fused groups and dwconv once for each depthwise
-    convolution."""
+    forward's fused groups without a depthwise conv and dwconv once for
+    each depthwise convolution, with the BN epilogue once for each group
+    with one."""
     exempt = {"NASNetMobile", "ResNet50V2", "ResNet101V2", "ResNet152V2"}
     cpu = torch.device("cpu")
     worst = 0.0
@@ -1816,29 +1882,34 @@ def check_cnn_zoo():
         x = torch.randn((1,) + m.input_shape,
                         generator=torch.Generator(cpu).manual_seed(1))
         y_cpu = m.apply(params, x)
-        before = _build.launches(EPILOGUE), _build.launches(DWCONV)
+        before = (_build.launches(EPILOGUE), _build.launches(DWCONV),
+                  _build.launches(DWCONV_BN))
         t0 = time.perf_counter()
         y = m.apply(to_card(params), x.cuda())
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         groups = len(m.program().groups)
+        with_conv = sum(1 for g in m.program().groups if g.conv)
         # depthwise: a (C, 1, k, k) weight over C > 1 input channels
         depthwise = sum(
             1 for n, node in m.nodes.items() if node.kind == "conv"
             and params[n]["w"].shape[1] == 1
             and params[n]["w"].shape[0] == m.shape_of(node.inputs[0])[-1] > 1)
         launched = (_build.launches(EPILOGUE) - before[0],
-                    _build.launches(DWCONV) - before[1])
-        if launched != (groups, depthwise):
-            raise SystemExit(f"cnn {name}: (bn_epilogue, dwconv) launches "
-                             f"{launched}, groups and depthwise convs "
-                             f"{(groups, depthwise)}")
+                    _build.launches(DWCONV) - before[1],
+                    _build.launches(DWCONV_BN) - before[2])
+        if launched != (groups - with_conv, depthwise, with_conv):
+            raise SystemExit(f"cnn {name}: (bn_epilogue, dwconv, dwconv.bn)"
+                             f" launches {launched}, groups without and "
+                             f"with a depthwise conv and depthwise convs "
+                             f"{(groups - with_conv, depthwise, with_conv)}")
         scale = y_cpu.abs().max().item()
         rel = (y.cpu() - y_cpu).abs().max().item() / scale
         worst = max(worst, rel)
         print(f"cnn {name} {m.input_shape}: {m.total_params} params, "
-              f"{m.total_macs} MACs, depth {g.depth}, {groups} bn_epilogue "
-              f"and {depthwise} dwconv launches; card vs CPU max_abs_err "
+              f"{m.total_macs} MACs, depth {g.depth}, "
+              f"{groups - with_conv} bn_epilogue and {depthwise} dwconv "
+              f"launches ({with_conv} with the BN); card vs CPU max_abs_err "
               f"/ max|y| {rel:.3e} (tol {CNN_TOL:g}; max|y| {scale:.3e}), "
               f"out {tuple(y.shape)}, first card forward {dt * 1e3:.1f} ms")
         if not (ok and rel <= CNN_TOL and bool(torch.isfinite(y).all())):

@@ -51,7 +51,11 @@ _sinks: List[Callable[[str, float, float], None]] = []
 
 def count_launch(name: str, device: Optional[torch.device] = None) -> None:
     """One launch of the kernel of ``csrc/<name>.cu``, on the card
-    ``device`` when given (the wrappers pass their inputs')."""
+    ``device`` when given (the wrappers pass their inputs').  A wrapper
+    counts a launch of one route of its kernel a second time under
+    ``<name>.<route>`` (``dwconv.bn``: ``dwconv`` with its BN epilogue), so
+    ``launches("<name>.<route>") / launches("<name>")`` is the route's
+    share."""
     with _count_lock:
         _launches[name] = _launches.get(name, 0) + 1
         if device is not None and device.index is not None:

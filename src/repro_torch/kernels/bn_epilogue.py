@@ -36,7 +36,7 @@ import torch
 from . import _build
 from .ref import EPILOGUE_ACTS, bn_epilogue_ref
 
-_ACT_CODES = {None: 0, "relu": 1, "relu6": 2}
+ACT_CODES = {None: 0, "relu": 1, "relu6": 2}
 _F32 = torch.float32
 MAX_ELEMENTS = 2 ** 31 - 1    # the kernel indexes in 32 bits
 
@@ -93,7 +93,7 @@ def bn_epilogue(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                 act: Optional[str] = None) -> torch.Tensor:
     """x: (..., C); mean, var, gamma, beta: (C,); r: x's shape or None ->
     y of x's shape."""
-    code = _ACT_CODES.get(act)
+    code = ACT_CODES.get(act)
     if code is None:
         raise ValueError(f"bn_epilogue takes act None or one of "
                          f"{sorted(EPILOGUE_ACTS)}, not {act!r}")

@@ -17,11 +17,10 @@
 // ResNet50's largest BN (32 x 112 x 112 x 64) moves 205.5 MB: 0.0614 ms.
 //
 // Rounding: the eager chain's, bit for bit on finite inputs up to the sign
-// of a zero.  Each step is its own correctly rounded intrinsic (__fsub_rn,
-// __fmul_rn, __fmul_rn, __fadd_rn, then __fadd_rn with r), which nvcc
-// never contracts into an FMA.  The inverse is rsqrtf of var + 1e-3f, the
-// call PyTorch's CUDA rsqrt makes.  ReLU and ReLU6 pass a NaN through, as
-// torch.relu and torch.clamp do.
+// of a zero: the arithmetic of csrc/bn_epilogue.cuh (which dwconv.cu's
+// epilogue shares), then __fadd_rn with r, which nvcc never contracts into
+// an FMA.  ReLU and ReLU6 pass a NaN through, as torch.relu and
+// torch.clamp do.
 //
 // Design.  The vector route (C % 4 == 0; x, r and y on 16 bytes) gives each
 // thread kUnroll 16-byte chunks a block's width apart, issues all their
@@ -36,35 +35,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bn_epilogue.cuh"
+
 namespace {
+
+using bn::Channels;
+using bn::kNone;
+using bn::kRelu;
+using bn::kRelu6;
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 2;            // 16-byte chunks a thread (vector route)
-constexpr float kEps = 1e-3f;
-constexpr int kNone = 0, kRelu = 1, kRelu6 = 2;
-
-struct Channels {
-  const float* mean;
-  const float* var;
-  const float* gamma;
-  const float* beta;
-};
 
 __device__ __forceinline__ float normalize(float x, const Channels& ch,
                                            int c) {
-  const float inv = rsqrtf(__fadd_rn(__ldg(ch.var + c), kEps));
-  return __fadd_rn(
-      __fmul_rn(__fmul_rn(__fsub_rn(x, __ldg(ch.mean + c)), inv),
-                __ldg(ch.gamma + c)),
-      __ldg(ch.beta + c));
+  return bn::normalize(x, __ldg(ch.mean + c), bn::inverse(__ldg(ch.var + c)),
+                       __ldg(ch.gamma + c), __ldg(ch.beta + c));
 }
 
 template <int A, bool R>
 __device__ __forceinline__ float finish(float v, float r) {
   if (R) v = __fadd_rn(v, r);
-  if (A == kRelu) return v < 0.f ? 0.f : v;
-  if (A == kRelu6) return v < 0.f ? 0.f : (v > 6.f ? 6.f : v);
-  return v;
+  return bn::activate(v, A);
 }
 
 template <int A, bool R>

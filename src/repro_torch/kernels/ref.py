@@ -2,7 +2,7 @@
 kernels are held against, and what a wrapper runs for CPU tensors."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -329,14 +329,19 @@ def bn_epilogue_ref(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
 
 def dwconv_ref(x: torch.Tensor, w: torch.Tensor,
                b: Optional[torch.Tensor] = None, stride: int = 1,
-               pads: Tuple[int, int, int, int] = (0, 0, 0, 0)) -> torch.Tensor:
+               pads: Tuple[int, int, int, int] = (0, 0, 0, 0),
+               bn: Optional[Sequence[torch.Tensor]] = None,
+               act: Optional[str] = None) -> torch.Tensor:
     """Depthwise convolution of NHWC ``x`` (N, H, W, C) by ``w`` (C, 1, k,
     k), plus ``b`` (C,) where given, after zero padding ``pads`` (``F.pad``'s
     order: left, right, top, bottom) -> (N, OH, OW, C): the CNN forward's
     depthwise ops, x viewed NCHW, ``F.pad``, a grouped ``F.conv2d``, the
-    result viewed NHWC."""
+    result viewed NHWC.  Given ``bn`` = (mean, var, gamma, beta), then
+    :func:`bn_epilogue_ref` of the result with ``act``: the forward's
+    ``bn`` and ``act`` nodes after the conv, op for op."""
     v = x.permute(0, 3, 1, 2)
     if any(pads):
         v = F.pad(v, pads)
-    return F.conv2d(v, w, b, stride=stride,
-                    groups=x.shape[-1]).permute(0, 2, 3, 1)
+    y = F.conv2d(v, w, b, stride=stride,
+                 groups=x.shape[-1]).permute(0, 2, 3, 1)
+    return y if bn is None else bn_epilogue_ref(y, *bn, act=act)

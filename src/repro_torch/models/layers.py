@@ -46,26 +46,35 @@ the card, the same plain ops on the CPU, equal bit for bit).  A group is a
 optionally a ``relu`` or ``relu6`` ``act`` that reads the node before; it
 takes in a node only where the node before has it as its only consumer,
 it lies in the subset, and the node before is not among the tensors the
-subset returns.  So a stage cut inside a group hands over the unfused
-tensor, and a profile that times one depth level at a time fuses nothing.
-A group runs at its last node's place in the order.  Where autograd
-records through one of its inputs or parameters, a group runs the nodes'
-plain ops (:func:`~repro_torch.kernels.ref.bn_epilogue_ref`): the kernel
-has no backward.  On the card a group raises for an activation the kernel
-does not take (not fp32, not contiguous), so a change of the forward's
-layout or dtype cannot take it off the kernel unseen.  Node names, kinds,
-costs and ``to_layer_graph`` do not see the groups.
+subset returns.  A group without an ``add`` whose ``bn`` reads a depthwise
+convolution takes the convolution in too, under the same rules (the
+``bn`` its only consumer, in the subset, not returned): the group is then
+one :func:`~repro_torch.kernels.dwconv.dwconv` call with the BN and the
+activation in the kernel's epilogue, and no ``bn_epilogue`` launch.  So a
+stage cut inside a group hands over the unfused tensor, and a profile
+that times one depth level at a time fuses nothing.  A group runs at its
+last node's place in the order.  Where autograd records through one of
+its inputs or parameters, a group runs the nodes' plain ops
+(:func:`~repro_torch.kernels.ref.bn_epilogue_ref`,
+:func:`~repro_torch.kernels.ref.dwconv_ref`): the kernels have no
+backward.  On the card a group raises for an activation the kernel does
+not take (not fp32, not contiguous), so a change of the forward's layout
+or dtype cannot take it off the kernel unseen.  Node names, kinds, costs
+and ``to_layer_graph`` do not see the groups.
 
-A depthwise convolution (``groups`` = input = output channels) is one
-call of :func:`~repro_torch.kernels.dwconv.dwconv`, which takes the SAME
-pads as offsets and makes no padded tensor (one CUDA launch on the card;
-on the CPU the ``F.pad`` and grouped ``F.conv2d`` above; where autograd
-records through its input or weight, those plain ops on any device: the
-kernel has no backward).  Another grouped convolution (none in the zoo)
-keeps the ``F.pad`` and ``conv2d`` route.  Either runs inside the profiler
-span :data:`DWCONV_SPAN` (nothing without a profiler), which the
-benchmark's depthwise metrics read; the route and the span are chosen when
-the node is built, and an ungrouped convolution opens none.
+A depthwise convolution (``groups`` = input = output channels; its node
+records its stride and pads in ``OpNode.depthwise``) is one call of
+:func:`~repro_torch.kernels.dwconv.dwconv`, which takes the SAME pads as
+offsets and makes no padded tensor (one CUDA launch on the card; on the
+CPU the ``F.pad`` and grouped ``F.conv2d`` above; where autograd records
+through its input or weight, those plain ops on any device: the kernel has
+no backward), with the BN and activation after it where its group takes
+it in.  Another grouped convolution (none in the zoo) keeps the ``F.pad``
+and ``conv2d`` route.  Either runs inside the profiler span
+:data:`DWCONV_SPAN` (nothing without a profiler), which the benchmark's
+depthwise metrics read, the BN and activation of a depthwise conv's group
+with it; the route and the span are chosen when the node is built, and an
+ungrouped convolution opens none.
 
 Parameters are a ``{node: {"w", "b", "gamma", ...}}`` dict of tensors; each
 node's ``init`` draws from an explicit :class:`torch.Generator` on the
@@ -105,6 +114,8 @@ class OpNode:
     kind: str = "generic"
     act_dtype_bytes: int = 1                     # int8 CNN path by default
     activation: Optional[str] = None             # an act node's function
+    # a depthwise conv's (stride, pads in F.pad's order)
+    depthwise: Optional[Tuple[int, Tuple[int, int, int, int]]] = None
 
     @property
     def out_bytes(self) -> int:
@@ -115,26 +126,29 @@ class OpNode:
 class FusedGroup:
     """A ``bn`` node and the ``add`` (with its other input, ``residual``)
     and ``act`` (of function ``fn``) nodes after it that run with it as
-    one ``bn_epilogue`` call."""
+    one ``bn_epilogue`` call; or, with ``conv``, the depthwise conv the
+    ``bn`` reads, the ``bn`` and the ``act`` as one ``dwconv`` call."""
     bn: str
     add: Optional[str] = None
     residual: Optional[str] = None
     act: Optional[str] = None
     fn: Optional[str] = None
+    conv: Optional[str] = None
 
     @property
     def nodes(self) -> Tuple[str, ...]:
-        return tuple(n for n in (self.bn, self.add, self.act) if n)
+        return tuple(n for n in (self.conv, self.bn, self.add, self.act)
+                     if n)
 
     @property
     def out(self) -> str:
         return self.nodes[-1]
 
 
-# one step of a program: (output name, fn(params, inputs), input names,
-# the params' node)
-Step = Tuple[str, Callable[[Params, List[torch.Tensor]], torch.Tensor],
-             Tuple[str, ...], str]
+# one step of a program: (output name, fn(*params, inputs), input names,
+# the nodes whose params fn takes, one Params each)
+Step = Tuple[str, Callable[..., torch.Tensor], Tuple[str, ...],
+             Tuple[str, ...]]
 
 
 class Program(NamedTuple):
@@ -157,6 +171,35 @@ def _epilogue_step(act: Optional[str], residual: bool):
                 t is not None and t.requires_grad for t in args):
             return bn_epilogue_ref(*args, act)
         return bn_epilogue(*args, act)
+    return run
+
+
+def _depthwise(x: torch.Tensor, p: Params, stride: int,
+               pads: Tuple[int, int, int, int],
+               bn: Optional[Tuple[torch.Tensor, ...]] = None,
+               act: Optional[str] = None) -> torch.Tensor:
+    """A depthwise conv of params ``p``, and the BN (``bn``: mean, var,
+    gamma, beta) and ``act`` after it where given, inside
+    :data:`DWCONV_SPAN`: one ``dwconv`` call, or its plain ops where
+    autograd records through an input or a parameter (the kernel has no
+    backward; on the CPU both are the same ops)."""
+    args = (x, p["w"], p.get("b"), stride, pads, bn, act)
+    with span(DWCONV_SPAN):
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (*args[:3], *(bn or ()))):
+            return dwconv_ref(*args)
+        return dwconv(*args)
+
+
+def _dwconv_step(stride: int, pads: Tuple[int, int, int, int],
+                 act: Optional[str]):
+    """A group's step with a depthwise conv: fn(conv's params, bn's
+    params, [x])."""
+    def run(pc: Params, pb: Params, xs: List[torch.Tensor]) -> torch.Tensor:
+        return _depthwise(xs[0], pc, stride, pads,
+                          (pb["mean"], pb["var"], pb["gamma"], pb["beta"]),
+                          act)
     return run
 
 
@@ -246,8 +289,8 @@ class GraphModel:
 
     def _run(self, prog: Program, params: Params,
              acts: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        for out, fn, inputs, owner in prog.steps:
-            acts[out] = fn(params.get(owner, {}),
+        for out, fn, inputs, owners in prog.steps:
+            acts[out] = fn(*[params.get(o, {}) for o in owners],
                            [acts[i] for i in inputs])
         return acts
 
@@ -303,7 +346,12 @@ class GraphModel:
             if (nxt is not None and nxt.kind == "act"
                     and nxt.activation in EPILOGUE_ACTS):
                 act, fn = nxt.name, nxt.activation
-            group = FusedGroup(name, add, residual, act, fn)
+            conv = self.nodes[name].inputs[0]
+            if not (add is None and conv in subset
+                    and self.nodes[conv].depthwise is not None
+                    and next_of(conv) is self.nodes[name]):
+                conv = None
+            group = FusedGroup(name, add, residual, act, fn, conv)
             for n in group.nodes:
                 group_of[n] = group
 
@@ -314,12 +362,17 @@ class GraphModel:
             group = group_of.get(name)
             if group is None:
                 node = self.nodes[name]
-                steps.append((name, node.apply, tuple(node.inputs), name))
+                steps.append((name, node.apply, tuple(node.inputs), (name,)))
+            elif name == group.out and group.conv:
+                conv = self.nodes[group.conv]
+                steps.append((name, _dwconv_step(*conv.depthwise, group.fn),
+                              (conv.inputs[0],), (group.conv, group.bn)))
             elif name == group.out:
                 inputs = (self.nodes[group.bn].inputs[0],) + (
                     (group.residual,) if group.residual else ())
                 steps.append((name, _epilogue_step(
-                    group.fn, group.residual is not None), inputs, group.bn))
+                    group.fn, group.residual is not None), inputs,
+                    (group.bn,)))
         groups = tuple(dict.fromkeys(group_of.values()))
         return Program(tuple(steps), groups, tuple(returns))
 
@@ -403,17 +456,13 @@ class Builder:
             return _nhwc(F.conv2d(v, p["w"], p.get("b"), stride=stride,
                                   groups=groups))
 
+        depthwise = None
         if groups > 1 and groups == cin == filters:
-            # depthwise, multiplier 1: the kernel pads as it reads; the
-            # plain ops where autograd records (the kernel has no backward)
+            # depthwise, multiplier 1: the kernel pads as it reads
+            depthwise = (stride, pads)
+
             def apply(p: Params, xs: List[torch.Tensor]) -> torch.Tensor:
-                args = (xs[0], p["w"], p.get("b"), stride, pads)
-                with span(DWCONV_SPAN):
-                    if torch.is_grad_enabled() and any(
-                            t is not None and t.requires_grad
-                            for t in args[:3]):
-                        return dwconv_ref(*args)
-                    return dwconv(*args)
+                return _depthwise(xs[0], p, stride, pads)
         elif groups > 1:
             conv = apply
 
@@ -422,7 +471,8 @@ class Builder:
                     return conv(p, xs)
 
         self.model.add(OpNode(nm, [x], init, apply, pcount, macs,
-                              (oh, ow, filters), kind="conv"))
+                              (oh, ow, filters), kind="conv",
+                              depthwise=depthwise))
         return nm
 
     def dwconv(self, x: str, kernel: int, stride: int = 1,

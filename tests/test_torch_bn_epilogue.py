@@ -6,6 +6,10 @@
   shortcut's BN takes: it comes first in the order).
 * A stage cut inside a group splits it: the boundary tensor is the
   unfused node's value.
+* A group without an add takes in the depthwise conv its BN reads, under
+  the same rules: MobileNetV2's 17, never Xception's or NASNetMobile's
+  (theirs feed a pointwise conv), and ResNet50's programs stay step for
+  step what they were before the depthwise fold.
 * ``apply`` and ``apply_subset`` equal the nodes run one by one bit for bit
   (on the CPU both run the same plain ops).
 * While autograd records, a group runs the plain ops (the kernel has no
@@ -18,6 +22,7 @@ The kernel itself is held against the plain ops on the card
 (``tests/test_torch_cuda.py``).
 """
 import collections
+import hashlib
 
 import pytest
 
@@ -62,8 +67,20 @@ def _random_params(m, seed=0):
 
 def _kinds(groups):
     return collections.Counter(
-        "+".join(["bn"] + (["add"] if g.add else [])
-                 + ([g.fn] if g.fn else [])) for g in groups)
+        "+".join((["dw"] if g.conv else []) + ["bn"]
+                 + (["add"] if g.add else []) + ([g.fn] if g.fn else []))
+        for g in groups)
+
+
+def _cell_programs(name):
+    """The model, and its programs over the front door's balanced 4-stage
+    plan with the SPMD tier's boundaries."""
+    m = cnn.REAL_CNNS[name]()
+    pl = plan(DeploymentSpec(model=f"cnn:{name}", stages=4,
+                             strategy="balanced"), graph=m.to_layer_graph())
+    specs, _ = cnn_boundary_specs(m, pl)
+    return m, pl, [m.program(layers, [n for n, _ in specs[s]])
+                   for s, layers in enumerate(pl.stage_layers)]
 
 
 def test_resnet50_groups():
@@ -149,7 +166,7 @@ def test_a_cut_inside_a_group_splits_it(after, split, crossing):
 
 
 @pytest.mark.parametrize("name", ["ResNet50", "ResNet50V2", "MobileNetV2",
-                                  "EfficientNetLiteB0"])
+                                  "EfficientNetLiteB0", "MobileNet"])
 def test_fused_route_equals_unfused_bit_for_bit(name):
     """``apply``, and ``apply_subset`` over the front door's balanced
     4-stage plan with the SPMD tier's boundaries, against the nodes run one
@@ -192,6 +209,174 @@ def test_resnet50_cell_plan_splits_one_group():
              if step[0] not in outs and m.nodes[step[0]].kind in ("add",
                                                                   "act")]
     assert plain == ["s2b4_a_relu"]
+
+
+# the (output, inputs, params' nodes) of every step of ResNet50's whole
+# program and of its four stage programs at the benchmark's plan, as they
+# were before groups took depthwise convs in: a sha256 of their repr
+RESNET50_STEPS = (
+    "2972471a4fe17cf8e45c40bbdbbc226fad687357a0b2dab5c91b31dda08b8950")
+
+
+def test_resnet50_programs_are_step_for_step_the_same():
+    """ResNet50 has no depthwise conv: its programs, their steps, groups
+    and owners are what they were before groups took convs in."""
+    m, _, progs = _cell_programs("ResNet50")
+    progs = [m.program()] + progs
+    rows = [[(out, inputs, owners) for out, _, inputs, owners in p.steps]
+            for p in progs]
+    assert [len(r) for r in rows] == [109, 77, 16, 8, 9]
+    assert hashlib.sha256(repr(rows).encode()).hexdigest() == RESNET50_STEPS
+    assert not any(g.conv for p in progs for g in p.groups)
+
+
+def test_mobilenetv2_groups_take_in_the_17_depthwise_convs():
+    m = cnn.REAL_CNNS["MobileNetV2"]()
+    groups = m.program().groups
+    dw = [n for n, node in m.nodes.items() if node.depthwise is not None]
+    assert len(dw) == 17
+    assert _kinds(groups) == {"dw+bn+relu6": 17, "bn+relu6": 18, "bn": 7,
+                              "bn+add": 10}
+    for g in groups:
+        if g.conv:
+            assert g.nodes == (g.conv, g.bn, g.act)
+            assert m.nodes[g.bn].inputs == [g.conv]
+    assert sorted(g.conv for g in groups if g.conv) == sorted(dw)
+    # a step a group: the conv's input in, both nodes' params
+    steps = {step[0]: step for step in m.program().steps}
+    for g in groups:
+        if g.conv:
+            _, _, inputs, owners = steps[g.out]
+            assert inputs == tuple(m.nodes[g.conv].inputs)
+            assert owners == (g.conv, g.bn)
+    assert not set(dw) & set(steps)
+
+
+def test_mobilenetv2_cell_plan_keeps_ir14s_group_whole():
+    """The benchmark's balanced cuts [125, 126, 147] make ``ir14_proj``
+    stage 1 alone: ``ir14_dw``, ``bn_73`` and ``relu6_74`` end stage 0, so
+    all 17 groups take conv, BN and ReLU6 in.  A cut after ``bn_73``
+    leaves ``(ir14_dw, bn_73)``, and ``relu6_74`` runs as a plain step of
+    the next stage."""
+    m, pl, progs = _cell_programs("MobileNetV2")
+    assert [len(layers) for layers in pl.stage_layers] == [126, 1, 21, 3]
+    assert pl.stage_layers[0][-1] == "relu6_74"
+    assert pl.stage_layers[1] == ["ir14_proj"]
+    groups = [g for p in progs for g in p.groups]
+    assert _kinds(g for g in groups if g.conv) == {"dw+bn+relu6": 17}
+    (ir14,) = [g for g in progs[0].groups if g.conv == "ir14_dw"]
+    assert ir14.nodes == ("ir14_dw", "bn_73", "relu6_74")
+    order = m._order
+    cut = order.index("bn_73") + 1
+    first, second = m.program(order[:cut]), m.program(order[cut:], ["bn_73"])
+    (ir14,) = [g for g in first.groups if g.conv == "ir14_dw"]
+    assert ir14.nodes == ("ir14_dw", "bn_73") and "bn_73" in first.returns
+    assert second.steps[0][0] == "relu6_74"
+    assert "relu6_74" not in {n for g in second.groups for n in g.nodes}
+
+
+@pytest.mark.parametrize("name,convs", [("Xception", 34),
+                                        ("NASNetMobile", 128)])
+def test_depthwise_convs_that_feed_a_pointwise_conv_stay_alone(name, convs):
+    m = cnn.REAL_CNNS[name]()
+    dw = [n for n, node in m.nodes.items() if node.depthwise is not None]
+    assert len(dw) == convs
+    progs = [m.program()] + _cell_programs(name)[2]
+    assert not any(g.conv for p in progs for g in p.groups)
+    plain = {step[0] for step in progs[0].steps}
+    assert set(dw) <= plain
+
+
+def _tiny_inverted_residual():
+    """A MobileNetV2 block: expand, depthwise, project, each with its BN
+    (ReLU6 after the first two); then a depthwise conv read by its BN and
+    by a concat, which no group may take in."""
+    b = Builder("tiny_ir", (7, 7), 8)
+    x = b.act(b.bn(b.conv(b.model.INPUT, 16, 1, use_bias=False, name="ex"),
+                   "exbn"), "relu6", "exr")
+    x = b.act(b.bn(b.dwconv(x, 3, 2, use_bias=False, name="dw"), "dwbn"),
+              "relu6", "dwr")
+    x = b.bn(b.conv(x, 8, 1, use_bias=False, name="pr"), "prbn")
+    y = b.dwconv(x, 3, name="dw2")
+    x = b.concat([b.bn(y, "dw2bn"), y], "cat")
+    b.dense(b.gap(x, "gap"), 5, name="head")
+    return b.build()
+
+
+def test_a_depthwise_conv_read_twice_stays_alone():
+    m = _tiny_inverted_residual()
+    groups = {g.bn: g for g in m.program().groups}
+    assert groups["dwbn"].nodes == ("dw", "dwbn", "dwr")
+    assert groups["dw2bn"].nodes == ("dw2bn",)
+    params = _random_params(m)
+    x = torch.randn(2, 7, 7, 8, generator=torch.Generator().manual_seed(6))
+    assert torch.equal(m.apply(params, x), _unfused(m, params, x)[m.output])
+
+
+# (cut after this node, the first stage's group of dwbn, the second's)
+DW_CUTS = [("dw", None, ("dwbn", "dwr")),
+           ("dwbn", ("dw", "dwbn"), None),
+           ("dwr", ("dw", "dwbn", "dwr"), None)]
+
+
+@pytest.mark.parametrize("after,first_group,second_group", DW_CUTS,
+                         ids=["dw|bn", "bn|relu6", "relu6|pr"])
+def test_a_cut_after_a_depthwise_conv_leaves_it_out(after, first_group,
+                                                    second_group):
+    """A cut right after the conv hands its unfused output over and the
+    group of the next stage is its BN and ReLU6; a cut after the BN keeps
+    the conv and the BN together."""
+    m = _tiny_inverted_residual()
+    params = _random_params(m)
+    x = torch.randn(2, 7, 7, 8, generator=torch.Generator().manual_seed(7))
+    order = m._order
+    first, second = (order[:order.index(after) + 1],
+                     order[order.index(after) + 1:])
+    p1, p2 = m.program(first), m.program(second, [after])
+    for prog, want in ((p1, first_group), (p2, second_group)):
+        got = [g.nodes for g in prog.groups if "dwbn" in g.nodes]
+        assert got == ([want] if want else [])
+    assert after in p1.returns
+    expect = _unfused(m, params, x)
+    boundary = m.apply_subset(params, {m.INPUT: x}, first)
+    assert torch.equal(boundary[after], expect[after])
+    out = m.apply_subset(params, boundary, second)
+    assert torch.equal(out[m.output], expect[m.output])
+
+
+def test_a_depthwise_group_under_autograd_runs_the_plain_ops():
+    """While autograd records through the input or a BN parameter, the
+    conv's group runs ``dwconv_ref``'s ops: on ``meta`` no cost is
+    reported; under no_grad one ``dwconv`` call with the epilogue's cost.
+    On the CPU the gradients equal those of the nodes run one by one."""
+    b = Builder("dw_first", (6, 6), 8)
+    b.act(b.bn(b.dwconv(b.model.INPUT, 3, use_bias=False, name="dw"),
+               "bn"), "relu6", "r")
+    m = b.build()
+    assert [g.nodes for g in m.program().groups] == [("dw", "bn", "r")]
+    params = _random_params(m)
+    meta = {k: {n: t.to("meta") for n, t in p.items()}
+            for k, p in params.items()}
+    x = torch.empty((2, 6, 6, 8), device="meta")
+    for inp, ps in ((x.requires_grad_(True), meta),
+                    (x.detach(), {**meta, "bn": {**meta["bn"], "beta": meta[
+                        "bn"]["beta"].requires_grad_(True)}})):
+        seen = []
+        with _build.cost_sink(lambda *a: seen.append(a)):
+            y = m.apply(ps, inp)
+        assert y.grad_fn is not None and seen == []
+        with torch.no_grad(), _build.cost_sink(lambda *a: seen.append(a)):
+            m.apply(ps, inp)
+        n = 2 * 6 * 6 * 8
+        assert seen == [("dwconv", 23 * n, 4 * (2 * n + 72 + 32))]
+    xc = torch.randn(2, 6, 6, 8, generator=torch.Generator().manual_seed(8))
+    grads = []
+    for run in (lambda v: m.apply(params, v),
+                lambda v: _unfused(m, params, v)[m.output]):
+        v = xc.clone().requires_grad_(True)
+        run(v).square().sum().backward()
+        grads.append(v.grad)
+    assert torch.equal(grads[0], grads[1])
 
 
 def test_program_is_built_once_per_subset_and_boundary():

@@ -1,8 +1,9 @@
 """The CNN forward's depthwise span (``models/layers.py`` ``DWCONV_SPAN``)
 on the CPU: a grouped convolution runs its pad and its ``conv2d`` inside
-``cnn.dwconv``, an ungrouped one opens nothing, decided when the network
-is built; so MobileNetV2's forward opens 17 and ResNet50's none, also
-through the SPMD tier's stages."""
+``cnn.dwconv`` (a depthwise one also the BN and activation its group takes
+in), an ungrouped one opens nothing, decided when the network is built;
+so MobileNetV2's forward opens 17 and ResNet50's none, also through the
+SPMD tier's stages."""
 import collections
 
 import pytest
@@ -43,12 +44,15 @@ def test_a_profiled_forward_opens_a_span_a_depthwise_conv(name, spans):
     assert torch.equal(got, expect)
     mine = [e for e in events if e.name == DWCONV_SPAN]
     assert len(mine) == spans
-    # the layout views, the pad and the convolution run inside it
+    # the layout views, the pad and the convolution run inside it, and the
+    # BN and ReLU6 that each depthwise conv's group takes in
     inside = collections.Counter(
         e.name for e in events
         if e.cpu_parent is not None and e.cpu_parent.name == DWCONV_SPAN)
-    assert inside == ({"aten::permute": 2 * spans, "aten::pad": spans,
-                       "aten::conv2d": spans} if spans else {})
+    one = {"aten::permute": 2, "aten::pad": 1, "aten::conv2d": 1,
+           "aten::add": 2, "aten::rsqrt": 1, "aten::sub": 1, "aten::mul": 2,
+           "aten::clamp": 1}
+    assert inside == {op: n * spans for op, n in one.items() if spans}
 
 
 def test_the_span_is_chosen_when_the_node_is_built(monkeypatch):
@@ -98,8 +102,9 @@ def sm90():
 @pytest.mark.cuda
 def test_on_the_card_the_span_holds_one_dwconv_kernel(sm90):
     """A MobileNetV2 forward on the card: each of the 17 spans holds the
-    kernels of its depthwise conv, which are one ``dwconv`` launch and no
-    pad, fill or cuDNN kernel."""
+    kernels of its depthwise conv and the BN and ReLU6 after it, which are
+    one ``dwconv`` launch and no pad, fill, cuDNN or ``bn_epilogue``
+    kernel."""
     net = cnn.REAL_CNNS["MobileNetV2"]()
     params = net.init(sm90, torch.Generator(sm90).manual_seed(0))
     x = torch.randn((2,) + net.input_shape, device=sm90,

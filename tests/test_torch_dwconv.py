@@ -1,13 +1,15 @@
 """The depthwise convolution kernel (``kernels/dwconv.py``,
-``csrc/dwconv.cu``) and its place in the CNN forward.
+``csrc/dwconv.cu``), its BN epilogue, and its place in the CNN forward.
 
 On the CPU, with no JAX (the plain version is the forward's own ops):
 ``dwconv_ref`` is the ``F.pad`` and grouped ``F.conv2d`` route bit for
-bit at every distinct depthwise convolution of ``cnn.REAL_CNNS``; each of
-those passes the wrapper's checks on ``meta`` tensors and gets its output
-shape and cost; what the kernel does not take raises; a MobileNetV2
-forward calls the wrapper once a depthwise convolution (17), ResNet50's
-never, and a forward that records autograd runs the plain ops.
+bit at every distinct depthwise convolution of ``cnn.REAL_CNNS``, and with
+a BN the same route then ``bn_epilogue_ref``; each of those passes the
+wrapper's checks on ``meta`` tensors and gets its output shape and cost
+(the epilogue's with a BN); what the kernel does not take raises; a
+MobileNetV2 forward calls the wrapper once a depthwise convolution (17,
+each with its BN and ReLU6), ResNet50's never, and a forward that records
+autograd runs the plain ops.
 
 Marked ``cuda`` (skip without a card of compute capability 9.0):
 
@@ -19,7 +21,12 @@ fp32, TF32 off) within 4 ulp of the output's scale (4 x fp32's eps x max
 17 convolutions at the benchmark's microbatch of 256, at k 5, k 7, odd
 sizes, a bias and no padding; 17 launches a MobileNetV2 forward; and a
 MobileNetV2 forward through the SPMD tier against the plain route within
-the benchmark cell's 1.5e-5 of max |y|.
+the benchmark cell's 1.5e-5 of max |y|.  The epilogue: a launch with the
+BN and activation equal bit for bit to ``dwconv`` then ``bn_epilogue`` on
+the card at those 17 convolutions with ReLU6 and at k 5, k 7 and stride 2
+with and without a bias and each activation, a NaN and the ReLU6 ceiling
+as ``bn_epilogue`` gives them, its refusals, and a MobileNetV2 forward of
+17 launches with it and 35 ``bn_epilogue`` launches (52 without it).
 """
 import math
 from unittest import mock
@@ -32,8 +39,9 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import api  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import bn_epilogue as be  # noqa: E402
 from repro_torch.kernels import dwconv as dw  # noqa: E402
-from repro_torch.kernels.ref import dwconv_ref  # noqa: E402
+from repro_torch.kernels.ref import bn_epilogue_ref, dwconv_ref  # noqa: E402
 from repro_torch.launch import pipeline_spmd as spmd  # noqa: E402
 from repro_torch.models import cnn, layers  # noqa: E402
 
@@ -99,6 +107,17 @@ def _inputs(dev, n, h, w, c, k, bias=False, seed=0):
     return x, wt, b
 
 
+def _bn(dev, c, seed=1):
+    """Per-channel (mean, var, gamma, beta) drawn at random, scaled so that
+    a depthwise output of unit scale crosses ReLU6's 0 and 6."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(t.to(dev) for t in (
+        torch.randn(c, generator=g) * 0.5,
+        torch.rand(c, generator=g) * 0.1 + 0.01,
+        torch.rand(c, generator=g) * 2 + 0.5,
+        torch.randn(c, generator=g) * 2))
+
+
 def _route_before(x, w, b, stride, pads):
     """The forward's depthwise ops before the kernel, written out."""
     v = layers._nchw(x)
@@ -149,6 +168,35 @@ def test_dwconv_cost_counts_a_bias():
         19 * 3 * 5 * 5 * 8, 4 * (2400 + 72 + 600 + 8))
 
 
+@pytest.mark.parametrize("act", [None, "relu", "relu6"])
+def test_dwconv_cost_counts_the_bn_epilogue(act):
+    """4 more flops an output (5 with an activation) and the 4 per-channel
+    vectors read once: on ``meta`` the call reports it."""
+    x = torch.empty((3, 10, 10, 8), device=META)
+    ops = 18 + 4 + (act is not None)
+    expect = (ops * 3 * 5 * 5 * 8, 4 * (2400 + 72 + 600 + 4 * 8))
+    assert dw.dwconv_cost(x, 3, 5, 5, False, True, act) == expect
+    wt = torch.empty((8, 1, 3, 3), device=META)
+    costs = []
+    with _build.cost_sink(lambda *a: costs.append(a)):
+        y = dw.dwconv(x, wt, None, 2, (0, 1, 0, 1), _bn(META, 8), act)
+    assert y.shape == (3, 5, 5, 8) and costs == [("dwconv", *expect)]
+
+
+@pytest.mark.parametrize("act", [None, "relu", "relu6"])
+@pytest.mark.parametrize("bias", [False, True])
+def test_cpu_route_with_a_bn_is_the_plain_ops(act, bias):
+    """The conv's ``F.pad`` and grouped ``F.conv2d``, then
+    ``bn_epilogue_ref``: the nodes' own ops, bit for bit."""
+    x, wt, b = _inputs(CPU, 2, 9, 9, 16, 3, bias=bias)
+    ps = _bn(CPU, 16)
+    pads = _same(9, 9, 3, 2)
+    y = dw.dwconv(x, wt, b, 2, pads, ps, act)
+    expect = bn_epilogue_ref(_route_before(x, wt, b, 2, pads), *ps, act=act)
+    assert torch.equal(y, expect)
+    assert torch.equal(y, dwconv_ref(x, wt, b, 2, pads, ps, act))
+
+
 # (case, the error): what the kernel does not take raises off the CPU, and
 # nothing is counted
 REFUSED = [("float64", TypeError), ("weight_bfloat16", TypeError),
@@ -158,7 +206,10 @@ REFUSED = [("float64", TypeError), ("weight_bfloat16", TypeError),
            ("k3x5", ValueError), ("stride3", ValueError),
            ("pad_of_k", ValueError), ("bias_of_c2", ValueError),
            ("no_output", ValueError), ("weight_on_cpu", ValueError),
-           ("requires_grad", RuntimeError)]
+           ("requires_grad", RuntimeError), ("bn_float64", TypeError),
+           ("bn_of_c2", ValueError), ("bn_strided", ValueError),
+           ("bn_on_cpu", ValueError), ("act_without_bn", ValueError),
+           ("act_swish", ValueError), ("bn_requires_grad", RuntimeError)]
 
 
 def _refused_case(case):
@@ -167,6 +218,7 @@ def _refused_case(case):
     x = torch.empty((2, 8, 8, 16), device=dev)
     wt = torch.empty((16, 1, 3, 3), device=dev)
     b, stride, pads = None, 1, (1, 1, 1, 1)
+    bn, act = list(_bn(dev, 16)), "relu6"
     if case == "float64":
         x = x.double()
     elif case == "weight_bfloat16":
@@ -198,9 +250,23 @@ def _refused_case(case):
         wt, pads = torch.empty((16, 1, 5, 5), device=dev), (0, 0, 0, 0)
     elif case == "weight_on_cpu":
         wt = torch.empty((16, 1, 3, 3))
+    elif case == "bn_float64":
+        bn[1] = bn[1].double()
+    elif case == "bn_of_c2":
+        bn[2] = torch.empty(32, device=dev)
+    elif case == "bn_strided":
+        bn[3] = torch.empty(32, device=dev)[::2]
+    elif case == "bn_on_cpu":
+        bn[0] = torch.zeros(16)
+    elif case == "act_without_bn":
+        bn = None
+    elif case == "act_swish":
+        act = "swish"
+    elif case == "bn_requires_grad":
+        bn[2] = bn[2].requires_grad_(True)
     else:
         x = x.requires_grad_(True)
-    return x, wt, b, stride, pads
+    return x, wt, b, stride, pads, bn, act
 
 
 @pytest.mark.parametrize("case,error", REFUSED,
@@ -222,16 +288,18 @@ def test_a_forward_calls_the_kernel_once_a_depthwise_conv(monkeypatch, name,
                     generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         expect = net.apply(params, x)
-        seen = []
+        seen, fused = [], []
 
         def counted(*args):
-            seen.append(args[3:])
+            seen.append(args[3:5])
+            fused.append(args[5] is not None and args[6] == "relu6")
             return dw.dwconv(*args)
 
         monkeypatch.setattr(layers, "dwconv", counted)
         got = net.apply(params, x)
     assert len(seen) == calls
     assert seen == [(s, p) for *_, s, p in _depthwise_convs([name])]
+    assert all(fused)       # each with the BN and ReLU6 in its epilogue
     assert torch.equal(got, expect)
 
 
@@ -358,19 +426,28 @@ def test_kernel_refuses_2_31_elements_and_bad_arguments_before_a_launch(
     fn, raw_stream = dw._kernel()
     dev = torch.cuda.current_device()
 
-    def call(n=1, h=8, w=8, c=16, oh=8, ow=8, k=3, s=1, pt=1, pl=1):
-        return fn(None, None, None, None, n, h, w, c, oh, ow, k, s, pt, pl,
-                  dev, raw_stream(dev))
+    def call(n=1, h=8, w=8, c=16, oh=8, ow=8, k=3, s=1, pt=1, pl=1,
+             bn=(None,) * 4, act=0):
+        return fn(None, None, None, None, *bn, act, n, h, w, c, oh, ow, k,
+                  s, pt, pl, dev, raw_stream(dev))
 
     assert call(n=2 ** 15, h=2 ** 8, w=2 ** 8, c=4 * 2 ** 3) == 1
     assert call(oh=2 ** 14, ow=2 ** 14, c=8) == 1
     assert call(c=30) == call(k=4) == call(s=3) == call(pt=3) == 1
     assert call(pl=-1) == call(oh=0) == 1
+    # the epilogue: all four per-channel pointers or none (never read
+    # here), an activation code of 0 to 2, and none without the BN
+    assert call(bn=(16, None, None, None)) == call(bn=(16, 16, 16, None)) == 1
+    assert call(bn=(16,) * 4, act=3) == call(bn=(16,) * 4, act=-1) == 1
+    assert call(act=1) == call(act=2) == 1
 
 
 # (case, the error) on the card, beside the meta cases above
 REFUSED_ON_CARD = [("offset_view", ValueError), ("transposed", ValueError),
-                   ("requires_grad", RuntimeError)]
+                   ("requires_grad", RuntimeError),
+                   ("bn_on_cpu", ValueError), ("bn_strided", ValueError),
+                   ("bn_float64", TypeError), ("act_without_bn", ValueError),
+                   ("bn_requires_grad", RuntimeError)]
 
 
 @pytest.mark.cuda
@@ -378,16 +455,27 @@ REFUSED_ON_CARD = [("offset_view", ValueError), ("transposed", ValueError),
                          ids=[case for case, _ in REFUSED_ON_CARD])
 def test_kernel_refuses_on_the_card(sm90, case, error):
     x, wt, _ = _inputs(sm90, 2, 8, 8, 16, 3)
+    bn, act = list(_bn(sm90, 16)), "relu6"
     if case == "offset_view":           # 4 bytes off 16
         x = torch.empty(1 + x.numel(), device=sm90)[1:].view(x.shape)
     elif case == "transposed":
         x = x.transpose(1, 2)
-    else:
+    elif case == "requires_grad":
         x = x.requires_grad_(True)
-    before = _build.launches("dwconv")
+    elif case == "bn_on_cpu":
+        bn[0] = bn[0].cpu()
+    elif case == "bn_strided":
+        bn[1] = torch.ones(32, device=sm90)[::2]
+    elif case == "bn_float64":
+        bn[2] = bn[2].double()
+    elif case == "act_without_bn":
+        bn = None
+    else:
+        bn[3] = bn[3].requires_grad_(True)
+    before = _build.launches("dwconv"), _build.launches("dwconv.bn")
     with pytest.raises(error):
-        dw.dwconv(x, wt, None, 1, (1, 1, 1, 1))
-    assert _build.launches("dwconv") == before
+        dw.dwconv(x, wt, None, 1, (1, 1, 1, 1), bn, act)
+    assert (_build.launches("dwconv"), _build.launches("dwconv.bn")) == before
 
 
 @pytest.mark.cuda
@@ -418,6 +506,67 @@ def test_kernel_on_a_second_card(sm90):
     assert _build.launches_by_card("dwconv").get(1, 0) >= 1
 
 
+def _fused_equal(x, wt, b, stride, pads, ps, act):
+    """One counted launch with the epilogue, equal bit for bit to
+    ``dwconv`` then ``bn_epilogue`` (NaNs where they are); the output."""
+    before = _build.launches("dwconv"), _build.launches("dwconv.bn")
+    with torch.no_grad():
+        got = dw.dwconv(x, wt, b, stride, pads, ps, act)
+        torch.cuda.synchronize()
+        assert (_build.launches("dwconv"), _build.launches("dwconv.bn")) == (
+            before[0] + 1, before[1] + 1)
+        expect = be.bn_epilogue(dw.dwconv(x, wt, b, stride, pads), *ps,
+                                None, act)
+    torch.cuda.synchronize()
+    assert got.shape == expect.shape and got.is_contiguous()
+    nan = expect.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan], expect[~nan]), (
+        (got - expect)[~nan].abs().max().item())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOBILENETV2,
+                         ids=[f"dw{i}-" + i_d for i, i_d in
+                              enumerate(_ids(MOBILENETV2))])
+def test_fused_launch_at_mobilenetv2s_convs(sm90, case):
+    h, w, c, k, stride, pads = case
+    x, wt, _ = _inputs(sm90, 256, h, w, c, k)
+    y = _fused_equal(x, wt, None, stride, pads, _bn(sm90, c), "relu6")
+    assert 0 < (y == 6).sum().item() < y.numel()     # the ceiling is hit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "relu", "relu6"])
+@pytest.mark.parametrize("case", ODD, ids=_ids(ODD))
+def test_fused_launch_at_k5_k7_and_odd_sizes(sm90, case, act):
+    h, w, c, k, stride = case
+    x, wt, b = _inputs(sm90, 8, h, w, c, k, bias=True)
+    ps = _bn(sm90, c)
+    _fused_equal(x, wt, None, stride, _same(h, w, k, stride), ps, act)
+    _fused_equal(x, wt, b, stride, _same(h, w, k, stride), ps, act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "relu", "relu6"])
+def test_fused_launch_passes_a_nan_and_clips_at_six(sm90, act):
+    """A NaN in x reaches every output whose window holds it, through the
+    BN and the activation, as ``bn_epilogue`` gives it; finite outputs
+    past 6 are 6 under ReLU6."""
+    x, wt, _ = _inputs(sm90, 4, 14, 14, 64, 3)
+    x = x * 8
+    x[1, 3, 5, 7] = float("nan")
+    x[2, 0, 0, :] = float("nan")
+    y = _fused_equal(x, wt, None, 1, (1, 1, 1, 1), _bn(sm90, 64), act)
+    assert y.isnan().sum().item() >= 9 + 4 * 64
+    finite = y[~y.isnan()]
+    if act == "relu6":
+        assert finite.max().item() == 6 and finite.min().item() == 0
+    elif act is None:
+        assert finite.max().item() > 6 and finite.min().item() < 0
+
+
 def _mobilenetv2(dev, n):
     net = cnn.REAL_CNNS["MobileNetV2"]()
     params = net.init(dev, torch.Generator(dev).manual_seed(0))
@@ -428,12 +577,16 @@ def _mobilenetv2(dev, n):
 
 @pytest.mark.cuda
 def test_mobilenetv2_forward_is_17_dwconv_launches(sm90):
+    """Each with its BN and ReLU6 in the epilogue: 35 ``bn_epilogue``
+    launches are left of the 52 BNs."""
     net, params, x = _mobilenetv2(sm90, 2)
     with torch.no_grad():
         _build.reset_launches()
         y = net.apply(params, x)
         torch.cuda.synchronize()
         assert _build.launches("dwconv") == 17
+        assert _build.launches("dwconv.bn") / _build.launches("dwconv") == 1
+        assert _build.launches("bn_epilogue") == 35
         with mock.patch.object(layers, "dwconv", dwconv_ref):
             plain = net.apply(params, x)
     assert _build.launches("dwconv") == 17
@@ -458,7 +611,7 @@ def test_mobilenetv2_spmd_forward_matches_the_plain_route(sm90):
         with torch.no_grad():
             y = ex(x)
         torch.cuda.synchronize()
-    assert _build.launches("dwconv") == 4 * 17
+    assert _build.launches("dwconv") == _build.launches("dwconv.bn") == 68
     err = (y - plain).abs().max().item() / plain.abs().max().item()
     assert err <= SPMD_TOL, err
     assert math.isfinite(err)
